@@ -8,19 +8,26 @@ Phases, each fatal on failure (no phase hides an error):
    versions.  Without a CUDA device the script exits nonzero at once.
 2. Build: compiles every kernel from `w3d_torch/csrc/` (nvcc, sm_90a) and
    prints the build time.
-3. Main path, through the port's own entry points, with every kernel
-   launch counter set to 0 just before and read just after:
-   256 terrain tiles of 128^2 (512 droplets per tile, batch 512, 64
-   steps); 10K-object spheres frames (10 substeps, window 288, no water)
-   with the pair pass every 5th substep and every substep; one combined
-   step at `w3d_torch.entry.entry()`'s shapes.  Prints time to first
-   result, tiles/s and frames/s, and fails if a kernel was never launched
-   or a value is not finite.
-4. Each kernel against its plain PyTorch version on the card, at the main
+3. The paths, through the port's own entry points, each with every kernel
+   launch counter set to 0 just before it and read just after:
+   a. the main path: 256 terrain tiles of 128^2 (512 droplets per tile,
+      batch 512, 64 steps); 10K-object spheres frames (10 substeps,
+      window 288, no water) with the pair pass every 5th substep and every
+      substep; one combined step at `w3d_torch.entry.entry()`'s shapes;
+   b. the fused frame (`step_objects_fused`) on the same 10K balls: 10
+      substeps, pair pass every 5th; the substep kernel must launch 10
+      times and the pair kernel 2 times per frame, sample and narrow never;
+   c. the fused tile noise at the terrain path's shapes (256 tiles of
+      128^2), held against the terrain path's own noise, and 10 steps of
+      the smoke stencil on the default light grid (32, 128, 128), held
+      against the gated smoke path.
+   Prints time to first result, tiles/s and frames/s, and fails if a
+   kernel was never launched or a value is not finite.
+4. Each kernel against its plain PyTorch version on the card, at its
    path's shapes, in turns (plain, kernel, kernel, plain, ...): max
    difference, mismatch counts, median CUDA-event times.
-5. The combined step on a small input on the card against the same step
-   on the CPU (plain versions).
+5. The combined step and a small fused frame on a small input on the card
+   against the same steps on the CPU (plain versions).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -44,11 +51,15 @@ NUM_TILES = 256
 NUM_OBJS = 10000
 SUBSTEPS = 10
 WINDOW = 288
+LIGHT_GRID = (32, 128, 128)   # (mesh_z, mesh_y, mesh_x), lighting/lmap.py
 TOLS = {"erosion": "bitwise equal to the plain version and across two runs",
         "sample": "heights within 2 ulp of the mesh scale, normals 1e-6",
         "narrow": "hit mask equal, pen 1e-5, winner fields 1e-5 on lanes "
                   "with argmax margin > 1e-4",
-        "pairs": "1e-6"}
+        "pairs": "1e-6",
+        "substep": "1e-5, status and flags equal",
+        "tile_noise": "1e-3",
+        "diffuse_smoke": "1e-6"}
 
 
 def log(*a):
@@ -103,15 +114,22 @@ def main() -> int:
     from w3d_torch.models import terrain_model as TMOD
     from w3d_torch.models import physics_model as PM
     from w3d_torch.ops import erosion as E
+    from w3d_torch.ops import noise as N
     from w3d_torch.ops.cuda import build
     from w3d_torch.ops.cuda import erosion_kernel as EK
     from w3d_torch.ops.cuda import narrow_kernel as NK
+    from w3d_torch.ops.cuda import noise_kernel as NZK
     from w3d_torch.ops.cuda import pairs_kernel as PK
+    from w3d_torch.ops.cuda import physics_kernel as GK
     from w3d_torch.ops.cuda import sample_kernel as SK
+    from w3d_torch.ops.cuda import stencil_kernel as FK
     from w3d_torch.physics import cobjs as PC
+    from w3d_torch.physics import fused as PF
     from w3d_torch.physics import step as PS
+    from w3d_torch.physics import types as PT
     from w3d_torch.terrain import mesh as TM
     from w3d_torch.utils.constants import WorldConst
+    from w3d_torch.water import smoke as WS
 
     # ---- 1. device --------------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -129,13 +147,25 @@ def main() -> int:
         f"(nvcc {build.build_seconds if build.build_seconds is not None else 'cached'})")
 
     kernels = {"erosion": EK.KERNEL, "sample": SK.KERNEL,
-               "narrow": NK.KERNEL, "pairs": PK.KERNEL}
+               "narrow": NK.KERNEL, "pairs": PK.KERNEL, "substep": GK.KERNEL,
+               "tile_noise": NZK.KERNEL, "diffuse_smoke": FK.KERNEL}
     world = WorldConst()
     gen = torch.Generator(device=dev).manual_seed(1234)
 
-    # ---- 3. main path -----------------------------------------------------
-    for k in kernels.values():
-        k.launches = 0
+    def reset_counts():
+        for k in kernels.values():
+            k.launches = 0
+
+    def read_counts(path: str, required) -> dict:
+        c = {n: k.launches for n, k in kernels.items()}
+        log(f"launches on the {path}: {c}")
+        missing = [n for n in required if c[n] == 0]
+        if missing:
+            raise RuntimeError(f"kernels never launched on the {path}: {missing}")
+        return c
+
+    # ---- 3a. main path ----------------------------------------------------
+    reset_counts()
     mcfg = TMOD.TileModelConfig(tile_size=128, erosion_iters_tt=512,
                                 erosion_batch=512, erosion_steps=64)
     table, x0, y0, ze, wpz, ang = TMOD.example_inputs(
@@ -202,11 +232,76 @@ def main() -> int:
     need(bool(torch.isfinite(est.px).all()) and int((est.status > 0).sum()) > 1800,
          "combined-step objects finite and alive")
 
-    launches = {n: k.launches for n, k in kernels.items()}
-    log(f"launches on the main path: {launches}")
-    missing = [n for n, c in launches.items() if c == 0]
-    if missing:
-        raise RuntimeError(f"kernels never launched on the main path: {missing}")
+    launches = read_counts("main path", ("erosion", "sample", "narrow", "pairs"))
+
+    # ---- 3b. fused frame path ----------------------------------------------
+    def fused_frame(st):
+        return PS.step_objects_fused(st, sw0.env, sw0.cobjs, sw0.table,
+                                     substeps=SUBSTEPS, world=world,
+                                     pair_every=5)
+
+    reset_counts()
+    t0 = time.perf_counter()
+    fst = fused_frame(sw0.state)
+    torch.cuda.synchronize()
+    ttfr_fused = time.perf_counter() - t0
+    rates = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        for _ in range(4):
+            fst = fused_frame(fst)
+        torch.cuda.synchronize()
+        rates.append(4 / (time.perf_counter() - t0))
+    fc = read_counts("fused frame path", ("substep", "pairs"))
+    nfr = 21
+    need(fc["substep"] == SUBSTEPS * nfr and fc["pairs"] == 2 * nfr
+         and fc["sample"] == 0 and fc["narrow"] == 0,
+         "fused frames: 10 substep and 2 pair launches per frame, no sample "
+         "or narrow launch")
+    launches["substep"] = fc["substep"]
+    alive = int((fst.status > 0).sum())
+    for name in ("px", "py", "pz", "vx", "vy", "vz"):
+        need(bool(torch.isfinite(getattr(fst, name)).all()), f"fused {name} finite")
+    need(alive > 0.9 * NUM_OBJS, f"fused frames: alive objects {alive}")
+    need(int(fst.time.min()) == nfr, "fused frames: every object aged 21 frames")
+    fps["fused"] = statistics.median(rates)
+    log(f"physics fused, pair_every=5: {NUM_OBJS} objects, first frame "
+        f"{ttfr_fused:.3f} s, {fps['fused']:.1f} frames/s (median of 5; "
+        f"unfused {fps[5]:.1f} / {fps[1]:.1f} at pair_every 5 / 1), "
+        f"alive {alive}, resting {int((fst.status == 4).sum())}")
+
+    # ---- 3c. tile noise and smoke stencil paths ----------------------------
+    reset_counts()
+    cfg = mcfg.cfg
+    nargs = (table, x0, y0, 128, world.dx, world.dy, cfg.mesh_scale,
+             1.0 / cfg.mesh_scale_z)
+    noise = NZK.tile_noise(*nargs, start_sin=0)
+    xt, yt = N.sine_term_tables(table, x0, y0, world.dx, world.dy, 128, 128,
+                                world=world, mesh_scale=cfg.mesh_scale,
+                                mesh_scale_z_inv=1.0 / cfg.mesh_scale_z)
+    dn = float((noise - N.eval_sine_grid(xt, yt)).abs().max())
+    log(f"tile noise: {NUM_TILES} tiles 128^2, max |fused - terrain path "
+        f"noise| {dn:.3g}")
+    need(noise.shape == (NUM_TILES, 128, 128) and bool(torch.isfinite(noise).all())
+         and dn < 1e-3, "tile noise finite and within 1e-3 of the terrain path's")
+    smoke0 = torch.rand(LIGHT_GRID, generator=gen, device=dev) * 5
+    s_open, s_gated = smoke0, smoke0
+    for _ in range(10):
+        s_open = FK.diffuse_smoke_open(s_open)
+        s_gated = WS.diffuse_smoke(s_gated)
+    ds = float((s_open - s_gated).abs().max())
+    log(f"smoke: 10 steps on {LIGHT_GRID}, total {float(smoke0.sum()):.1f} -> "
+        f"{float(s_open.sum()):.1f}, max |stencil - gated path| {ds:.3g}")
+    need(bool(torch.isfinite(s_open).all()) and float(s_open.min()) >= 0.0
+         and float(s_open.max()) <= WS.SMOKE_MAX_VAL
+         and float(s_open.sum()) < float(smoke0.sum()) and ds < 1e-5,
+         "smoke finite, in [0, 100], draining at the edges, within 1e-5 of "
+         "the gated path")
+    ec = read_counts("noise and smoke paths", ("tile_noise", "diffuse_smoke"))
+    need(ec["tile_noise"] == 1 and ec["diffuse_smoke"] == 10,
+         "one tile-noise launch, 10 stencil launches")
+    launches["tile_noise"] = ec["tile_noise"]
+    launches["diffuse_smoke"] = ec["diffuse_smoke"]
 
     # ---- 4. kernels vs plain versions, main-path shapes ------------------
     report = {}
@@ -294,6 +389,70 @@ def main() -> int:
                       lambda: PK.banded_pairs(*pin, window=WINDOW), reps=6)
     report["pairs"] = (dp, km, pm)
 
+    # G: one fused substep at 10K, on the dense pile in the spheres scene
+    # and on random objects (random status, flag bits and params) over a
+    # bumpy mesh with water, so every branch sees objects
+    cf = NK.pack_cobj_fields(gc)
+    par = PS._type_params(dense.otype, sw0.table)[:7]
+    env12 = lambda water_z: torch.tensor(
+        [PT.DEF_TIMESTEP / SUBSTEPS, 1.0, 0.4, 0.2, 0.0, water_z, world.dx_inv,
+         world.dy_inv, world.x_scene, world.dx, world.dy, 0.0], device=dev)
+    gin = (dense.px, dense.py, dense.pz, dense.vx, dense.vy, dense.vz,
+           dense.status, dense.flags, *par, GK.mesh_maps(sw0.env.mesh_height, world),
+           cf, env12(-100.0))
+    rng = np.random.default_rng(5)
+    rnd = lambda lo, hi: torch.as_tensor(
+        rng.uniform(lo, hi, NUM_OBJS).astype(np.float32), device=dev)
+    bumpy = torch.as_tensor(rng.standard_normal((128, 128)).astype(np.float32)
+                            * 0.3 - 0.5, device=dev)
+    gin_rand = (rnd(-2.5, 2.5), rnd(-2.5, 2.5), rnd(-1.0, 1.0), rnd(-12, 12),
+                rnd(-12, 12), rnd(-16, 8),
+                torch.as_tensor(rng.integers(0, 5, NUM_OBJS).astype(np.int32), device=dev),
+                torch.as_tensor(rng.integers(0, 128, NUM_OBJS).astype(np.int32), device=dev),
+                rnd(0.02, 0.1), rnd(0.0, 0.3), rnd(0.0, 1.3), rnd(0.5, 1.5),
+                rnd(0.2, 1.0), rnd(0.3, 2.0), rnd(5.0, 30.0),
+                GK.mesh_maps(bumpy, world), cf, env12(0.25))
+    dg, unequal = 0.0, []
+    for args in (gin, gin_rand):
+        out = GK.substep(*args)
+        ref = PF.substep_plain(*args)
+        dg = max(dg, max(float((a - b).abs().max()) for a, b in zip(out[:6], ref[:6])))
+        bad = torch.zeros(NUM_OBJS, dtype=torch.bool, device=dev)
+        for a, b in zip(out, ref):
+            bad |= a != b
+        unequal.append((int(bad.sum()), int((out[6] != ref[6]).sum()),
+                        int((out[7] != ref[7]).sum()),
+                        int(((ref[7] & 2) != 0).sum())))
+    log(f"substep: max diff {dg:.3g}; (objects not bitwise equal, status "
+        f"unequal, flags unequal, cobj hits) dense pile {unequal[0]}, random "
+        f"objects {unequal[1]} of {NUM_OBJS}")
+    need(dg < 1e-5 and all(u[1] == 0 and u[2] == 0 for u in unequal)
+         and unequal[0][3] > 1000, "substep: " + TOLS["substep"] + ", with cobj hits")
+    pm, km = in_turns(lambda: PF.substep_plain(*gin), lambda: GK.substep(*gin),
+                      reps=10)
+    report["substep"] = (dg, km, pm)
+
+    # E: 256 tiles of 128^2, all 90 terms
+    out = NZK.tile_noise(*nargs, start_sin=0)
+    ref = N.tile_noise(*nargs, start_sin=0)
+    de = float((out - ref).abs().max())
+    log(f"tile_noise: max diff {de:.3g} on heights up to {float(ref.abs().max()):.3g}")
+    need(de < 1e-3, "tile_noise: " + TOLS["tile_noise"])
+    pm, km = in_turns(lambda: N.tile_noise(*nargs, start_sin=0),
+                      lambda: NZK.tile_noise(*nargs, start_sin=0), reps=10)
+    report["tile_noise"] = (de, km, pm)
+
+    # F: the default light grid
+    out = FK.diffuse_smoke_open(smoke0)
+    ref = WS.diffuse_smoke_open(smoke0)
+    df = float((out - ref).abs().max())
+    log(f"diffuse_smoke: {LIGHT_GRID}, max diff {df:.3g}, not bitwise "
+        f"{int((out != ref).sum())} of {out.numel()}")
+    need(df < 1e-6, "diffuse_smoke: " + TOLS["diffuse_smoke"])
+    pm, km = in_turns(lambda: WS.diffuse_smoke_open(smoke0),
+                      lambda: FK.diffuse_smoke_open(smoke0), reps=20)
+    report["diffuse_smoke"] = (df, km, pm)
+
     # ---- 5. small combined step: card vs CPU ------------------------------
     from w3d_torch import convert
     sworld = WorldConst(mesh_x=32, mesh_y=32)
@@ -321,6 +480,20 @@ def main() -> int:
     need(ok_pos.mean() >= 0.99 and same_status.mean() >= 0.99,
          "small step: 99% of objects within 1e-4 and same status")
 
+    # the fused frame, 256 objects, 2 substeps
+    cpu_f = PS.step_objects_fused(ssw.state, ssw.env, ssw.cobjs, ssw.table,
+                                  substeps=2, world=sworld)
+    gpu_f = convert.to_numpy(PS.step_objects_fused(
+        gsw.state, gsw.env, gsw.cobjs, gsw.table, substeps=2, world=sworld))
+    ok_f = np.ones(256, bool)
+    for name in ("px", "py", "pz", "vx", "vy", "vz"):
+        ok_f &= np.abs(getattr(gpu_f, name) - getattr(cpu_f, name).numpy()) <= 1e-4
+    same_f = gpu_f.status == cpu_f.status.numpy()
+    log(f"small fused frame, card vs CPU: objects within 1e-4: "
+        f"{int(ok_f.sum())}/256, same status {int(same_f.sum())}/256")
+    need(ok_f.mean() >= 0.99 and same_f.mean() >= 0.99,
+         "small fused frame: 99% of objects within 1e-4 and same status")
+
     # ---- results ----------------------------------------------------------
     srcs = {"erosion": ("erosion_walk", "w3d_torch/csrc/erosion.cu",
                         "3dworld_tpu/ops/pallas/erosion_kernel.py:226"),
@@ -329,7 +502,13 @@ def main() -> int:
             "narrow": ("deepest_hits", "w3d_torch/csrc/narrow.cu",
                        "3dworld_tpu/ops/pallas/narrow_kernel.py:319"),
             "pairs": ("banded_pairs", "w3d_torch/csrc/pairs.cu",
-                      "3dworld_tpu/ops/pallas/pairs_kernel.py:168")}
+                      "3dworld_tpu/ops/pallas/pairs_kernel.py:168"),
+            "substep": ("substep", "w3d_torch/csrc/substep.cu",
+                        "3dworld_tpu/ops/pallas/physics_kernel.py:543"),
+            "tile_noise": ("tile_noise", "w3d_torch/csrc/noise.cu",
+                           "3dworld_tpu/ops/pallas/noise_kernel.py:82"),
+            "diffuse_smoke": ("diffuse_smoke_open", "w3d_torch/csrc/stencil.cu",
+                              "3dworld_tpu/ops/pallas/stencil_kernel.py:62")}
     for n, (err, km, pm) in report.items():
         log(f"{n}: kernel {km:.4f} ms, plain {pm:.4f} ms, "
             f"max abs err {err:.3g} ({TOLS[n]})")
@@ -337,14 +516,15 @@ def main() -> int:
         "metrics": {"terrain_tiles_per_sec": tiles_per_s,
                     "physics_frames_per_sec_10k": fps[5],
                     "physics_fps_pair_every_1": fps[1],
-                    "time_to_first_tiles_s": ttfr_tiles},
+                    "physics_fused_frames_per_sec_10k": fps["fused"],
+                    "time_to_first_tiles_s": ttfr_tiles,
+                    "time_to_first_fused_frame_s": ttfr_fused},
         "card": smi}))
     log(json.dumps({"kernels": [
         {"name": srcs[n][0], "route": "cuda", "source": srcs[n][1],
          "replaces": srcs[n][2], "launches": launches[n],
          "max_abs_err": report[n][0], "ms": report[n][1],
-         "plain_ms": report[n][2]} for n in ("erosion", "sample", "narrow",
-                                              "pairs")]}))
+         "plain_ms": report[n][2]} for n in srcs]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

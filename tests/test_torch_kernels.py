@@ -10,7 +10,9 @@ Tolerances: erosion bitwise, and bitwise from run to run (each step's
 writes are summed in integer fixed point, whose order does not matter);
 sample heights bitwise (same op order, no FMA contraction in either), normals
 1e-6 (torch's CUDA rsqrt is not correctly rounded); narrow phase as the
-CPU tests hold the JAX kernel; pairs 1e-6.
+CPU tests hold the JAX kernel; pairs 1e-6; the fused substep 1e-5 with
+status and flags equal; tile noise 1e-3 (the kernel's own fused
+multiply-add loop against a float32 einsum); smoke stencil 1e-6.
 """
 
 import numpy as np
@@ -106,6 +108,89 @@ def test_pairs_kernel_matches_plain(cuda_device):
             assert (a - b).abs().max().item() < 1e-6
 
 
+def _substep_inputs(n, g, dev, water_z=0.25):
+    """Random objects over a bumpy mesh with random status, flag bits and
+    params, so every branch of the fused substep sees objects."""
+    from w3d_torch.ops.cuda import narrow_kernel as NK
+    from w3d_torch.ops.cuda import physics_kernel as GK
+    w = WorldConst()
+    rng = np.random.default_rng(5)
+    f32 = lambda lo, hi, k=n: torch.as_tensor(
+        rng.uniform(lo, hi, k).astype(np.float32), device=dev)
+    state = [f32(-2.5, 2.5), f32(-2.5, 2.5), f32(-1.0, 1.0),
+             f32(-12, 12), f32(-12, 12), f32(-16, 8)]
+    state += [torch.as_tensor(rng.integers(0, hi, n).astype(np.int32), device=dev)
+              for hi in (5, 1 << 7)]
+    params = [f32(0.02, 0.1), f32(0.0, 0.3), f32(0.0, 1.3), f32(0.5, 1.5),
+              f32(0.2, 1.0), f32(0.3, 2.0), f32(5.0, 30.0)]
+    mesh = torch.as_tensor(rng.standard_normal((w.mesh_y, w.mesh_x))
+                           .astype(np.float32) * 0.3 - 0.5, device=dev)
+    env = torch.tensor([0.0035, 1.0, 0.4, 0.2, -0.1, water_z, w.dx_inv,
+                        w.dy_inv, w.x_scene, w.dx, w.dy, 0.0], device=dev)
+    return (*state, *params, GK.mesh_maps(mesh, w),
+            NK.pack_cobj_fields(g).contiguous(), env)
+
+
+@pytest.mark.parametrize("scene", ["spheres", "seven_shapes"])
+def test_substep_kernel_matches_plain(cuda_device, scene):
+    from w3d_torch.ops.cuda import physics_kernel as GK
+    from w3d_torch.physics import fused as PF
+    sp = PM.spheres_scene() if scene == "spheres" else seven_shape_scene(SC)
+    g = PC.group_cobjs(SC.pack_cobjs(sp, device=cuda_device))
+    args = _substep_inputs(10000, g, cuda_device)
+    out = GK.substep(*args)
+    ref = PF.substep_plain(*args)
+    for a, b in zip(out[:6], ref[:6]):
+        assert (a - b).abs().max().item() < 1e-5
+    assert torch.equal(out[6], ref[6]) and torch.equal(out[7], ref[7])
+    assert int(((ref[7] & 2) != 0).sum()) > 500     # cobj hits
+    assert len(torch.unique(ref[6])) >= 4
+
+
+@pytest.mark.parametrize("n,start_sin", [(128, 0), (100, 20), (200, 0)])
+def test_tile_noise_kernel_matches_plain(cuda_device, n, start_sin):
+    from w3d_torch.ops import noise as N
+    from w3d_torch.ops.cuda import noise_kernel as EK
+    w = WorldConst()
+    table = N.gen_sine_table(w, mesh_seed=3, device=cuda_device)
+    x0 = torch.arange(16, dtype=torch.float32, device=cuda_device) * n
+    y0 = torch.full((16,), 64.0, device=cuda_device)
+    out = EK.tile_noise(table, x0, y0, n, w.dx, w.dy, start_sin=start_sin)
+    ref = N.tile_noise(table, x0, y0, n, w.dx, w.dy, start_sin=start_sin)
+    assert ref.abs().max().item() > 1.0
+    assert (out - ref).abs().max().item() < 1e-3
+
+
+@pytest.mark.parametrize("shape", [(32, 128, 128), (5, 7, 33)])
+def test_smoke_stencil_kernel_matches_plain(cuda_device, shape):
+    from w3d_torch.ops.cuda import stencil_kernel as FK
+    from w3d_torch.water import smoke as WS
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    s = torch.rand(shape, generator=g, device=cuda_device) * 5
+    s[0, 0, 0], s[-1, -1, -1] = 150.0, -20.0     # both clamps
+    out = FK.diffuse_smoke_open(s)
+    ref = WS.diffuse_smoke_open(s)
+    assert (out - ref).abs().max().item() < 1e-6
+
+
+def test_fused_frame_runs_through_its_kernels(cuda_device):
+    """step_objects_fused on the card: one substep launch per substep, the
+    pair pass on every pair_every-th, no sample or narrow launch."""
+    from w3d_torch.ops.cuda import (narrow_kernel, pairs_kernel,
+                                    physics_kernel, sample_kernel)
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    pos, vel = PM.spawn(2048, g, device=cuda_device)
+    sw = PM.build_spheres_world(pos, vel, device=cuda_device)
+    ks = (physics_kernel.KERNEL, pairs_kernel.KERNEL, sample_kernel.KERNEL,
+          narrow_kernel.KERNEL)
+    before = [k.launches for k in ks]
+    st = PS.step_objects_fused(sw.state, sw.env, sw.cobjs, sw.table,
+                               substeps=4, pair_every=2)
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(ks, before)] == [4, 2, 0, 0]
+    assert torch.isfinite(st.px).all() and int((st.status > 0).sum()) > 2000
+
+
 def test_entry_runs_through_every_kernel(cuda_device):
     """entry()'s step on the card: finite tiles and state, every kernel
     launched."""
@@ -139,3 +224,17 @@ def test_wrappers_reject_bad_input(cuda_device):
     p6 = torch.zeros(6, device=cuda_device)
     with pytest.raises(ValueError):
         EK.erosion_walk(hm, xi, xi, ang, p6)                   # batch > 1024
+    from w3d_torch.ops import noise as N
+    from w3d_torch.ops.cuda import noise_kernel as NZ
+    from w3d_torch.ops.cuda import physics_kernel as GK
+    from w3d_torch.ops.cuda import stencil_kernel as FK
+    table = N.gen_sine_table(w, device=cuda_device)
+    with pytest.raises(ValueError):
+        NZ.tile_noise(table, x, x, 512, w.dx, w.dy)            # tables > smem
+    with pytest.raises(ValueError):
+        FK.diffuse_smoke_open(mesh)                            # not 3-D
+    g = PC.group_cobjs(SC.pack_cobjs(PM.spheres_scene(), device=cuda_device))
+    args = list(_substep_inputs(10, g, cuda_device))
+    args[-2] = torch.zeros((1000, 32), device=cuda_device)    # M > MAX_ROWS
+    with pytest.raises(ValueError):
+        GK.substep(*args)

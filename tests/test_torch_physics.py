@@ -33,7 +33,7 @@ from w3d_torch.physics import types as TT
 from w3d_torch.scene import cobj as TSC
 from w3d_torch.utils.constants import WorldConst as TWorld
 
-from torch_port_util import np_tree, seven_shape_scene, ulp_diff
+from torch_port_util import bumpy_world, np_tree, seven_shape_scene, ulp_diff
 
 
 def test_type_table_matches():
@@ -156,29 +156,10 @@ def test_spatial_sort_alive_prefix():
     assert (out.status.numpy()[alive:] == 0).all()
 
 
-def _bumpy_world(n, water):
-    world = JWorld()
-    sw = JPM.build_spheres_world(num_objects=n, world=world)
-    rng = np.random.default_rng(3)
-    mesh = jnp.asarray(rng.standard_normal((world.mesh_y, world.mesh_x))
-                       .astype(np.float32) * 0.3 - 0.5)
-    env = sw.env._replace(mesh_height=mesh)
-    if water:   # above the ground cube's top, so objects reach it
-        env = env._replace(water_plane_z=jnp.float32(0.25))
-    # spawn close to the ground, fast and mostly downward, so cobj, water
-    # and pair contacts happen within 3 substeps.  Fast contacts bounce off;
-    # a contact that comes to rest sits at zero penetration, where a single
-    # rounding decides the next substep's collided flag.
-    st = sw.state
-    st = st._replace(pz=st.pz * 0.25 - 0.3, vx=st.vx * 12, vy=st.vy * 12,
-                     vz=st.vz * 12 - 4.0)
-    return world, sw._replace(env=env, state=st)
-
-
 @pytest.mark.parametrize("pair_every", [1, 2])
 @pytest.mark.parametrize("water", [True, False])
 def test_step_objects_matches_jax_banded(pair_every, water):
-    world, sw = _bumpy_world(300, water)
+    world, sw = bumpy_world(300, water)
     ref = np_tree(JPS.step_objects(sw.state, sw.env, sw.cobjs, sw.table,
                                    substeps=3, world=world,
                                    obj_collisions=True, pair_method="banded",

@@ -29,6 +29,30 @@ def ulp_diff(a, b) -> np.ndarray:
     return np.abs(ordered(a) - ordered(b))
 
 
+def bumpy_world(n, water):
+    """The JAX spheres world with `n` balls over a bumpy mesh, optionally
+    with water.  Returns (world, SpheresWorld) with JAX arrays."""
+    import jax.numpy as jnp
+    from w3d.models import physics_model as JPM
+    from w3d.utils.constants import WorldConst
+    world = WorldConst()
+    sw = JPM.build_spheres_world(num_objects=n, world=world)
+    rng = np.random.default_rng(3)
+    mesh = jnp.asarray(rng.standard_normal((world.mesh_y, world.mesh_x))
+                       .astype(np.float32) * 0.3 - 0.5)
+    env = sw.env._replace(mesh_height=mesh)
+    if water:   # above the ground cube's top, so objects reach it
+        env = env._replace(water_plane_z=jnp.float32(0.25))
+    # spawn close to the ground, fast and mostly downward, so cobj, water
+    # and pair contacts happen within 3 substeps.  Fast contacts bounce off;
+    # a contact that comes to rest sits at zero penetration, where a single
+    # rounding decides the next substep's collided flag.
+    st = sw.state
+    st = st._replace(pz=st.pz * 0.25 - 0.3, vx=st.vx * 12, vy=st.vy * 12,
+                     vz=st.vz * 12 - 4.0)
+    return world, sw._replace(env=env, state=st)
+
+
 def jax_angle_tables(num_iters: int, batch_size: int, max_steps: int,
                      seed: int = 0) -> np.ndarray:
     """The JAX erosion paths' flat-spot draws, [num_batches, steps, B]:

@@ -24,7 +24,10 @@ from .models.physics_model import SpheresWorld
 _INT32_FIELDS = ("flags",)   # uint32 bit masks in JAX
 
 
-def _tensor(a, device, name: str = "") -> torch.Tensor:
+def array(a, device, name: str = "") -> torch.Tensor:
+    """One array (a field of a value below, a cobj field table, a map
+    stack, a smoke grid, ...) -> a tensor of its own on `device`; uint32
+    bit masks become int32."""
     a = np.asarray(a)
     if name in _INT32_FIELDS or a.dtype == np.uint32:
         a = a.astype(np.int32)
@@ -32,7 +35,7 @@ def _tensor(a, device, name: str = "") -> torch.Tensor:
 
 
 def _named(cls, src, device):
-    return cls(**{f: _tensor(getattr(src, f), device, f) for f in cls._fields})
+    return cls(**{f: array(getattr(src, f), device, f) for f in cls._fields})
 
 
 def sine_table(src, device) -> SineTable:
@@ -54,10 +57,10 @@ def object_state(src, device) -> ObjectState:
 
 def physics_env(src, device) -> PhysicsEnv:
     wh = getattr(src, "water_height", None)
-    fields = {f: _tensor(getattr(src, f), device, f)
+    fields = {f: array(getattr(src, f), device, f)
               for f in PhysicsEnv._fields if f != "water_height"}
     return PhysicsEnv(**fields,
-                      water_height=None if wh is None else _tensor(wh, device))
+                      water_height=None if wh is None else array(wh, device))
 
 
 def cobj_set(src, device) -> CobjSet:

@@ -1,0 +1,226 @@
+// Sphere-vs-cobj penetration formulas shared by the narrow-phase kernel
+// (narrow.cu) and the fused substep kernel (substep.cu).
+//
+// Each function takes one row of the packed [M, 32] cobj field table
+// (physics/cobj_table.py layout) and an object's centre
+// and radius, and returns the penetration depth and push-out normal the
+// plain PyTorch versions compute for that shape (physics/cobjs.py and
+// physics/fused.py), op for op: built with -fmad=false, every product and
+// sum rounds on its own.  Sqrt and divide are IEEE; the rotated cylinder's
+// 1/|ab| is a divide by sqrtf, not the approximate rsqrtf.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace w3d {
+
+constexpr int CF = 32;   // packed field columns per cobj (padded)
+// column indices of the packed table (physics/cobj_table.CF_COLUMNS)
+constexpr int C_SHAPE = 0, C_P1 = 1, C_P2 = 4, C_R1 = 7, C_R2 = 8,
+              C_NPTS = 9, C_PTS = 10, C_PN = 22, C_ELAS = 25, C_FRIC = 26;
+// shape ids (collision_detect.h:14)
+constexpr int COLL_NULL = 0, COLL_CUBE = 1, COLL_CYLINDER = 2,
+              COLL_SPHERE = 3, COLL_CYLINDER_ROT = 4, COLL_POLYGON = 5,
+              COLL_CAPSULE = 6, COLL_TORUS = 7;
+constexpr float EPS = 1e-12f;
+
+struct Hit {
+  float pen, nx, ny, nz;
+};
+
+__device__ __forceinline__ float clampf(float v, float lo, float hi) {
+  return fminf(fmaxf(v, lo), hi);
+}
+
+// (|a|, a/|a|) with the plain version's guard
+__device__ __forceinline__ float norm3(float ax, float ay, float az,
+                                       float* nx, float* ny, float* nz) {
+  const float d = sqrtf(ax * ax + ay * ay + az * az);
+  const float inv = 1.0f / fmaxf(d, EPS);
+  *nx = ax * inv;
+  *ny = ay * inv;
+  *nz = az * inv;
+  return d;
+}
+
+__device__ __forceinline__ Hit cube(const float* c, float X, float Y, float Z,
+                                    float r) {
+  const float lox = fminf(c[C_P1], c[C_P2]), hix = fmaxf(c[C_P1], c[C_P2]);
+  const float loy = fminf(c[C_P1 + 1], c[C_P2 + 1]),
+              hiy = fmaxf(c[C_P1 + 1], c[C_P2 + 1]);
+  const float loz = fminf(c[C_P1 + 2], c[C_P2 + 2]),
+              hiz = fmaxf(c[C_P1 + 2], c[C_P2 + 2]);
+  const float cx = clampf(X, lox, hix), cy = clampf(Y, loy, hiy),
+              cz = clampf(Z, loz, hiz);
+  float ox, oy, oz;
+  const float dist_out = norm3(X - cx, Y - cy, Z - cz, &ox, &oy, &oz);
+  const bool outside = dist_out > 1e-9f;
+  const float dxl = X - lox, dxh = hix - X;
+  const float dyl = Y - loy, dyh = hiy - Y;
+  const float dzl = Z - loz, dzh = hiz - Z;
+  const float dx_m = fminf(dxl, dxh), dy_m = fminf(dyl, dyh),
+              dz_m = fminf(dzl, dzh);
+  const float din = fminf(dx_m, fminf(dy_m, dz_m));
+  const bool use_x = din == dx_m;
+  const bool use_y = (din == dy_m) && !use_x;
+  const bool use_z = !use_x && !use_y;
+  Hit h;
+  h.pen = outside ? r - dist_out : r + din;
+  h.nx = outside ? ox : (use_x ? (dxl < dxh ? -1.0f : 1.0f) : 0.0f);
+  h.ny = outside ? oy : (use_y ? (dyl < dyh ? -1.0f : 1.0f) : 0.0f);
+  h.nz = outside ? oz : (use_z ? (dzl < dzh ? -1.0f : 1.0f) : 0.0f);
+  return h;
+}
+
+__device__ __forceinline__ Hit sphere(const float* c, float X, float Y,
+                                      float Z, float r) {
+  Hit h;
+  const float dist =
+      norm3(X - c[C_P1], Y - c[C_P1 + 1], Z - c[C_P1 + 2], &h.nx, &h.ny, &h.nz);
+  h.pen = (r + c[C_R1]) - dist;
+  return h;
+}
+
+__device__ __forceinline__ Hit vcylinder(const float* c, float X, float Y,
+                                         float Z, float r) {
+  const float zlo = fminf(c[C_P1 + 2], c[C_P2 + 2]);
+  const float zhi = fmaxf(c[C_P1 + 2], c[C_P2 + 2]);
+  const float rxy = fmaxf(c[C_R1], c[C_R2]);
+  const float ddx = X - c[C_P1], ddy = Y - c[C_P1 + 1];
+  const float dist_xy = sqrtf(ddx * ddx + ddy * ddy);
+  const float inv_xy = 1.0f / fmaxf(dist_xy, EPS);
+  const bool in_z = (Z > zlo - r) && (Z < zhi + r);
+  const float pen_side = (r + rxy) - dist_xy;
+  const float top_pen = (zhi + r) - Z;
+  const float bot_pen = Z - (zlo - r);
+  const bool cap_is_top = top_pen < bot_pen;
+  const float pen_cap = fminf(top_pen, bot_pen);
+  const bool use_cap = (dist_xy < rxy) && (pen_cap < pen_side);
+  Hit h;
+  h.pen = (in_z && dist_xy < rxy + r) ? (use_cap ? pen_cap : pen_side) : -1.0f;
+  h.nx = use_cap ? 0.0f : ddx * inv_xy;
+  h.ny = use_cap ? 0.0f : ddy * inv_xy;
+  h.nz = use_cap ? (cap_is_top ? 1.0f : -1.0f) : 0.0f;
+  return h;
+}
+
+__device__ __forceinline__ Hit capsule(const float* c, float X, float Y,
+                                       float Z, float r) {
+  const float p1x = c[C_P1], p1y = c[C_P1 + 1], p1z = c[C_P1 + 2];
+  const float abx = c[C_P2] - p1x, aby = c[C_P2 + 1] - p1y,
+              abz = c[C_P2 + 2] - p1z;
+  const float ab2 = fmaxf(abx * abx + aby * aby + abz * abz, EPS);
+  const float t = clampf(
+      ((X - p1x) * abx + (Y - p1y) * aby + (Z - p1z) * abz) / ab2, 0.0f, 1.0f);
+  Hit h;
+  const float dist_seg = norm3(X - (p1x + t * abx), Y - (p1y + t * aby),
+                               Z - (p1z + t * abz), &h.nx, &h.ny, &h.nz);
+  const float rad_t = c[C_R1] + t * (c[C_R2] - c[C_R1]);
+  h.pen = (r + rad_t) - dist_seg;
+  return h;
+}
+
+__device__ __forceinline__ Hit polygon(const float* c, float X, float Y,
+                                       float Z, float r) {
+  const float pnx = c[C_PN], pny = c[C_PN + 1], pnz = c[C_PN + 2];
+  const float npts = c[C_NPTS];
+  const float* pt = c + C_PTS;   // pt[3k + axis]
+  const float dp =
+      (X - pt[0]) * pnx + (Y - pt[1]) * pny + (Z - pt[2]) * pnz;
+  const float side = dp > 0.0f ? 1.0f : (dp < 0.0f ? -1.0f : 0.0f);
+  const float prx = X - dp * pnx, pry = Y - dp * pny, prz = Z - dp * pnz;
+  bool inside = true;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int kn = (k + 1) % 4;
+    const bool nxt_ok = (float)kn < npts;
+    const float ax = pt[3 * k], ay = pt[3 * k + 1], az = pt[3 * k + 2];
+    const float bx = nxt_ok ? pt[3 * kn] : pt[0];
+    const float by = nxt_ok ? pt[3 * kn + 1] : pt[1];
+    const float bz = nxt_ok ? pt[3 * kn + 2] : pt[2];
+    const float ex = bx - ax, ey = by - ay, ez = bz - az;
+    const float vx = prx - ax, vy = pry - ay, vz = prz - az;
+    const float crx = ey * vz - ez * vy;
+    const float cry = ez * vx - ex * vz;
+    const float crz = ex * vy - ey * vx;
+    const bool ok = (crx * pnx + cry * pny + crz * pnz) >= -1e-7f;
+    inside = inside && ((float)k < npts ? ok : true);
+  }
+  Hit h;
+  h.pen = inside ? (r + 0.5f * c[C_R1]) - fabsf(dp) : -1.0f;
+  h.nx = pnx * side;
+  h.ny = pny * side;
+  h.nz = pnz * side;
+  return h;
+}
+
+__device__ __forceinline__ Hit torus(const float* c, float X, float Y,
+                                     float Z, float r) {
+  const float tx = X - c[C_P1], ty = Y - c[C_P1 + 1], tz = Z - c[C_P1 + 2];
+  const float axx = c[C_P2], axy = c[C_P2 + 1], axz = c[C_P2 + 2];
+  const float axial = tx * axx + ty * axy + tz * axz;
+  const float rvx = tx - axial * axx, rvy = ty - axial * axy,
+              rvz = tz - axial * axz;
+  const float radial = sqrtf(rvx * rvx + rvy * rvy + rvz * rvz);
+  const float rinv = c[C_R1] / fmaxf(radial, EPS);
+  Hit h;
+  const float dist_ring = norm3(tx - rvx * rinv, ty - rvy * rinv,
+                                tz - rvz * rinv, &h.nx, &h.ny, &h.nz);
+  h.pen = (r + c[C_R2]) - dist_ring;
+  return h;
+}
+
+__device__ __forceinline__ Hit rcylinder(const float* c, float X, float Y,
+                                         float Z, float r) {
+  const float p1x = c[C_P1], p1y = c[C_P1 + 1], p1z = c[C_P1 + 2];
+  const float abx = c[C_P2] - p1x, aby = c[C_P2 + 1] - p1y,
+              abz = c[C_P2 + 2] - p1z;
+  const float ab2 = fmaxf(abx * abx + aby * aby + abz * abz, EPS);
+  const float leninv = 1.0f / sqrtf(ab2);
+  const float length = ab2 * leninv;
+  const float r1 = c[C_R1], r2 = c[C_R2];
+  const float t_un =
+      ((X - p1x) * abx + (Y - p1y) * aby + (Z - p1z) * abz) / ab2;
+  const float t_cl = clampf(t_un, 0.0f, 1.0f);
+  float rnx, rny, rnz;
+  const float rdist = norm3(X - (p1x + t_un * abx), Y - (p1y + t_un * aby),
+                            Z - (p1z + t_un * abz), &rnx, &rny, &rnz);
+  const float rad_tc = r1 + t_cl * (r2 - r1);
+  const bool in_t = (t_un >= 0.0f) && (t_un <= 1.0f);
+  const float pen_s = (rad_tc + r) - rdist;
+  const bool side_ok = in_t && (pen_s > 0.0f);
+  const bool d_end = t_un > 0.5f;
+  const float end_r = d_end ? r2 : r1;
+  const float axial_out = fmaxf(fmaxf(-t_un, t_un - 1.0f), 0.0f) * length;
+  const float tv_cl = (d_end ? 1.0f - t_cl : t_cl) * length;
+  const float pen_e = r - axial_out;
+  const bool end_ok = (end_r > 0.0f) && (tv_cl < fminf(r, rdist)) &&
+                      (rdist <= rad_tc + r) && (pen_e > 0.0f);
+  const float sgn = d_end ? 1.0f : -1.0f;
+  const bool use_end = end_ok && (!side_ok || (pen_e < pen_s));
+  Hit h;
+  h.pen = use_end ? pen_e : (side_ok ? pen_s : -1.0f);
+  h.nx = use_end ? sgn * abx * leninv : rnx;
+  h.ny = use_end ? sgn * aby * leninv : rny;
+  h.nz = use_end ? sgn * abz * leninv : rnz;
+  return h;
+}
+
+// The formula of the row's own shape; a dead slot (shape 0) or an unknown
+// id scores -1 with a zero normal.
+__device__ __forceinline__ Hit eval_shape(int shape, const float* c, float X,
+                                          float Y, float Z, float r) {
+  switch (shape) {
+    case COLL_CUBE: return cube(c, X, Y, Z, r);
+    case COLL_SPHERE: return sphere(c, X, Y, Z, r);
+    case COLL_CYLINDER: return vcylinder(c, X, Y, Z, r);
+    case COLL_CAPSULE: return capsule(c, X, Y, Z, r);
+    case COLL_CYLINDER_ROT: return rcylinder(c, X, Y, Z, r);
+    case COLL_POLYGON: return polygon(c, X, Y, Z, r);
+    case COLL_TORUS: return torus(c, X, Y, Z, r);
+    default: return Hit{-1.0f, 0.0f, 0.0f, 0.0f};
+  }
+}
+
+}  // namespace w3d

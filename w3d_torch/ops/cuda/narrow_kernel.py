@@ -17,26 +17,21 @@ import weakref
 import torch
 
 from . import build
+from ...physics.cobj_table import CF_PAD
 from ...physics.cobjs import CobjSet, GroupedCobjs, deepest_hits_grouped
 
 KERNEL = build.Kernel("w3d_narrow",
                       [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
                       + [ctypes.c_void_p] * 10 + [ctypes.c_int])
 
-# column order of the packed cobj field matrix (physics_kernel._CF)
-_CF = ("shape", "p1x", "p1y", "p1z", "p2x", "p2y", "p2z", "r1", "r2",
-       "npts",
-       "pt0x", "pt0y", "pt0z", "pt1x", "pt1y", "pt1z",
-       "pt2x", "pt2y", "pt2z", "pt3x", "pt3y", "pt3z",
-       "pnx", "pny", "pnz", "elas", "fric")
-_CF_PAD = 32
-MAX_ROWS = 48 * 1024 // (_CF_PAD * 4)   # the table in 48 KB of shared memory
+MAX_ROWS = 48 * 1024 // (CF_PAD * 4)   # the table in 48 KB of shared memory
 # GroupedCobjs -> (packed table, group starts), built once per scene
 _TABLES: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
 
 
 def pack_cobj_fields(c: CobjSet | GroupedCobjs) -> torch.Tensor:
-    """CobjSet (or GroupedCobjs) -> [M, 32] f32 field matrix (`_CF`)."""
+    """CobjSet (or GroupedCobjs) -> [M, 32] f32 field matrix, columns as
+    `physics/cobj_table.CF_COLUMNS`."""
     if isinstance(c, GroupedCobjs):
         c = c.cobjs
     cols = [c.shape.to(torch.float32),
@@ -48,7 +43,7 @@ def pack_cobj_fields(c: CobjSet | GroupedCobjs) -> torch.Tensor:
     cols += [c.pnorm[:, 0], c.pnorm[:, 1], c.pnorm[:, 2],
              c.elasticity, c.friction]
     m = torch.stack(cols, dim=1).to(torch.float32)
-    return torch.nn.functional.pad(m, (0, _CF_PAD - m.shape[1])).contiguous()
+    return torch.nn.functional.pad(m, (0, CF_PAD - m.shape[1])).contiguous()
 
 
 def kernel_tables(g: GroupedCobjs) -> tuple:
@@ -78,7 +73,7 @@ def deepest_hits(px, py, pz, radius, g: GroupedCobjs):
         build.check(name, t, torch.float32, (n,), dev)
     cf, starts = kernel_tables(g)
     M = cf.shape[0]
-    build.check("fields", cf, torch.float32, (M, _CF_PAD), dev)
+    build.check("fields", cf, torch.float32, (M, CF_PAD), dev)
     build.check("starts", starts, torch.int32, (8,), dev)
     if M > MAX_ROWS:
         raise ValueError(f"deepest_hits: {M} cobj slots exceed the kernel's "

@@ -1,0 +1,75 @@
+"""Fused physics substep: CUDA kernel `csrc/substep.cu` (replaces the Pallas
+`_substep_kernel`, `3dworld_tpu/ops/pallas/physics_kernel.py:84`, called
+through `substep_pallas` at :514).
+
+One thread per object runs a whole substep with its state in registers;
+the packed [M, 32] cobj table (`narrow_kernel.pack_cobj_fields`) sits in
+shared memory, and the mesh maps are read from global memory.  Takes any
+N; raises when the table does not fit the kernel's shared memory.  The
+plain version is `physics/fused.substep_plain`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build
+from .narrow_kernel import MAX_ROWS
+from ...physics.cobj_table import CF_PAD
+from ...physics.fused import substep_plain
+from ...utils.constants import WorldConst
+
+KERNEL = build.Kernel("w3d_substep",
+                      [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
+                      + [ctypes.c_void_p] * 23 + [ctypes.c_int])
+
+ENV_LEN = 12
+
+
+def mesh_maps(mesh: torch.Tensor, world: WorldConst) -> torch.Tensor:
+    """[my, mx] heightmap -> [3*my, mx] stack of (height, dz/dx, dz/dy),
+    the gradients as periodic central differences (`jnp.roll`)."""
+    dzdx = (torch.roll(mesh, -1, 1) - torch.roll(mesh, 1, 1)) * (0.5 * world.dx_inv)
+    dzdy = (torch.roll(mesh, -1, 0) - torch.roll(mesh, 1, 0)) * (0.5 * world.dy_inv)
+    return torch.cat([mesh, dzdx, dzdy], dim=0).to(torch.float32).contiguous()
+
+
+def substep(px, py, pz, vx, vy, vz, status, flags,
+            rad, air, fric, grav, elas, dens, tv,
+            maps3: torch.Tensor, cf: torch.Tensor, env: torch.Tensor):
+    """One fused substep: (px, py, pz, vx, vy, vz, status, flags), each [N].
+    Arguments as `physics/fused.substep_plain`.  CPU tensors take the plain
+    version; CUDA tensors take the kernel."""
+    args = (px, py, pz, vx, vy, vz, status, flags, rad, air, fric, grav,
+            elas, dens, tv, maps3, cf, env)
+    if px.device.type == "cpu":
+        return substep_plain(*args)
+    if px.device.type != "cuda":
+        raise ValueError(f"substep: unsupported device {px.device}")
+    n = px.shape[0]
+    dev = px.device
+    names = ("px", "py", "pz", "vx", "vy", "vz", "status", "flags", "rad",
+             "air", "fric", "grav", "elas", "dens", "tv")
+    for name, t in zip(names, args[:15]):
+        dt = torch.int32 if name in ("status", "flags") else torch.float32
+        build.check(name, t, dt, (n,), dev)
+    my3, mx = maps3.shape
+    M = cf.shape[0]
+    build.check("maps3", maps3, torch.float32, (my3, mx), dev)
+    build.check("cf", cf, torch.float32, (M, CF_PAD), dev)
+    build.check("env", env, torch.float32, (ENV_LEN,), dev)
+    if my3 % 3 or my3 < 6 or mx < 2:
+        raise ValueError(f"substep: maps3 {tuple(maps3.shape)} is not a "
+                         f"[3*my, mx] stack with my, mx >= 2")
+    if M > MAX_ROWS:
+        raise ValueError(f"substep: {M} cobj slots exceed the kernel's "
+                         f"{MAX_ROWS}-row shared-memory table")
+    outs = [torch.empty_like(px) for _ in range(6)] \
+        + [torch.empty_like(status) for _ in range(2)]
+    KERNEL.launch(env.data_ptr(), maps3.data_ptr(), my3 // 3, mx,
+                  cf.data_ptr(), M, *(t.data_ptr() for t in args[:15]),
+                  *(o.data_ptr() for o in outs), n)
+    return tuple(outs)

@@ -7,6 +7,10 @@ separable (mesh_gen.cpp:604-626, :754): per-axis term tables X[nx,90],
 Y[ny,90] and height(x,y) = sum_k X[x,k]*Y[y,k], i.e. one (nx,90)@(90,ny)
 product per tile, batched over tiles as one einsum.
 
+`tile_noise` is the plain version of the fused tile-noise kernel (kernel
+E, `ops/cuda/noise_kernel.tile_noise`): the same heights computed by the
+Pallas `_tile_noise_kernel`'s formula, tile by tile.
+
 The fBm simplex/perlin modes are not ported yet.
 """
 
@@ -164,6 +168,33 @@ def eval_sine_grid(xterms: torch.Tensor, yterms: torch.Tensor) -> torch.Tensor:
     product per tile (the hot loop of mesh_gen.cpp:754-770).  Callers keep
     TF32 off, so the product runs in full float32."""
     return torch.einsum("...xk,...yk->...yx", xterms, yterms)
+
+
+def tile_noise(table: SineTable, x0: torch.Tensor, y0: torch.Tensor, n: int,
+               dx: float, dy: float, mesh_scale: float = 1.0,
+               mesh_scale_z_inv: float = 1.0, start_sin: int = 0) -> torch.Tensor:
+    """[T] tile origins (grid units) -> [T, n, n] raw sine-mode heights.
+
+    Transcribes the Pallas `_tile_noise_kernel`
+    (`3dworld_tpu/ops/pallas/noise_kernel.py:28-53`): per tile the term
+    tables X[n, K] (terms below `start_sin` zeroed) and Y[n, K] (scaled by
+    mesh_scale_z_inv * mag), then height[y, x] = sum_k Y[y, k] X[x, k].
+    Scalars round to float32 where the kernel's static arguments do."""
+    msx = mesh_scale / dx
+    msy = mesh_scale / dy
+    ms2 = 0.5 * mesh_scale
+    dev = table.mag.device
+    x0 = torch.as_tensor(x0, dtype=torch.float32, device=dev)[:, None]   # [T, 1]
+    y0 = torch.as_tensor(y0, dtype=torch.float32, device=dev)[:, None]
+    mask = (torch.arange(F_TABLE_SIZE, device=dev) >= start_sin).to(torch.float32)
+    x_mult = msx * table.freq_x                                          # [K]
+    y_mult = msy * table.freq_y
+    x_const = ms2 * table.freq_x + table.phase_x + x_mult * (dx * x0)    # [T, K]
+    y_const = ms2 * table.freq_y + table.phase_y + y_mult * (dy * y0)
+    xi = torch.arange(n, dtype=torch.float32, device=dev)[:, None]       # [n, 1]
+    xt = torch.sin(x_mult * dx * xi + x_const[:, None, :]) * mask         # [T, n, K]
+    yt = (mesh_scale_z_inv * table.mag) * torch.sin(y_mult * dy * xi + y_const[:, None, :])
+    return torch.einsum("tyk,txk->tyx", yt, xt)
 
 
 def apply_noise_shape_final(z: torch.Tensor, shape: int) -> torch.Tensor:

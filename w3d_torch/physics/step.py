@@ -18,9 +18,13 @@ Reference quirk preserved: `advance_object`'s static-friction branch is
 dead code — its condition is `!(flags | IN_WATER)` (always false,
 Physics.cpp:826-829) — so the reference never applies it and neither do we.
 
+`step_objects_fused` is the other frame path: one fused-substep kernel
+launch (`ops/cuda/physics_kernel`, plain version `physics/fused`) per
+substep in place of `_substep`'s ~400 small ops, with the sort and the
+banded pair pass between the launches.
+
 Not ported yet: the Morton, grid, block and rowblock pair paths,
-`spatial_sort_repair`, the fused-kernel frame `step_objects_fused` and
-`local_wind_field`.
+`spatial_sort_repair` and `local_wind_field`.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from . import types as T
 from .cobjs import GroupedCobjs
 from ..ops.cuda import narrow_kernel as NK
 from ..ops.cuda import pairs_kernel as PK
+from ..ops.cuda import physics_kernel as GK
 from ..ops.cuda import sample_kernel as SK
 
 
@@ -105,8 +110,6 @@ def sample_mesh(mesh: torch.Tensor, x, y, world: WorldConst):
     my, mx = mesh.shape
     gx = x * world.dx_inv + mx // 2
     gy = y * world.dy_inv + my // 2
-    dzdx = (torch.roll(mesh, -1, 1) - torch.roll(mesh, 1, 1)) * (0.5 * world.dx_inv)
-    dzdy = (torch.roll(mesh, -1, 0) - torch.roll(mesh, 1, 0)) * (0.5 * world.dy_inv)
     x0 = torch.clamp(torch.floor(gx).long(), 0, mx - 2)
     y0 = torch.clamp(torch.floor(gy).long(), 0, my - 2)
     fx = torch.clamp(gx - x0.float(), 0.0, 1.0)
@@ -118,9 +121,7 @@ def sample_mesh(mesh: torch.Tensor, x, y, world: WorldConst):
         c1 = m[y0, x0 + 1] * wy0 + m[y0 + 1, x0 + 1] * fy
         return c0 * wx0 + c1 * fx
 
-    h = interp(mesh)
-    sx = interp(dzdx)
-    sy = interp(dzdy)
+    h, sx, sy = (interp(m) for m in GK.mesh_maps(mesh, world).view(3, my, mx))
     inv = torch.rsqrt(sx * sx + sy * sy + 1.0)
     return h, -sx * inv, -sy * inv, inv  # (height, nx, ny, nz)
 
@@ -551,3 +552,69 @@ def _frame_bookkeeping(state: ObjectState, table: T.ObjTypeTable) -> ObjectState
     status = torch.where((life > 0) & (time.to(torch.float32) > life), 0,
                          state.status)
     return state._replace(time=time, status=status)
+
+
+# ---------------------------------------------------------------------------
+# fused-kernel frame path (ops/cuda/physics_kernel)
+# ---------------------------------------------------------------------------
+
+def step_objects_fused(
+    state: ObjectState,
+    env: PhysicsEnv,
+    cobjs: GroupedCobjs,
+    table: T.ObjTypeTable,
+    tstep: float = T.DEF_TIMESTEP,
+    substeps: int = 4,
+    world: WorldConst = DEFAULT_WORLD,
+    obj_collisions: bool = True,
+    pair_every: int = 1,
+) -> ObjectState:
+    """`step_objects` with the per-substep pipeline (integrate -> mesh ->
+    water -> cobjs -> mesh bounce -> rolling) fused into one kernel launch;
+    the x sort and the banded pair pass run between the launches.
+
+    Semantics are the fused kernel's (see `physics/fused`): penetration
+    ties average, there is no ice branch (use `step_objects` below
+    freezing), the water level is `env.water_plane_z` alone
+    (`env.water_height` is not read), and the cobj narrow phase always
+    runs."""
+    if obj_collisions:
+        state = spatial_sort(state)
+    rad, air, fric, grav, elas, dens, tv, mass, life = _type_params(state.otype, table)
+    maps3 = GK.mesh_maps(env.mesh_height, world)
+    cf = NK.kernel_tables(cobjs)[0]
+    f32 = dict(dtype=torch.float32, device=state.px.device)
+    env12 = torch.cat([torch.tensor([tstep / substeps], **f32),
+                       env.base_gravity.reshape(1), env.wind.reshape(3),
+                       env.water_plane_z.reshape(1),
+                       torch.tensor([world.dx_inv, world.dy_inv, world.x_scene,
+                                     world.dx, world.dy, 0.0], **f32)])
+    act_rad = rad >= T.LARGE_OBJ_RAD
+    s = state
+    for k in range(substeps):
+        px, py, pz, vx, vy, vz, status, flags = GK.substep(
+            s.px, s.py, s.pz, s.vx, s.vy, s.vz, s.status, s.flags,
+            rad, air, fric, grav, elas, dens, tv, maps3, cf, env12)
+        alive = s.status > 0
+        # off-mesh kill tests the position before the pair pass
+        off = outside_mesh(px, py, world)
+        if obj_collisions and (pair_every <= 1 or k % pair_every == 0):
+            act = alive & act_rad
+            dpx, dpy, dpz, dvx, dvy, dvz = PK.banded_pairs(
+                px, py, pz, vx, vy, vz, rad, mass, elas, act, window=PAIR_WINDOW)
+            px = px + torch.where(act, dpx, 0.0)
+            py = py + torch.where(act, dpy, 0.0)
+            pz = pz + torch.where(act, dpz, 0.0)
+            vx = vx + torch.where(act, dvx, 0.0)
+            vy = vy + torch.where(act, dvy, 0.0)
+            vz = vz + torch.where(act, dvz, 0.0)
+            woke = act & ((dvx * dvx + dvy * dvy + dvz * dvz) > 1e-10)
+            status = torch.where(woke & (status == 4), 1, status)
+        # kill conditions (advance_object preamble, Physics.cpp:725-729)
+        status = torch.where(pz < env.zmin, 0, status)
+        status = torch.where(off & alive, 0, status)
+        s = s._replace(px=px, py=py, pz=pz, vx=vx, vy=vy, vz=vz,
+                       status=status, flags=flags)
+    time = s.time + 1
+    status = torch.where((life > 0) & (time.to(torch.float32) > life), 0, s.status)
+    return s._replace(time=time, status=status)

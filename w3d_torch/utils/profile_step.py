@@ -1,10 +1,12 @@
-"""Where the time goes on the GPU: trace the main path's two halves.
+"""Where the time goes on the GPU: trace the main path's two halves and the
+fused frame.
 
     python3 -m w3d_torch.utils.profile_step [--table PATH]
 
-Runs one 256-tile terrain call and 10K-ball physics frames (10 substeps,
-pair pass every 5th and every substep, no water) at the main path's
-shapes under `torch.profiler`, after two warm-up calls each.  For each it
+Runs one 256-tile terrain call, 10K-ball physics frames (10 substeps,
+pair pass every 5th and every substep, no water) and 10K-ball fused frames
+(`step_objects_fused`, pair pass every 5th) at the main path's shapes under
+`torch.profiler`, after two warm-up calls each.  For each it
 prints the host wall time per call, the device-busy time per call (the
 union of the CUDA kernel intervals in the trace) and its share of the
 wall, the kernels launched per call, and the kernels that take the most
@@ -23,6 +25,7 @@ from torch.profiler import ProfilerActivity, profile
 from ..models import physics_model as PM
 from ..models import terrain_model as TMOD
 from ..ops.cuda import build
+from ..physics import step as PS
 from .constants import WorldConst
 
 
@@ -98,6 +101,13 @@ def main() -> None:
             box[0] = PM.frame_step(box[0], substeps=10, world=world,
                                    pair_every=pe, water=False)
         trace(f"physics 10K pair_every={pe}", one, 4, tables)
+
+    box = [sw0.state]
+
+    def fused():
+        box[0] = PS.step_objects_fused(box[0], sw0.env, sw0.cobjs, sw0.table,
+                                       substeps=10, world=world, pair_every=5)
+    trace("physics 10K fused, pair_every=5", fused, 8, tables)
     if args.table:
         with open(args.table, "w") as f:
             f.write("\n\n".join(tables) + "\n")
