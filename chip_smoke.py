@@ -24,8 +24,14 @@ Phases, each fatal on failure (no phase hides an error):
    Prints time to first result, tiles/s and frames/s, and fails if a
    kernel was never launched or a value is not finite.
 4. Each kernel against its plain PyTorch version on the card, at its
-   path's shapes, in turns (plain, kernel, kernel, plain, ...): max
-   difference, mismatch counts, median CUDA-event times.
+   path's shapes: max difference and mismatch counts; erosion and pairs
+   also bitwise from run to run and at one ragged shape each (3 tiles of
+   48x64 with 200 droplets; 4,097 ranks, window 300, `i_limit` 3,001).
+   Times in turns (plain, kernel, kernel, plain, ...): the kernel
+   device-only, a CUDA graph of 20 launches replayed between CUDA events;
+   the plain version, CUDA events around back-to-back calls.  Beside each,
+   its bound: the larger of the bytes it must move over 3.35 TB/s and the
+   operations it does on these inputs over 67 TFLOP/s (float32).
 5. The combined step and a small fused frame on a small input on the card
    against the same steps on the CPU (plain versions).
 
@@ -52,11 +58,19 @@ NUM_OBJS = 10000
 SUBSTEPS = 10
 WINDOW = 288
 LIGHT_GRID = (32, 128, 128)   # (mesh_z, mesh_y, mesh_x), lighting/lmap.py
+# ops per unit of work for the bounds, counted from the kernel sources
+# (adds, multiplies, divides, square roots, min/max, compares: one each);
+# the erosion and pair counts are in w3d_torch/utils/kernel_probe.py
+SAMPLE_OPS = 60          # per object: four taps, bilinear height, normal
+COBJ_TEST_OPS = 20       # per object and live cobj slot
+SUBSTEP_OBJ_OPS = 200    # per object: integrate, mesh, water, bounces
+SIN_TERM_OPS = 20        # per table entry: one sinf and its argument
+STENCIL_CELL_OPS = 17    # per smoke cell
 TOLS = {"erosion": "bitwise equal to the plain version and across two runs",
         "sample": "heights within 2 ulp of the mesh scale, normals 1e-6",
         "narrow": "hit mask equal, pen 1e-5, winner fields 1e-5 on lanes "
                   "with argmax margin > 1e-4",
-        "pairs": "1e-6",
+        "pairs": "1e-6, bitwise across two runs",
         "substep": "1e-5, status and flags equal",
         "tile_noise": "1e-3",
         "diffuse_smoke": "1e-6"}
@@ -70,36 +84,6 @@ def need(cond, what: str) -> None:
     """Fail the run unless `cond` holds."""
     if not cond:
         raise RuntimeError(f"chip_smoke check failed: {what}")
-
-
-def cuda_ms(fn, reps: int, warm: int = 2) -> list[float]:
-    """Per-call CUDA-event times (ms) of `reps` calls after `warm` calls."""
-    for _ in range(warm):
-        fn()
-    out = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        out.append(a.elapsed_time(b))
-    return out
-
-
-def in_turns(plain, kernel, reps: int, warm: int = 2):
-    """Median ms of plain and kernel, timed alternately (p, k, k, p, ...)."""
-    for _ in range(warm):
-        plain()
-        kernel()
-    tp, tk = [], []
-    for i in range(reps):
-        order = ((plain, tp), (kernel, tk)) if i % 2 == 0 else \
-            ((kernel, tk), (plain, tp))
-        for fn, acc in order:
-            acc += cuda_ms(fn, 1, warm=0)
-    return statistics.median(tp), statistics.median(tk)
 
 
 def main() -> int:
@@ -127,7 +111,7 @@ def main() -> int:
     from w3d_torch.physics import fused as PF
     from w3d_torch.physics import step as PS
     from w3d_torch.physics import types as PT
-    from w3d_torch.terrain import mesh as TM
+    from w3d_torch.utils import kernel_probe as KP
     from w3d_torch.utils.constants import WorldConst
     from w3d_torch.water import smoke as WS
 
@@ -304,31 +288,62 @@ def main() -> int:
     launches["diffuse_smoke"] = ec["diffuse_smoke"]
 
     # ---- 4. kernels vs plain versions, main-path shapes ------------------
+    # Each kernel device-only (a CUDA graph of 20 launches replayed between
+    # CUDA events), in turns with its plain version (CUDA events around
+    # back-to-back calls); each beside its bound, from this run's inputs.
     report = {}
 
-    # A: one erosion batch on the 256 raw tiles
-    hm = TMOD._tile_heights(table, x0, y0, mcfg, world, ze).contiguous()
-    xi, zi = E.droplet_starts(512, 128, 128, device=dev)
-    xi = xi.expand(NUM_TILES, 512).contiguous()
-    zi = zi.expand(NUM_TILES, 512).contiguous()
-    ang0 = ang[0].contiguous()
-    p6 = E.pack_params(E.ErosionParams(
-        erode_amount=1.0, water_plane_z=wpz, half_dxy=world.half_dxy,
-        zmin=-ze, zmax=ze, rock_thresh=TM.clip_hd1(mcfg.cfg)), dev)
-    out1 = EK.erosion_walk(hm, xi, zi, ang0, p6)
-    out2 = EK.erosion_walk(hm, xi, zi, ang0, p6)
-    ref = E._walk_batch(hm, xi, zi, ang0, p6)
+    def in_turns(plain, kernel, rounds: int, plain_calls: int):
+        timer = KP.GraphTimer(kernel)
+        plain()
+        tp, tk = [], []
+        for i in range(rounds):
+            for which in ((0, 1) if i % 2 == 0 else (1, 0)):
+                if which == 0:
+                    tp.append(KP.events_ms(plain, plain_calls, reps=1, warm=False))
+                else:
+                    tk.append(timer.time())
+        return statistics.median(tp), statistics.median(tk)
+
+    def add(name, err, times, bound, note):
+        pm, km = times
+        report[name] = dict(err=err, ms=km, plain_ms=pm, bound=bound, note=note)
+
+    # A: one erosion batch on 256 raw tiles, then the ragged case
+    case = KP.erosion_case(dev, gen)
+    hm, xi, zi, ang0, p6 = case
+    out1 = EK.erosion_walk(*case)
+    out2 = EK.erosion_walk(*case)
+    stats: dict = {}
+    ref = E._walk_batch(*case, stats=stats)
     d = (out1 - ref).abs()
-    frac = float((d <= 1e-4).float().mean())
-    rerun = float((out1 - out2).abs().max())
-    log(f"erosion: max |kernel-plain| {float(d.max()):.3g}, cells > 1e-4: "
-        f"{int((d > 1e-4).sum())} of {d.numel()} ({100 * (1 - frac):.4f}%), "
-        f"run-to-run max diff {rerun:.3g}, NaN {bool(torch.isnan(out1).any())}")
+    log(f"erosion: max |kernel-plain| {float(d.max()):.3g}, cells not equal "
+        f"{int((out1 != ref).sum())} of {d.numel()}, run-to-run not equal "
+        f"{int((out1 != out2).sum())}, NaN {bool(torch.isnan(out1).any())}; work "
+        f"{ {k: int(v) for k, v in stats.items()} }")
     need(bool(torch.equal(out1, ref)) and bool(torch.equal(out1, out2)),
          "erosion: " + TOLS["erosion"])
-    pm, km = in_turns(lambda: E._walk_batch(hm, xi, zi, ang0, p6),
-                      lambda: EK.erosion_walk(hm, xi, zi, ang0, p6), reps=4)
-    report["erosion"] = (float(d.max()), km, pm)
+    rg = np.random.default_rng(11)
+    rcase = (torch.as_tensor(rg.standard_normal((3, 48, 64)).astype(np.float32)
+                             * 0.5 + 1.0, device=dev),
+             *(t.expand(3, 200).contiguous()
+               for t in E.droplet_starts(200, 64, 48, device=dev)),
+             E.draw_angles(200, 200, 64, gen, device=dev)[0].contiguous(),
+             E.pack_params(E.ErosionParams(water_plane_z=0.0, half_dxy=0.06,
+                                           zmin=-2.0, zmax=2.0,
+                                           rock_thresh=0.75), dev))
+    r1, r2 = EK.erosion_walk(*rcase), EK.erosion_walk(*rcase)
+    rref = E._walk_batch(*rcase)
+    log(f"erosion, 3 tiles of 48x64, 200 droplets: cells not equal "
+        f"{int((r1 != rref).sum())}, run-to-run {int((r1 != r2).sum())}, "
+        f"max |delta| {float(rref.abs().max()):.3g}")
+    need(bool(torch.equal(r1, rref)) and bool(torch.equal(r1, r2))
+         and float(rref.abs().max()) > 1e-3, "erosion (ragged): " + TOLS["erosion"])
+    add("erosion", float(d.max()),
+        in_turns(lambda: E._walk_batch(*case), lambda: EK.erosion_walk(*case),
+                 rounds=4, plain_calls=1),
+        KP.erosion_bound(hm, xi, ang0, stats),
+        "no PyTorch call runs a lockstep droplet walk")
 
     # B: mesh sampling, 10K objects over tile 0
     mesh = tiles[0].contiguous()
@@ -341,22 +356,18 @@ def main() -> int:
     log(f"sample: heights max diff {float(dh.max()):.3g} (bound {bound:.3g}), "
         f"not bitwise {int((dh > 0).sum())} of {dh.numel()}, normals max diff {dn:.3g}")
     need(float(dh.max()) <= bound and dn < 1e-6, "sample: " + TOLS["sample"])
-    pm, km = in_turns(lambda: PS.sample_mesh(mesh, sx, sy, world),
-                      lambda: SK.sample_mesh(mesh, sx, sy, world), reps=20)
-    report["sample"] = (max(float(dh.max()), dn), km, pm)
+    n = sx.shape[0]
+    add("sample", max(float(dh.max()), dn),
+        in_turns(lambda: PS.sample_mesh(mesh, sx, sy, world),
+                 lambda: SK.sample_mesh(mesh, sx, sy, world), rounds=10,
+                 plain_calls=5),
+        KP.bound_ms(mesh.numel() * 4 + 6 * n * 4, SAMPLE_OPS * n),
+        "grid_sample gives the heights only, not the normals")
 
-    # C and D: a dense pile so contacts happen: 10K balls in
-    # [-3,3]x[-3,3]x[0,0.3], x-sorted (~140 per contact-wide x slab, inside
-    # the 288 window)
-    g2 = torch.Generator(device=dev).manual_seed(7)
-    u = torch.rand((NUM_OBJS, 3), generator=g2, device=dev)
-    dense = sw0.state._replace(
-        px=(u[:, 0] * 6 - 3).contiguous(), py=(u[:, 1] * 6 - 3).contiguous(),
-        pz=(u[:, 2] * 0.3).contiguous())
-    dense = PS.spatial_sort(dense)
-    rad, _, _, _, elas, _, _, mass, _ = PS._type_params(dense.otype, sw0.table)
-    rad, elas, mass = rad.contiguous(), elas.contiguous(), mass.contiguous()
+    # C and D: a dense pile so contacts happen
+    dense, rad, elas, mass = KP.dense_pile(sw0.state, sw0.table)
     gc = sw0.cobjs
+    ncobj = sum(hi - lo for lo, hi in gc.bounds)
     nin = (dense.px, dense.py, dense.pz, rad)
     out = NK.deepest_hits(*nin, gc)
     ref = PC.deepest_hits_grouped(*nin, gc)
@@ -370,36 +381,62 @@ def main() -> int:
         f"{hit_eq}, pen max diff {dpen:.3g}, winner fields max diff {dwin:.3g} "
         f"on {int(robust.sum())} lanes")
     need(hit_eq and dpen < 1e-5 and dwin < 1e-5, "narrow: " + TOLS["narrow"])
-    pm, km = in_turns(lambda: PC.deepest_hits_grouped(*nin, gc),
-                      lambda: NK.deepest_hits(*nin, gc), reps=20)
-    report["narrow"] = (max(dpen, dwin), km, pm)
+    cf = NK.pack_cobj_fields(gc)
+    add("narrow", max(dpen, dwin),
+        in_turns(lambda: PC.deepest_hits_grouped(*nin, gc),
+                 lambda: NK.deepest_hits(*nin, gc), rounds=10, plain_calls=5),
+        KP.bound_ms(10 * NUM_OBJS * 4 + cf.numel() * 4 + 32,
+                    COBJ_TEST_OPS * NUM_OBJS * ncobj),
+        "no PyTorch call tests spheres against cobj shapes")
 
     act = (dense.status > 0) & (rad >= 0.01)
     pin = (dense.px, dense.py, dense.pz, dense.vx, dense.vy, dense.vz,
            rad, mass, elas, act)
     out = PK.banded_pairs(*pin, window=WINDOW)
+    out2 = PK.banded_pairs(*pin, window=WINDOW)
     ref = PS.banded_pair_collisions(*pin, window=WINDOW)
     dp = max(float((a - b).abs().max()) for a, b in zip(out, ref))
     nz = int((ref[0] != 0).sum())
     neq = sum(int((a != b).sum()) for a, b in zip(out, ref))
-    log(f"pairs: window {WINDOW}, ranks with contacts {nz}, max diff {dp:.3g}, "
-        f"unequal outputs {neq} of {6 * NUM_OBJS}")
-    need(dp < 1e-6 and nz > NUM_OBJS // 10, "pairs: " + TOLS["pairs"] + ", with contacts")
-    pm, km = in_turns(lambda: PS.banded_pair_collisions(*pin, window=WINDOW),
-                      lambda: PK.banded_pairs(*pin, window=WINDOW), reps=6)
-    report["pairs"] = (dp, km, pm)
+    rerun = sum(int((a != b).sum()) for a, b in zip(out, out2))
+    valid, hits = KP.pair_work(dense.px, dense.py, dense.pz, rad, act, WINDOW)
+    log(f"pairs: window {WINDOW}, {valid} valid pairs, {hits} contacts, ranks "
+        f"with contacts {nz}, max diff {dp:.3g}, unequal outputs {neq} of "
+        f"{6 * NUM_OBJS}, run-to-run unequal {rerun}")
+    need(dp < 1e-6 and rerun == 0 and nz > NUM_OBJS // 10,
+         "pairs: " + TOLS["pairs"] + ", with contacts")
+    # ragged: N = 4,097, window 300, the i side limited to ranks below 3,001
+    rp, rrad, relas, rmass = KP.dense_pile(sw0.state, sw0.table, seed=8)
+    rn = 4097
+    rpin = (*(t[:rn].contiguous() for t in (rp.px, rp.py, rp.pz, rp.vx, rp.vy,
+                                           rp.vz, rrad, rmass, relas)),
+            torch.rand(rn, generator=gen, device=dev) > 0.05)
+    r1 = PK.banded_pairs(*rpin, window=300, i_limit=3001)
+    r2 = PK.banded_pairs(*rpin, window=300, i_limit=3001)
+    rref = PS.banded_pair_collisions(*rpin, window=300, i_limit=3001)
+    rdp = max(float((a - b).abs().max()) for a, b in zip(r1, rref))
+    rrerun = sum(int((a != b).sum()) for a, b in zip(r1, r2))
+    rnz = int((rref[0] != 0).sum())
+    log(f"pairs, N {rn}, window 300, i_limit 3001: max diff {rdp:.3g}, ranks "
+        f"with contacts {rnz}, run-to-run unequal {rrerun}")
+    need(rdp < 1e-6 and rrerun == 0 and rnz > 100, "pairs (ragged): " + TOLS["pairs"])
+    add("pairs", dp,
+        in_turns(lambda: PS.banded_pair_collisions(*pin, window=WINDOW),
+                 lambda: PK.banded_pairs(*pin, window=WINDOW), rounds=4,
+                 plain_calls=1),
+        KP.pairs_bound(NUM_OBJS, valid, hits),
+        "no PyTorch call computes banded pair impulses")
 
     # G: one fused substep at 10K, on the dense pile in the spheres scene
     # and on random objects (random status, flag bits and params) over a
     # bumpy mesh with water, so every branch sees objects
-    cf = NK.pack_cobj_fields(gc)
     par = PS._type_params(dense.otype, sw0.table)[:7]
     env12 = lambda water_z: torch.tensor(
         [PT.DEF_TIMESTEP / SUBSTEPS, 1.0, 0.4, 0.2, 0.0, water_z, world.dx_inv,
          world.dy_inv, world.x_scene, world.dx, world.dy, 0.0], device=dev)
+    maps3 = GK.mesh_maps(sw0.env.mesh_height, world)
     gin = (dense.px, dense.py, dense.pz, dense.vx, dense.vy, dense.vz,
-           dense.status, dense.flags, *par, GK.mesh_maps(sw0.env.mesh_height, world),
-           cf, env12(-100.0))
+           dense.status, dense.flags, *par, maps3, cf, env12(-100.0))
     rng = np.random.default_rng(5)
     rnd = lambda lo, hi: torch.as_tensor(
         rng.uniform(lo, hi, NUM_OBJS).astype(np.float32), device=dev)
@@ -428,9 +465,12 @@ def main() -> int:
         f"objects {unequal[1]} of {NUM_OBJS}")
     need(dg < 1e-5 and all(u[1] == 0 and u[2] == 0 for u in unequal)
          and unequal[0][3] > 1000, "substep: " + TOLS["substep"] + ", with cobj hits")
-    pm, km = in_turns(lambda: PF.substep_plain(*gin), lambda: GK.substep(*gin),
-                      reps=10)
-    report["substep"] = (dg, km, pm)
+    add("substep", dg,
+        in_turns(lambda: PF.substep_plain(*gin), lambda: GK.substep(*gin),
+                 rounds=6, plain_calls=2),
+        KP.bound_ms(23 * NUM_OBJS * 4 + maps3.numel() * 4 + cf.numel() * 4 + 48,
+                    NUM_OBJS * (COBJ_TEST_OPS * ncobj + SUBSTEP_OBJ_OPS)),
+        "no PyTorch call runs a physics substep")
 
     # E: 256 tiles of 128^2, all 90 terms
     out = NZK.tile_noise(*nargs, start_sin=0)
@@ -438,9 +478,14 @@ def main() -> int:
     de = float((out - ref).abs().max())
     log(f"tile_noise: max diff {de:.3g} on heights up to {float(ref.abs().max()):.3g}")
     need(de < 1e-3, "tile_noise: " + TOLS["tile_noise"])
-    pm, km = in_turns(lambda: N.tile_noise(*nargs, start_sin=0),
-                      lambda: NZK.tile_noise(*nargs, start_sin=0), reps=10)
-    report["tile_noise"] = (de, km, pm)
+    K = N.F_TABLE_SIZE
+    add("tile_noise", de,
+        in_turns(lambda: N.tile_noise(*nargs, start_sin=0),
+                 lambda: NZK.tile_noise(*nargs, start_sin=0), rounds=10,
+                 plain_calls=5),
+        KP.bound_ms(out.numel() * 4 + 5 * K * 4 + 2 * NUM_TILES * 4,
+                    out.numel() * K * 2 + NUM_TILES * 2 * 128 * K * SIN_TERM_OPS),
+        "the term tables need sin, then an einsum: two calls or more")
 
     # F: the default light grid
     out = FK.diffuse_smoke_open(smoke0)
@@ -449,9 +494,12 @@ def main() -> int:
     log(f"diffuse_smoke: {LIGHT_GRID}, max diff {df:.3g}, not bitwise "
         f"{int((out != ref).sum())} of {out.numel()}")
     need(df < 1e-6, "diffuse_smoke: " + TOLS["diffuse_smoke"])
-    pm, km = in_turns(lambda: WS.diffuse_smoke_open(smoke0),
-                      lambda: FK.diffuse_smoke_open(smoke0), reps=20)
-    report["diffuse_smoke"] = (df, km, pm)
+    add("diffuse_smoke", df,
+        in_turns(lambda: WS.diffuse_smoke_open(smoke0),
+                 lambda: FK.diffuse_smoke_open(smoke0), rounds=10, plain_calls=5),
+        KP.bound_ms(2 * smoke0.numel() * 4, STENCIL_CELL_OPS * smoke0.numel()),
+        "the z exchange depends on the sign of the difference and ends in a "
+        "clamp, so it is no conv3d")
 
     # ---- 5. small combined step: card vs CPU ------------------------------
     from w3d_torch import convert
@@ -459,9 +507,11 @@ def main() -> int:
     scfg = TMOD.TileModelConfig(tile_size=32, erosion_iters_tt=128,
                                 erosion_batch=128, erosion_steps=8)
     gcpu = torch.Generator().manual_seed(3)
-    sargs = TMOD.example_inputs(scfg, sworld, gcpu, num_tiles=2)
-    spos, svel = PM.spawn(256, gcpu)
-    ssw = PM.build_spheres_world(spos, svel * 8, world=sworld)
+    sargs = TMOD.example_inputs(scfg, sworld, gcpu, num_tiles=2,
+                                device="cpu")
+    spos, svel = PM.spawn(256, gcpu, device="cpu")
+    ssw = PM.build_spheres_world(spos, svel * 8, world=sworld,
+                                  device="cpu")
     cpu_tiles, cpu_st = EN.combined_step(*sargs, ssw.state, ssw, scfg, sworld)
     gsw = convert.spheres_world(convert.to_numpy(ssw), dev)
     gargs = (convert.sine_table(convert.to_numpy(sargs[0]), dev),
@@ -509,9 +559,11 @@ def main() -> int:
                            "3dworld_tpu/ops/pallas/noise_kernel.py:82"),
             "diffuse_smoke": ("diffuse_smoke_open", "w3d_torch/csrc/stencil.cu",
                               "3dworld_tpu/ops/pallas/stencil_kernel.py:62")}
-    for n, (err, km, pm) in report.items():
-        log(f"{n}: kernel {km:.4f} ms, plain {pm:.4f} ms, "
-            f"max abs err {err:.3g} ({TOLS[n]})")
+    for n, r in report.items():
+        log(f"{n}: kernel {r['ms']:.4f} ms device-only, plain {r['plain_ms']:.4f} "
+            f"ms, bound {r['bound'][0]:.5f} ms by {r['bound'][1]} (roofline "
+            f"share {100 * r['bound'][0] / r['ms']:.1f}%), max abs err "
+            f"{r['err']:.3g} ({TOLS[n]}); no library call: {r['note']}")
     log(json.dumps({
         "metrics": {"terrain_tiles_per_sec": tiles_per_s,
                     "physics_frames_per_sec_10k": fps[5],
@@ -523,8 +575,10 @@ def main() -> int:
     log(json.dumps({"kernels": [
         {"name": srcs[n][0], "route": "cuda", "source": srcs[n][1],
          "replaces": srcs[n][2], "launches": launches[n],
-         "max_abs_err": report[n][0], "ms": report[n][1],
-         "plain_ms": report[n][2]} for n in srcs]}))
+         "max_abs_err": report[n]["err"], "ms": report[n]["ms"],
+         "plain_ms": report[n]["plain_ms"], "bound_ms": report[n]["bound"][0],
+         "bound_by": report[n]["bound"][1], "library_ms": None,
+         "library_none_because": report[n]["note"]} for n in srcs]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

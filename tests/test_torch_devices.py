@@ -1,0 +1,54 @@
+"""The port's entry points, and the functions that make their inputs, put
+their tensors on the card when no device is given, and never fall back to
+the CPU: without CUDA, a call that names no device raises as PyTorch
+raises for a CUDA tensor.
+
+Whether a card exists is decided inside the test, never at import."""
+
+import pytest
+import torch
+
+from w3d_torch.models import physics_model as PM
+from w3d_torch.models import terrain_model as TMOD
+from w3d_torch.ops import erosion as E
+from w3d_torch.ops import noise as N
+from w3d_torch.physics import types as PT
+from w3d_torch.scene import cobj as SC
+from w3d_torch.terrain import mesh as TM
+from w3d_torch.utils.constants import WorldConst
+
+
+def _generator():
+    return torch.Generator(device="cuda" if torch.cuda.is_available() else "cpu")
+
+
+def _spheres_world():
+    pos = torch.zeros((4, 3))
+    vel = torch.zeros((4, 3))
+    return PM.build_spheres_world(pos, vel).state.px
+
+
+MAKERS = {
+    "spawn": lambda: PM.spawn(4, _generator())[0],
+    "build_spheres_world": _spheres_world,
+    "example_inputs": lambda: TMOD.example_inputs(
+        TMOD.TileModelConfig(tile_size=16, erosion_iters_tt=8, erosion_batch=8,
+                             erosion_steps=2), WorldConst(), _generator(),
+        num_tiles=1)[1],
+    "pack_cobjs": lambda: SC.pack_cobjs(PM.spheres_scene()).r1,
+    "make_type_table": lambda: PT.make_type_table().radius,
+    "gen_sine_table": lambda: N.gen_sine_table(WorldConst()).mag,
+    "gen_table_for": lambda: TM.gen_table_for(TM.TerrainConfig(), WorldConst()).mag,
+    "droplet_starts": lambda: E.droplet_starts(8, 16, 16)[0],
+    "draw_angles": lambda: E.draw_angles(8, 8, 2, _generator()),
+}
+
+
+@pytest.mark.parametrize("name", sorted(MAKERS))
+def test_defaults_to_the_card(name):
+    make = MAKERS[name]
+    if torch.cuda.is_available():
+        assert make().device.type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError), match="(?i)cuda"):
+            make()

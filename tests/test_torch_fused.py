@@ -63,7 +63,7 @@ def test_mesh_maps_and_cobj_table_match(scene):
     np.testing.assert_array_equal(ref, out.numpy())
     jg, tg = _cobjs(scene)
     if scene == "seven_shapes":   # the port groups its own scene the same way
-        tg = TC.group_cobjs(TSC.pack_cobjs(seven_shape_scene(TSC)))
+        tg = TC.group_cobjs(TSC.pack_cobjs(seven_shape_scene(TSC), device="cpu"))
     np.testing.assert_array_equal(np.asarray(jax_pack(jg)),
                                   NK.pack_cobj_fields(tg).numpy())
 

@@ -10,7 +10,8 @@ Tolerances: erosion bitwise, and bitwise from run to run (each step's
 writes are summed in integer fixed point, whose order does not matter);
 sample heights bitwise (same op order, no FMA contraction in either), normals
 1e-6 (torch's CUDA rsqrt is not correctly rounded); narrow phase as the
-CPU tests hold the JAX kernel; pairs 1e-6; the fused substep 1e-5 with
+CPU tests hold the JAX kernel; pairs 1e-6, and bitwise from run to run
+(no float atomics); the fused substep 1e-5 with
 status and flags equal; tile noise 1e-3 (the kernel's own fused
 multiply-add loop against a float32 einsum); smoke stencil 1e-6.
 """
@@ -100,12 +101,59 @@ def test_pairs_kernel_matches_plain(cuda_device):
     act = (torch.rand(n, generator=g, device=cuda_device) > 0.05)
     ins = (st.px, st.py, st.pz, st.vx, st.vy, st.vz, rad.contiguous(),
            mass.contiguous(), elas.contiguous(), act)
-    for window, i_limit in ((48, None), (288, None), (160, 3000)):
+    # 1000 and 3000 run the window in several chunks; 3000 is too wide to
+    # stage in shared memory and reads device memory
+    for window, i_limit in ((48, None), (288, None), (160, 3000), (1000, 2500),
+                            (3000, None)):
         out = PK.banded_pairs(*ins, window=window, i_limit=i_limit)
         ref = PS.banded_pair_collisions(*ins, window=window, i_limit=i_limit)
         assert int((ref[0] != 0).sum()) > 100
         for a, b in zip(out, ref):
             assert (a - b).abs().max().item() < 1e-6
+
+
+def test_erosion_kernel_ragged_tiles(cuda_device):
+    """3 non-square tiles of 48x64 with 200 droplets: bitwise equal to the
+    plain version and to itself across two runs."""
+    from w3d_torch.ops.cuda import erosion_kernel as EK
+    rng = np.random.default_rng(11)
+    hm = torch.as_tensor(rng.standard_normal((3, 48, 64)).astype(np.float32)
+                         * 0.5 + 1.0, device=cuda_device)
+    xi, zi = (t.expand(3, 200).contiguous()
+              for t in E.droplet_starts(200, 64, 48, device=cuda_device))
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    ang = E.draw_angles(200, 200, 64, g, device=cuda_device)[0].contiguous()
+    p6 = E.pack_params(E.ErosionParams(water_plane_z=0.0, half_dxy=0.06,
+                                       zmin=-2.0, zmax=2.0, rock_thresh=0.75),
+                       cuda_device)
+    out = EK.erosion_walk(hm, xi, zi, ang, p6)
+    ref = E._walk_batch(hm, xi, zi, ang, p6)
+    assert ref.abs().max().item() > 1e-3
+    assert torch.equal(out, ref)
+    assert torch.equal(EK.erosion_walk(hm, xi, zi, ang, p6), out)
+
+
+def test_pairs_kernel_ragged(cuda_device):
+    """4,097 ranks, window 300, the i side limited to ranks below 3,001:
+    within 1e-6 of the plain version and bitwise equal across two runs."""
+    from w3d_torch.ops.cuda import pairs_kernel as PK
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    n = 4097
+    u = torch.rand((n, 3), generator=g, device=cuda_device)
+    pos = u * torch.tensor([2.5, 3.0, 0.3], device=cuda_device)
+    vel = torch.randn((n, 3), generator=g, device=cuda_device)
+    sw = PM.build_spheres_world(pos, vel, device=cuda_device)
+    st = PS.spatial_sort(sw.state)
+    rad, _, _, _, elas, _, _, mass, _ = PS._type_params(st.otype, sw.table)
+    act = torch.rand(n, generator=g, device=cuda_device) > 0.05
+    ins = (st.px, st.py, st.pz, st.vx, st.vy, st.vz, rad.contiguous(),
+           mass.contiguous(), elas.contiguous(), act)
+    out = PK.banded_pairs(*ins, window=300, i_limit=3001)
+    ref = PS.banded_pair_collisions(*ins, window=300, i_limit=3001)
+    assert int((ref[0] != 0).sum()) > 100
+    for a, b, c in zip(out, ref, PK.banded_pairs(*ins, window=300, i_limit=3001)):
+        assert (a - b).abs().max().item() < 1e-6
+        assert torch.equal(a, c)
 
 
 def _substep_inputs(n, g, dev, water_z=0.25):

@@ -38,7 +38,7 @@ from torch_port_util import bumpy_world, np_tree, seven_shape_scene, ulp_diff
 
 def test_type_table_matches():
     ref = np_tree(JT.make_type_table(z_scene=4.0))
-    out = TT.make_type_table(z_scene=4.0)
+    out = TT.make_type_table(z_scene=4.0, device="cpu")
     for name in TT.ObjTypeTable._fields:
         np.testing.assert_array_equal(
             getattr(ref, name).astype(getattr(out, name).numpy().dtype),
@@ -54,7 +54,7 @@ def test_pack_and_group_cobjs_match(scene):
     else:
         jsp, tsp = seven_shape_scene(JSC), seven_shape_scene(TSC)
     jg = np_tree(JC.group_cobjs(JSC.pack_cobjs(jsp)))
-    tg = TC.group_cobjs(TSC.pack_cobjs(tsp))
+    tg = TC.group_cobjs(TSC.pack_cobjs(tsp, device="cpu"))
     assert tg.bounds == tuple(tuple(b) for b in jg.bounds)
     for name in TC.CobjSet._fields:
         a = getattr(jg.cobjs, name)
@@ -96,7 +96,7 @@ def _narrow_inputs(n=2048, seed=3):
 
 def test_deepest_hits_grouped_matches():
     jg = JC.group_cobjs(JSC.pack_cobjs(seven_shape_scene(JSC)))
-    tg = TC.group_cobjs(TSC.pack_cobjs(seven_shape_scene(TSC)))
+    tg = TC.group_cobjs(TSC.pack_cobjs(seven_shape_scene(TSC), device="cpu"))
     ins = _narrow_inputs()
     ref = [np.asarray(a) for a in JC.deepest_hits_grouped(
         *(jnp.asarray(a) for a in ins), jg)]

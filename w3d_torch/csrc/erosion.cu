@@ -7,33 +7,59 @@
 // `_walk_batch`; wrapper: w3d_torch/ops/cuda/erosion_kernel.py.
 //
 // What bounds it on this card: not device memory -- a tile is read through
-// L1 (64 KB at 128^2) and its delta written once.  The walk is a chain of
-// `steps` dependent steps, each with three block-wide barriers, 4 live map
-// reads and up to 20 64-bit shared-memory atomics per droplet, and a pass
-// over the tile's cells.  So the time is the latency of that chain times the
-// number of waves of tiles over the SMs (one CTA per SM fits).
+// L1 (64 KB at 128^2) and its delta written once (35 MB for 256 tiles,
+// 0.010 ms at 3.35 TB/s).  The walk is a chain of `steps` dependent steps,
+// each with three block-wide barriers, so the time is the cycles of one
+// step times the steps times the waves of tiles over the SMs (one CTA per
+// SM fits, so 256 tiles run in two waves).
 //
-// Design: one CTA per tile, one thread per droplet (B <= 1024).  The
-// snapshot stays in device memory and is read through the read-only
-// cache; shared memory holds the batch's float delta and one int64 map of
-// this step's writes (64 + 128 KB at 128^2, which needs the
-// MaxDynamicSharedMemorySize attribute).  The TPU kernel's one-hot
-// matmuls become direct indexed loads and atomicAdds.  Each step has a
-// read phase (every droplet reads snapshot + delta as it stood at the
-// start of the step, the lockstep "see each other's carving" semantics of
-// docs/DESIGN.md:167-180), a barrier, a write phase (bilinear deposit and
-// clamped 4x4 erosion stencil as 64-bit integer atomicAdds of values in
-// fixed point with 40 fraction bits), a barrier, and a combine pass that
-// adds each cell's step sum to the float delta once and clears it.
-// Integer sums do not depend on the order of the atomics, so the walk is
-// deterministic and equals the plain version (which sums the same fixed
-// point values with scatter_add) bit for bit; float atomics made the
-// result vary from run to run, and the chaotic walk grew those last bits
-// into flipped droplet branches.  Dead droplets keep running the barriers
-// and write nothing; deposits outside the map are dropped; the stencil
-// clamps to the edge cells; droplets alive at the step cap deposit their
-// sediment after the loop.  The library is built with -fmad=false, so
-// every product and sum rounds as in the plain version.
+// Semantics (docs/DESIGN.md:167-180): every droplet reads the snapshot plus
+// the delta as they stood at the start of the step, then all write; each
+// step's deposits and erosion are summed in 64-bit fixed point with 40
+// fraction bits, as integers, so their order does not matter, and added to
+// the float delta once per step.  The kernel is therefore deterministic and
+// equals the plain version (which sums the same fixed-point values with
+// scatter_add) bit for bit.  Float atomics made the result vary from run to
+// run, and the chaotic walk grew those last bits into flipped droplet
+// branches.
+//
+// Design: one CTA per tile, one thread per droplet (B <= 1024); the
+// snapshot stays in device memory, read through the read-only cache; shared
+// memory holds the batch's float delta and an int64 map of the step's sums
+// (64 + 128 KB at 128^2).  Each step: read phase, barrier, write phase,
+// barrier, combine, barrier.  Dead droplets run the barriers and write
+// nothing; deposits outside the map are dropped; the stencil clamps to the
+// edge cells; droplets alive at the step cap deposit their sediment after
+// the loop.  Built with -fmad=false, every product and sum rounds as in the
+// plain version.
+//
+// Where the first design's time went (SM cycles per step and CTA, phase
+// counters of `utils/kernel_probe`, 256 tiles of 128^2, 512 droplets,
+// 64 steps, H100 at 700 W; 1.015 ms a call): read phase 1,137 (10%), write
+// phase 4,505 (40%), combine pass 5,734 (50%).  The write phase was slow
+// because sm_90 has no 64-bit shared-memory atomic add: `atomicAdd` on
+// int64 compiled to a compare-and-swap loop (ATOMS.CAST.SPIN.64).  The
+// combine pass visited all 16,384 cells of the tile
+// each step, though a step writes at most 16 cells per live droplet.  So:
+//  - the write phase adds each 64-bit value as two native 32-bit atomics,
+//    the low word first and the high word plus the low word's carry
+//    (`add_fixed`): the sum of the two words is the 64-bit sum modulo
+//    2^64, whatever the order, so the bits do not change.  A droplet's
+//    deposit is folded into the stencil taps on the same cells before the
+//    atomics, and taps that add zero are skipped;
+//  - the combine visits only the cells the step wrote: each droplet claims
+//    its own tap cells with a 64-bit `atomicExch(.., 0)`; only the first
+//    claimer of a cell sees its whole sum and adds it to the delta, the
+//    others see 0 (exactly as the full pass skipped cells whose sum was 0).
+// The 192 KB of shared memory per tile stay: the int64 map is what keeps
+// the sums exact, and 256 tiles at one per SM are two full waves.
+//
+// After this design a step costs read 1,370, write 3,285 and combine 2,209
+// cycles: the shared-memory atomic unit now bounds the walk, and A is still
+// the kernel with the most main-path time above its bound (ROADMAP Queue 2,
+// first).  The `W3D_EROSION_PHASES` counters below are the instrument that
+// measures each step's phases for that next pass; the default build leaves
+// them out.
 
 #include <cuda_runtime.h>
 
@@ -56,48 +82,77 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
 constexpr float FIXED_SCALE = 1099511627776.0f;       // 2^40
 constexpr float FIXED_INV = 1.0f / 1099511627776.0f;   // 2^-40, exact
 
-__device__ __forceinline__ void add_fixed(long long* net, int i, float v) {
-  atomicAdd(reinterpret_cast<unsigned long long*>(net + i),
-            static_cast<unsigned long long>(__float2ll_rn(v * FIXED_SCALE)));
+#ifdef W3D_EROSION_PHASES
+// Phase counters (a variant build, `utils/kernel_probe`): thread 0 of each
+// CTA adds the SM cycles between the step's barriers into these sums.
+__device__ unsigned long long g_phase_cycles[4];
+#define PHASE(i)                                  \
+  if (threadIdx.x == 0) {                         \
+    const long long c_ = clock64();               \
+    ph[i] += c_ - ph_last;                        \
+    ph_last = c_;                                 \
+  }
+#else
+#define PHASE(i)
+#endif
+
+// net[i] += q (mod 2^64) as two 32-bit shared-memory atomics: the low word,
+// then the high word plus the carry out of the low word.
+__device__ __forceinline__ void add_fixed(long long* net, int i, long long q) {
+  unsigned* w = reinterpret_cast<unsigned*>(net + i);
+  const unsigned lo = (unsigned)q;
+  const unsigned hi = (unsigned)((unsigned long long)q >> 32);
+  const unsigned old = atomicAdd(w, lo);
+  const unsigned inc = hi + ((unsigned)(old + lo) < old ? 1u : 0u);
+  if (inc != 0u) atomicAdd(w + 1, inc);
 }
 
-// Bilinear deposit (DEPOSIT macro, erosion.cpp:49-54); out-of-map writes
-// are dropped.
-__device__ __forceinline__ void deposit(long long* net, int ny, int nx,
-                                        int xi, int zi, float xf, float zf,
-                                        float amt) {
-  if (amt == 0.0f) return;
+__device__ __forceinline__ long long to_fixed(float v) {
+  return __float2ll_rn(v * FIXED_SCALE);
+}
+
+// One droplet's writes of a step at cell (zi, xi) + fraction (zf, xf): the
+// clamped 4x4 erosion stencil of `ev` (erosion.cpp:134-144), subtracted,
+// and the bilinear deposit of `depv` (DEPOSIT macro, erosion.cpp:49-54;
+// out-of-map taps dropped), which lands on the stencil's centre 2x2 taps.
+// With `claim`, instead of writing, claim the same cells and add the whole
+// sum of each cell claimed first to the delta.
+__device__ __forceinline__ void write_taps(long long* net, float* dl, int ny,
+                                           int nx, int xi, int zi, float xf,
+                                           float zf, float depv, float ev,
+                                           bool claim) {
+  if (depv == 0.0f && ev == 0.0f) return;
   const float wz[2] = {1.0f - zf, zf};
   const float wx[2] = {1.0f - xf, xf};
-#pragma unroll
-  for (int oz = 0; oz < 2; ++oz) {
-#pragma unroll
-    for (int ox = 0; ox < 2; ++ox) {
-      const int z = zi + oz, x = xi + ox;
-      if (z >= 0 && z < ny && x >= 0 && x < nx)
-        add_fixed(net, z * nx + x, (wz[oz] * amt) * wx[ox]);
-    }
-  }
-}
-
-// Clamped 4x4 erosion stencil (erosion.cpp:134-144), subtracted.
-__device__ __forceinline__ void erode_stencil(long long* net, int ny, int nx,
-                                              int xi, int zi, float xf,
-                                              float zf, float ev) {
-  if (ev == 0.0f) return;
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
     const float zo = (float)(a - 1) - zf;
     const int zz = clampi(zi + a - 1, 0, ny - 1);
 #pragma unroll
     for (int b = 0; b < 4; ++b) {
-      const float xo = (float)(b - 1) - xf;
+      const bool centre = a >= 1 && a <= 2 && b >= 1 && b <= 2;
+      if (ev == 0.0f && !centre) continue;
       const int xx = clampi(xi + b - 1, 0, nx - 1);
-      const float wgt =
-          fmaxf(1.0f - (xo * xo + zo * zo) * 0.25f, 0.0f) * STENCIL_NORM;
-      atomicAdd(reinterpret_cast<unsigned long long*>(net + zz * nx + xx),
-                static_cast<unsigned long long>(
-                    -__float2ll_rn((wgt * ev) * FIXED_SCALE)));
+      const int cell = zz * nx + xx;
+      if (claim) {
+        const long long q = (long long)atomicExch(
+            reinterpret_cast<unsigned long long*>(net + cell), 0ull);
+        if (q != 0) dl[cell] = dl[cell] + (float)q * FIXED_INV;
+        continue;
+      }
+      long long q = 0;
+      if (ev != 0.0f) {
+        const float xo = (float)(b - 1) - xf;
+        const float wgt =
+            fmaxf(1.0f - (xo * xo + zo * zo) * 0.25f, 0.0f) * STENCIL_NORM;
+        q = -to_fixed(wgt * ev);
+      }
+      if (centre && depv != 0.0f) {
+        const int z = zi + a - 1, x = xi + b - 1;
+        if (z >= 0 && z < ny && x >= 0 && x < nx)
+          q += to_fixed((wz[a - 1] * depv) * wx[b - 1]);
+      }
+      if (q != 0) add_fixed(net, cell, q);
     }
   }
 }
@@ -122,6 +177,11 @@ __global__ void erosion_walk_kernel(const float* __restrict__ hm,
   const float ea = params[0], water_cut = params[1], zmin = params[2];
   const float zr_inv = params[3], rock = params[4], relh_adj = params[5];
   __syncthreads();
+#ifdef W3D_EROSION_PHASES
+  long long ph[3] = {0, 0, 0};
+  long long ph_last = clock64();
+  const long long ph_start = ph_last;
+#endif
 
   const int d = threadIdx.x;
   int xi = xi0[tile * B + d], zi = zi0[tile * B + d];
@@ -213,22 +273,25 @@ __global__ void erosion_walk_kernel(const float* __restrict__ hm,
       alive = go_on;
     }
     __syncthreads();   // every read of this step precedes every write
-    // ---- write phase: this step's deposit and erosion maps ----
-    deposit(s_net, ny, nx, oxi, ozi, oxf, ozf, depv);
-    erode_stencil(s_net, ny, nx, oxi, ozi, oxf, ozf, ev);
+    PHASE(0)
+    // ---- write phase: this step's deposit and erosion sums ----
+    write_taps(s_net, s_dl, ny, nx, oxi, ozi, oxf, ozf, depv, ev, false);
     __syncthreads();
-    // combine: delta += step sum, rounded to float once; clear the sums
-    for (int i = threadIdx.x; i < ncell; i += blockDim.x) {
-      const long long q = s_net[i];
-      if (q != 0) {
-        s_dl[i] = s_dl[i] + (float)q * FIXED_INV;
-        s_net[i] = 0;
-      }
-    }
+    PHASE(1)
+    // ---- combine: each written cell's sum, rounded to float once, into
+    // the delta by its first claimer; the claims leave the sums at 0 ----
+    write_taps(s_net, s_dl, ny, nx, oxi, ozi, oxf, ozf, depv, ev, true);
     __syncthreads();
+    PHASE(2)
   }
+#ifdef W3D_EROSION_PHASES
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 3; ++i) atomicAdd(&g_phase_cycles[i], (unsigned long long)ph[i]);
+    atomicAdd(&g_phase_cycles[3], (unsigned long long)(clock64() - ph_start));
+  }
+#endif
   // droplets alive at the step cap drop their sediment where they stand
-  if (alive) deposit(s_net, ny, nx, xi, zi, xf, zf, s * ea);
+  if (alive) write_taps(s_net, s_dl, ny, nx, xi, zi, xf, zf, s * ea, 0.0f, false);
   __syncthreads();
   float* out_t = out + (size_t)tile * ncell;
   for (int i = threadIdx.x; i < ncell; i += blockDim.x)
@@ -250,3 +313,14 @@ extern "C" int w3d_erosion_walk(const float* hm, const int* xi0,
       hm, xi0, zi0, angles, params, out, ny, nx, B, steps);
   return (int)cudaGetLastError();
 }
+
+#ifdef W3D_EROSION_PHASES
+// Copies the four phase sums (read, write, combine, whole walk; SM cycles
+// summed over CTAs) to `host` and clears them.
+extern "C" int w3d_erosion_phase_cycles(unsigned long long* host) {
+  cudaError_t err = cudaMemcpyFromSymbol(host, g_phase_cycles, sizeof(g_phase_cycles));
+  if (err != cudaSuccess) return (int)err;
+  const unsigned long long zero[4] = {0, 0, 0, 0};
+  return (int)cudaMemcpyToSymbol(g_phase_cycles, zero, sizeof(zero));
+}
+#endif

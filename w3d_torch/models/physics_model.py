@@ -44,7 +44,8 @@ def spheres_scene() -> SC.SceneParse:
     return sp
 
 
-def spawn(num_objects: int, generator: torch.Generator, device=None):
+def spawn(num_objects: int, generator: torch.Generator,
+          device: torch.device | str = "cuda"):
     """Spawn draws for N balls: positions uniform in [-3,3]x[-3,3]x[0.5,3.5]
     and velocities normal with sigma 0.5 (the JAX package's distributions);
     returns (pos [N,3], vel [N,3])."""
@@ -62,7 +63,7 @@ def build_spheres_world(
     world: WorldConst = DEFAULT_WORLD,
     obj_type: str = "BALL",
     mesh_height: torch.Tensor | None = None,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> SpheresWorld:
     """Assemble the scenario: a flat mesh at -0.7 (config_spheres disables
     the drawn mesh and uses a ground-plane cube), the grouped spheres scene,

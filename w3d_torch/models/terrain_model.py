@@ -80,7 +80,7 @@ def tile_batch_step(table: N.SineTable, x0, y0, zmax_est, wpz,
 
 def example_inputs(mcfg: TileModelConfig, world: WorldConst,
                    generator: torch.Generator, num_tiles: int = 8,
-                   device: torch.device | str = "cpu"):
+                   device: torch.device | str = "cuda"):
     """(table, x0, y0, zmax_est, wpz, angles) example inputs for the model."""
     table = TM.gen_table_for(mcfg.cfg, world, device=device)
     x0 = torch.arange(num_tiles, dtype=torch.float32, device=device) * mcfg.tile_size

@@ -1,15 +1,19 @@
 """Build and bind the port's hand-written CUDA kernels.
 
-All sources under `w3d_torch/csrc/*.cu` compile in one `nvcc` call into a
-shared library with a plain C interface, loaded with `ctypes`:
+Each source under `w3d_torch/csrc/*.cu` compiles in its own `nvcc`
+process, all started together, and the objects link into one shared
+library with a plain C interface, loaded with `ctypes`:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false \
-         -shared -Xcompiler -fPIC -o w3d_torch/_build/libw3d_kernels_<hash>.so \
-         w3d_torch/csrc/*.cu
+         -Xcompiler -fPIC -c -o <obj> w3d_torch/csrc/<source>.cu   # per source
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared \
+         -o w3d_torch/_build/libw3d_kernels_<hash>.so <objs>
 
 The build happens at first use (never at import), into `w3d_torch/_build/`
 (git-ignored), and the file name carries a hash of the sources and flags,
 so an edited source rebuilds and an unchanged one loads the cached library.
+`build(defines=...)` makes a variant library the same way
+(`utils/kernel_probe` builds it with the erosion kernel's phase counters).
 
 `-fmad=false` stops `nvcc` from contracting `a*b+c` into one fused
 multiply-add.  Every kernel then rounds each product and sum on its own,
@@ -39,8 +43,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-fmad=false", "-shared",
-                           "-Xcompiler", "-fPIC"]
+COMPILE_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-fmad=false",
+                              "-Xcompiler", "-fPIC"]
 
 _lib: ctypes.CDLL | None = None
 build_seconds: float | None = None   # wall time of this process's build, if it built
@@ -64,33 +68,51 @@ def _sources() -> list[str]:
     return srcs
 
 
-def library_path() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def library_path(flags: list[str]) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
     for src in _sources() + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
         with open(src, "rb") as f:
             h.update(os.path.basename(src).encode() + f.read())
     return os.path.join(BUILD_DIR, f"libw3d_kernels_{h.hexdigest()[:16]}.so")
 
 
-def build(verbose: bool = False) -> str:
-    """Compile the kernels unless the library for these sources exists.
-    Returns the library path.  With `verbose`, `ptxas` prints each
-    kernel's registers, shared memory and spills."""
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands side by side; raise on the first that fails.
+    Returns their joined output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for c, p, o in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n{' '.join(c)}\n{o}")
+    return "".join(outs)
+
+
+def build(verbose: bool = False, defines: tuple[str, ...] = ()) -> str:
+    """Compile the kernels unless the library for these sources and flags
+    exists.  Returns the library path.  With `verbose`, `ptxas` prints each
+    kernel's registers, shared memory and spills.  `defines` (names for
+    `-D`) make a variant."""
     global build_seconds
-    out = library_path()
+    flags = COMPILE_FLAGS + [f"-D{d}" for d in defines]
+    srcs = _sources()
+    out = library_path(flags)
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc()] + NVCC_FLAGS + (["-Xptxas", "-v"] if verbose else []) \
-        + ["-o", tmp] + _sources()
+    objs = [f"{tmp}.{os.path.basename(s)}.o" for s in srcs]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
-                           f"{res.stdout}\n{res.stderr}")
+    try:
+        log = _run_all([[_nvcc()] + flags + (["-Xptxas", "-v"] if verbose else [])
+                        + ["-c", "-o", o, s] for s, o in zip(srcs, objs)])
+        log += _run_all([[_nvcc()] + ARCH_FLAGS + ["-shared", "-o", tmp] + objs])
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
     if verbose:
-        print(res.stdout + res.stderr)
+        print(log)
     os.replace(tmp, out)     # atomic: a concurrent loader never sees half a file
     build_seconds = time.perf_counter() - t0
     return out

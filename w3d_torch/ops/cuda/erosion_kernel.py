@@ -5,9 +5,10 @@ One CTA per tile, one thread per droplet.  The tile's float delta and an
 int64 fixed-point map of the step's writes sit in shared memory; each step
 is a read phase (every droplet reads snapshot + delta as it stood at the
 start of the step), a barrier, a write phase (deposit and erosion as
-integer shared-memory atomics, so their order does not matter), a barrier,
-and a combine pass.  Deterministic, and bit-equal to the plain version
-`ops/erosion._walk_batch`.
+integer shared-memory atomics, each 64-bit sum as two 32-bit words, so
+their order does not matter), a barrier, and a combine of the cells the
+step wrote (each claimed by its first writer).  Deterministic, and
+bit-equal to the plain version `ops/erosion._walk_batch`.
 """
 
 from __future__ import annotations

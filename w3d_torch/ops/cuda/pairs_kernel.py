@@ -2,9 +2,12 @@
 (replaces the Pallas `_pairs_kernel`,
 `3dworld_tpu/ops/pallas/pairs_kernel.py:61`).
 
-One thread per rank in gather form: no atomics, deterministic, same
-summation order as the plain version `physics/step.banded_pair_collisions`.
-Takes any N and any window.
+One CTA per tile of 32 ranks: every pair of the band is tested from the
+tile's shared-memory copy of its neighbourhood, touching pairs set bits in
+a per-rank mask, and each rank then sums its touching pairs in the plain
+version's order (`physics/step.banded_pair_collisions`, by offset, i side
+first).  No float atomics: deterministic and bit-equal to the plain
+version.  Takes any N and any window.
 """
 
 from __future__ import annotations

@@ -92,7 +92,7 @@ def pack_params(p: ErosionParams, device) -> torch.Tensor:
 
 
 def droplet_starts(num_iters: int, xsize: int, ysize: int, pad: int = 0,
-                   device=None):
+                   device: torch.device | str = "cuda"):
     """Reference seeding (erosion.cpp:68-71):
     rgen.set_state(iter+11, 79*iter+121); xi=rand()%xs, zi=rand()%ys,
     offset by `pad` (the JAX package's roam ring; `erode` uses none)."""
@@ -104,7 +104,8 @@ def droplet_starts(num_iters: int, xsize: int, ysize: int, pad: int = 0,
 
 
 def draw_angles(num_iters: int, batch_size: int, max_steps: int,
-                generator: torch.Generator, device=None) -> torch.Tensor:
+                generator: torch.Generator,
+                device: torch.device | str = "cuda") -> torch.Tensor:
     """Flat-spot directions, uniform in [0, 2*pi):
     [num_batches, max_steps, batch_size]."""
     nb = -(-num_iters // batch_size)
@@ -148,12 +149,15 @@ def _apply(delta, net):
 
 
 def _walk_batch(hm: torch.Tensor, xi0: torch.Tensor, zi0: torch.Tensor,
-                angles: torch.Tensor, params6: torch.Tensor) -> torch.Tensor:
+                angles: torch.Tensor, params6: torch.Tensor,
+                stats: dict | None = None) -> torch.Tensor:
     """Plain version of one lockstep batch walk on a batch of tiles.
 
     hm [T, ny, nx] snapshot; xi0/zi0 [T, B] start cells; angles [steps, B]
     flat-spot directions (shared by the tiles); params6 from
-    `pack_params`.  Returns the delta map [T, ny, nx].
+    `pack_params`.  Returns the delta map [T, ny, nx].  A `stats` dict
+    receives the walk's work as device scalars: droplet-steps walked
+    ("live"), bilinear deposits ("deposit") and erosion stencils ("erode").
     """
     T, ny, nx = hm.shape
     B = xi0.shape[1]
@@ -229,6 +233,10 @@ def _walk_batch(hm: torch.Tensor, xi0: torch.Tensor, zi0: torch.Tensor,
         # writes at the cell the droplet stood on at the start of the step
         depv = torch.where(alive & ~ocean, dep_pit + dep_cap, 0.0) * ea
         ev = e_amt * ea
+        if stats is not None:
+            for key, m in (("live", alive), ("deposit", depv != 0),
+                           ("erode", ev != 0)):
+                stats[key] = stats.get(key, 0) + m.sum()
         net = torch.zeros_like(flat, dtype=torch.int64)
         _deposit(net, nx, ny, xi, zi, xf, zf, depv)
         for kz in koffs:
@@ -260,7 +268,10 @@ def _walk_batch(hm: torch.Tensor, xi0: torch.Tensor, zi0: torch.Tensor,
     # droplets still alive at the step cap drop their sediment where they
     # stand (keeps mass conserved where paths outlive the cap)
     net = torch.zeros_like(flat, dtype=torch.int64)
-    _deposit(net, nx, ny, xi, zi, xf, zf, torch.where(alive, s, 0.0) * ea)
+    last = torch.where(alive, s, 0.0) * ea
+    if stats is not None:
+        stats["deposit"] = stats.get("deposit", 0) + (last != 0).sum()
+    _deposit(net, nx, ny, xi, zi, xf, zf, last)
     return _apply(delta, net).reshape(T, ny, nx)
 
 

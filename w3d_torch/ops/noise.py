@@ -59,7 +59,7 @@ def gen_sine_table(
     mesh_seed: int = 0,
     scaled_height: float | None = None,
     rgen: RandGen | None = None,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> SineTable:
     """Generate the random sine table on the host (mesh_gen.cpp:219-254).
 

@@ -202,7 +202,7 @@ _TABLE["WA_PACK"]["dens"] = 0.5
 
 
 def make_type_table(z_scene: float = 4.0, timestep: float = DEF_TIMESTEP,
-                    device: torch.device | str = "cpu") -> ObjTypeTable:
+                    device: torch.device | str = "cuda") -> ObjTypeTable:
     n = NUM_TOT_OBJS
     air = np.full(n, 0.001, np.float32)
     fric = np.zeros(n, np.float32)

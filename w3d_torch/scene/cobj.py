@@ -138,7 +138,7 @@ def _resolve_shape_groups(parse: SceneParse) -> list:
 
 def pack_cobjs(parse: SceneParse, capacity: int | None = None,
                apply_csg: bool = True,
-               device: torch.device | str = "cpu") -> CobjSet:
+               device: torch.device | str = "cuda") -> CobjSet:
     """Pack parsed cobjs into the padded SoA (capacity a multiple of 128,
     as the JAX package pads)."""
     cobj_list = _resolve_shape_groups(parse) if apply_csg else \

@@ -135,7 +135,7 @@ def apply_glaciate(z: torch.Tensor, zmax_est: torch.Tensor,
 
 
 def gen_table_for(cfg: TerrainConfig, world: WorldConst,
-                  device: torch.device | str = "cpu") -> N.SineTable:
+                  device: torch.device | str = "cuda") -> N.SineTable:
     """The sine table of a terrain configuration (host-side, 450 draws)."""
     scaled_height = world.mesh_height * cfg.mesh_height_scale
     return N.gen_sine_table(world, cfg.mesh_seed, scaled_height, device=device)

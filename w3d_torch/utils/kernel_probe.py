@@ -1,0 +1,315 @@
+"""Probe the erosion walk (kernel A) and the banded pair pass (kernel D) on
+the GPU, and the timing and bound helpers that `chip_smoke.py` shares.
+
+    python3 -m w3d_torch.utils.kernel_probe
+
+Prints, at the main path's shapes (256 tiles of 128^2 with 512 droplets
+and 64 steps; 10K balls in a dense x-sorted pile, window 288):
+
+1. what `ptxas` reports for both kernels (registers, shared memory,
+   spills), and the shared-memory atomic instructions in the erosion
+   kernel's SASS (`cuobjdump`);
+2. the erosion walk's phase split: a variant library built with
+   `W3D_EROSION_PHASES`, whose thread 0 in each CTA sums the SM cycles
+   between the step's barriers (read phase, write phase, combine);
+3. each kernel's device-only time: one replay of a CUDA graph of 20
+   launches between CUDA events, divided by 20 (and CUDA events around 20
+   back-to-back eager calls, which for a kernel shorter than its wrapper's
+   host work time the host); beside its bound.
+
+With `--times` it prints only step 3's graph times, through wrappers that
+older checkouts of the port have too, so two versions can be timed in one
+call on one card (`cd <checkout> && PYTHONPATH=. python3 <this file>
+--times`).
+
+Needs a CUDA device and nvcc.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import os
+import re
+import statistics
+import subprocess
+import tempfile
+
+import torch
+
+HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory (data sheet)
+FP32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
+
+
+def bound_ms(nbytes: float, nops: float) -> tuple[float, str]:
+    """(least ms the card could take, "bytes" or "operations"): the larger
+    of the bytes over the memory rate and the operations over the float32
+    rate."""
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    to = nops / FP32_OPS_PER_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def events_ms(fn, launches: int = 20, reps: int = 3, warm: bool = True) -> float:
+    """ms per call: CUDA events around `launches` back-to-back calls,
+    divided by the count; median of `reps` such runs (after a warm call)."""
+    if warm:
+        fn()
+    out = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(launches):
+            fn()
+        b.record()
+        b.synchronize()
+        out.append(a.elapsed_time(b) / launches)
+    return statistics.median(out)
+
+
+class GraphTimer:
+    """Device-only ms per call of `fn`: `launches` calls captured in one
+    CUDA graph, so no host work sits between them; `time()` replays the
+    graph between CUDA events and divides by the count."""
+
+    def __init__(self, fn, launches: int = 20):
+        fn()
+        torch.cuda.synchronize()
+        self.launches = launches
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            for _ in range(launches):
+                fn()
+        self.graph.replay()
+        torch.cuda.synchronize()
+
+    def time(self) -> float:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        self.graph.replay()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / self.launches
+
+
+# ---- main-path inputs ------------------------------------------------------
+
+def erosion_case(dev, gen: torch.Generator, num_tiles: int = 256):
+    """(hm, xi, zi, angles, params6): one erosion batch at the terrain
+    path's shapes (tiles of 128^2, 512 droplets, 64 steps) on the path's
+    own raw tile heights."""
+    from w3d_torch.models import terrain_model as TMOD
+    from w3d_torch.ops import erosion as E
+    from w3d_torch.terrain import mesh as TM
+    from w3d_torch.utils.constants import WorldConst
+    world = WorldConst()
+    mcfg = TMOD.TileModelConfig(tile_size=128, erosion_iters_tt=512,
+                                erosion_batch=512, erosion_steps=64)
+    table, x0, y0, ze, wpz, ang = TMOD.example_inputs(
+        mcfg, world, gen, num_tiles=num_tiles, device=dev)
+    hm = TMOD._tile_heights(table, x0, y0, mcfg, world, ze).contiguous()
+    xi, zi = E.droplet_starts(512, 128, 128, device=dev)
+    xi = xi.expand(num_tiles, 512).contiguous()
+    zi = zi.expand(num_tiles, 512).contiguous()
+    p6 = E.pack_params(E.ErosionParams(
+        erode_amount=1.0, water_plane_z=wpz, half_dxy=world.half_dxy,
+        zmin=-ze, zmax=ze, rock_thresh=TM.clip_hd1(mcfg.cfg)), dev)
+    return hm, xi, zi, ang[0].contiguous(), p6
+
+
+def dense_pile(state, table, seed: int = 7):
+    """`state` with its objects moved into a dense x-sorted pile in
+    [-3,3]x[-3,3]x[0,0.3] (~140 per contact-wide x slab at 10K, inside the
+    288 window), and (radius, elasticity, mass) per object."""
+    from w3d_torch.physics import step as PS
+    dev = state.px.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    u = torch.rand((state.px.shape[0], 3), generator=g, device=dev)
+    dense = state._replace(
+        px=(u[:, 0] * 6 - 3).contiguous(), py=(u[:, 1] * 6 - 3).contiguous(),
+        pz=(u[:, 2] * 0.3).contiguous())
+    dense = PS.spatial_sort(dense)
+    rad, _, _, _, elas, _, _, mass, _ = PS._type_params(dense.otype, table)
+    return dense, rad.contiguous(), elas.contiguous(), mass.contiguous()
+
+
+def pair_work(px, py, pz, radius, active, window: int,
+              i_limit: int | None = None) -> tuple[int, int]:
+    """(valid pairs in the band, overlapping pairs): the pair tests and
+    the contacts that these inputs need."""
+    n = px.shape[0]
+    ilim = n if i_limit is None else min(i_limit, n)
+    valid = hits = 0
+    for d in range(1, min(window, n - 1) + 1):
+        k = min(ilim, n - d)
+        if k <= 0:
+            break
+        ok = active[:k] & active[d:d + k]
+        ex, ey, ez = px[:k] - px[d:d + k], py[:k] - py[d:d + k], pz[:k] - pz[d:d + k]
+        dist = torch.sqrt(torch.clamp(ex * ex + ey * ey + ez * ez, min=1e-12))
+        valid += int(ok.sum())
+        hits += int((ok & (dist < radius[:k] + radius[d:d + k])).sum())
+    return valid, hits
+
+
+# ops per unit of work, counted from the kernel sources (adds, multiplies,
+# divides, square roots, min/max and compares each count one)
+EROSION_OPS = {"live": 80,      # one droplet step's read and update
+               "deposit": 14,   # a bilinear deposit's four taps
+               "erode": 128}    # a 4x4 erosion stencil
+PAIR_TEST_OPS = 12              # offsets, squared distance, sqrt, compare
+PAIR_HIT_OPS = 50               # both sides' push and impulse terms
+
+
+def erosion_bound(hm, xi, angles, stats: dict) -> tuple[float, str]:
+    nbytes = 2 * hm.numel() * 4 + 2 * xi.numel() * 4 + angles.numel() * 4 + 24
+    nops = sum(EROSION_OPS[k] * int(stats[k]) for k in EROSION_OPS)
+    return bound_ms(nbytes, nops)
+
+
+def pairs_bound(n: int, valid: int, hits: int) -> tuple[float, str]:
+    nbytes = 9 * n * 4 + n + 6 * n * 4
+    return bound_ms(nbytes, PAIR_TEST_OPS * valid + PAIR_HIT_OPS * hits)
+
+
+# ---- probes ----------------------------------------------------------------
+
+def _ptxas_and_sass() -> None:
+    from w3d_torch.ops.cuda import build
+    nvcc = build._nvcc()
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in ("erosion", "pairs"):
+            src = os.path.join(build.CSRC, f"{name}.cu")
+            cubin = os.path.join(tmp, f"{name}.cubin")
+            res = subprocess.run([nvcc] + build.COMPILE_FLAGS
+                                 + ["-Xptxas", "-v", "-cubin", "-o", cubin, src],
+                                 capture_output=True, text=True, check=True)
+            print(f"ptxas {name}.cu:\n" + "\n".join(
+                ln for ln in (res.stdout + res.stderr).splitlines()
+                if "registers" in ln or "spill" in ln or "Compiling" in ln))
+            if name != "erosion":
+                continue
+            dump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+            sass = subprocess.run([dump, "-sass", cubin], capture_output=True,
+                                  text=True, check=True).stdout
+            ops: dict[str, int] = {}
+            for op in re.findall(r"\b(ATOMS\.[A-Z0-9.]+|ATOM\.[A-Z0-9.]+|"
+                                 r"RED\.[A-Z0-9.]+|BAR\.[A-Z0-9.]+)", sass):
+                ops[op] = ops.get(op, 0) + 1
+            print(f"erosion.cu SASS atomics and barriers (static count): {ops}")
+
+
+def _phases_library():
+    """The library built with the erosion phase counters, and its walk."""
+    from w3d_torch.ops.cuda import build
+    lib = ctypes.CDLL(build.build(defines=("W3D_EROSION_PHASES",)))
+    fn = lib.w3d_erosion_walk
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def _launch(fn, hm, xi, zi, ang, p6):
+    out = torch.empty_like(hm)
+    T, ny, nx = hm.shape
+    err = fn(hm.data_ptr(), xi.data_ptr(), zi.data_ptr(), ang.data_ptr(),
+             p6.data_ptr(), out.data_ptr(), T, ny, nx, xi.shape[1],
+             ang.shape[0], torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"erosion variant: CUDA error {err}")
+    return out
+
+
+def _phase_split(case, kernel_ms: float) -> None:
+    hm, xi, zi, ang, p6 = case
+    lib, fn = _phases_library()
+    read = lib.w3d_erosion_phase_cycles
+    read.argtypes = [ctypes.c_void_p]
+    read.restype = ctypes.c_int
+    cyc = (ctypes.c_ulonglong * 4)()
+    _launch(fn, hm, xi, zi, ang, p6)
+    torch.cuda.synchronize()
+    read(cyc)                                    # clears the warm-up's sums
+    ms = events_ms(lambda: _launch(fn, hm, xi, zi, ang, p6), launches=1, reps=1)
+    torch.cuda.synchronize()
+    if read(cyc):
+        raise RuntimeError("erosion phase counters: CUDA error")
+    T, steps = hm.shape[0], ang.shape[0]
+    ncalls = 2                                   # events_ms: one warm call + one timed
+    per = [c / (T * ncalls) for c in cyc]
+    names = ("read phase + barrier", "write phase (atomics) + barrier",
+             "combine pass + barrier")
+    print(f"erosion phase split, {T} tiles, {steps} steps (SM cycles per CTA; "
+          f"the instrumented kernel ran {ms:.4f} ms, the plain build "
+          f"{kernel_ms:.4f} ms):")
+    for name, c in zip(names, per[:3]):
+        print(f"    {name}: {c / steps:10.1f} cycles/step, "
+              f"{100 * c / per[3]:5.1f}% of the walk")
+    print(f"    whole walk: {per[3]:.0f} cycles per CTA, "
+          f"{per[3] / steps:.1f} cycles/step")
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--times", action="store_true",
+                    help="only the two kernels' device-only times (CUDA graphs "
+                         "of 20 launches), through their public wrappers; runs "
+                         "against another checkout too: cd <checkout> && "
+                         "PYTHONPATH=. python3 <this file> --times")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_probe: needs a CUDA device")
+    from w3d_torch.models import physics_model as PM
+    from w3d_torch.ops import erosion as E
+    from w3d_torch.ops.cuda import build
+    from w3d_torch.ops.cuda import erosion_kernel as EK
+    from w3d_torch.ops.cuda import pairs_kernel as PK
+    dev = torch.device("cuda")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,"
+                          "clocks.max.sm", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    print(f"card: {smi}; package {os.path.dirname(E.__file__)}")
+    if not args.times:
+        _ptxas_and_sass()
+    build.library()
+    gen = torch.Generator(device=dev).manual_seed(1234)
+
+    case = erosion_case(dev, gen)
+    timer = GraphTimer(lambda: EK.erosion_walk(*case))
+    a_gr = [timer.time() for _ in range(5)]
+    pos, vel = PM.spawn(10000, gen, device=dev)
+    sw = PM.build_spheres_world(pos, vel, device=dev)
+    dense, rad, elas, mass = dense_pile(sw.state, sw.table)
+    act = (dense.status > 0) & (rad >= 0.01)
+    pin = (dense.px, dense.py, dense.pz, dense.vx, dense.vy, dense.vz,
+           rad, mass, elas, act)
+    timer = GraphTimer(lambda: PK.banded_pairs(*pin, window=288))
+    d_gr = [timer.time() for _ in range(5)]
+    print(f"device-only ms (CUDA graph of 20 launches, 5 replays): erosion "
+          f"median {statistics.median(a_gr):.4f} {[round(t, 4) for t in a_gr]}; "
+          f"pairs median {statistics.median(d_gr):.4f} "
+          f"{[round(t, 4) for t in d_gr]}")
+    if args.times:
+        return
+
+    stats: dict = {}
+    ref = E._walk_batch(*case, stats=stats)
+    out = EK.erosion_walk(*case)
+    print(f"erosion: bitwise equal to plain {bool(torch.equal(out, ref))}; work "
+          f"{ {k: int(v) for k, v in stats.items()} }")
+    a_ev = events_ms(lambda: EK.erosion_walk(*case))
+    b, by = erosion_bound(case[0], case[1], case[3], stats)
+    print(f"erosion: {a_ev:.4f} ms (events, 20 launches); bound {b:.4f} ms by {by}")
+    _phase_split(case, a_ev)
+    valid, hits = pair_work(dense.px, dense.py, dense.pz, rad, act, 288)
+    d_ev = events_ms(lambda: PK.banded_pairs(*pin, window=288))
+    b, by = pairs_bound(10000, valid, hits)
+    print(f"pairs: {valid} valid pairs, {hits} contacts; {d_ev:.4f} ms "
+          f"(events, 20 launches; the wrapper's host work is longer than the "
+          f"kernel); bound {b:.5f} ms by {by}")
+
+
+if __name__ == "__main__":
+    main()
