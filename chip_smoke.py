@@ -26,12 +26,15 @@ Phases, each fatal on failure (no phase hides an error):
 4. Each kernel against its plain PyTorch version on the card, at its
    path's shapes: max difference and mismatch counts; erosion and pairs
    also bitwise from run to run and at one ragged shape each (3 tiles of
-   48x64 with 200 droplets; 4,097 ranks, window 300, `i_limit` 3,001).
-   Times in turns (plain, kernel, kernel, plain, ...): the kernel
+   48x64 with 200 droplets; 4,097 ranks, window 300, `i_limit` 3,001);
+   narrow also on the seven-shape scene (every shape group, dead padding
+   slots).  Times in turns (plain, kernel, kernel, plain, ...): the kernel
    device-only, a CUDA graph of 20 launches replayed between CUDA events;
    the plain version, CUDA events around back-to-back calls.  Beside each,
    its bound: the larger of the bytes it must move over 3.35 TB/s and the
-   operations it does on these inputs over 67 TFLOP/s (float32).
+   operations it does on these inputs over 67 TFLOP/s (float32); beside
+   sample's and narrow's, their floor: the same graph timer at 128 objects
+   (one CTA's worth), the launch plus fixed set-up.
 5. The combined step and a small fused frame on a small input on the card
    against the same steps on the CPU (plain versions).
 
@@ -58,6 +61,7 @@ NUM_OBJS = 10000
 SUBSTEPS = 10
 WINDOW = 288
 LIGHT_GRID = (32, 128, 128)   # (mesh_z, mesh_y, mesh_x), lighting/lmap.py
+FLOOR_N = 128            # objects in B's and C's floor runs: one CTA's worth
 # ops per unit of work for the bounds, counted from the kernel sources
 # (adds, multiplies, divides, square roots, min/max, compares: one each);
 # the erosion and pair counts are in w3d_torch/utils/kernel_probe.py
@@ -111,6 +115,7 @@ def main() -> int:
     from w3d_torch.physics import fused as PF
     from w3d_torch.physics import step as PS
     from w3d_torch.physics import types as PT
+    from w3d_torch.scene import cobj as SC
     from w3d_torch.utils import kernel_probe as KP
     from w3d_torch.utils.constants import WorldConst
     from w3d_torch.water import smoke as WS
@@ -305,9 +310,14 @@ def main() -> int:
                     tk.append(timer.time())
         return statistics.median(tp), statistics.median(tk)
 
-    def add(name, err, times, bound, note):
+    def add(name, err, times, bound, note, floor=None):
+        """`floor`: the kernel's call at FLOOR_N objects, timed as its
+        launch-plus-set-up floor."""
         pm, km = times
-        report[name] = dict(err=err, ms=km, plain_ms=pm, bound=bound, note=note)
+        fm = (statistics.median(KP.GraphTimer(floor).time() for _ in range(5))
+              if floor is not None else None)
+        report[name] = dict(err=err, ms=km, plain_ms=pm, bound=bound, note=note,
+                            floor=fm)
 
     # A: one erosion batch on 256 raw tiles, then the ragged case
     case = KP.erosion_case(dev, gen)
@@ -357,37 +367,54 @@ def main() -> int:
         f"not bitwise {int((dh > 0).sum())} of {dh.numel()}, normals max diff {dn:.3g}")
     need(float(dh.max()) <= bound and dn < 1e-6, "sample: " + TOLS["sample"])
     n = sx.shape[0]
+    sx_floor, sy_floor = sx[:FLOOR_N].contiguous(), sy[:FLOOR_N].contiguous()
     add("sample", max(float(dh.max()), dn),
         in_turns(lambda: PS.sample_mesh(mesh, sx, sy, world),
                  lambda: SK.sample_mesh(mesh, sx, sy, world), rounds=10,
                  plain_calls=5),
         KP.bound_ms(mesh.numel() * 4 + 6 * n * 4, SAMPLE_OPS * n),
-        "grid_sample gives the heights only, not the normals")
+        "grid_sample gives the heights only, not the normals",
+        floor=lambda: SK.sample_mesh(mesh, sx_floor, sy_floor, world))
 
     # C and D: a dense pile so contacts happen
     dense, rad, elas, mass = KP.dense_pile(sw0.state, sw0.table)
     gc = sw0.cobjs
     ncobj = sum(hi - lo for lo, hi in gc.bounds)
     nin = (dense.px, dense.py, dense.pz, rad)
-    out = NK.deepest_hits(*nin, gc)
-    ref = PC.deepest_hits_grouped(*nin, gc)
-    top2 = torch.topk(PC.sphere_cobj_test_grouped(*nin, gc)[0], 2).values
-    robust = ref[0] & ((top2[:, 0] - top2[:, 1]) > 1e-4)
-    hit_eq = bool(torch.equal(out[0], ref[0]))
-    dpen = float((out[1] - ref[1]).abs().max())
-    dwin = max(float(torch.where(robust, a - b, 0.0).abs().max())
-               for a, b in zip(out[2:], ref[2:]))
-    log(f"narrow: M={gc.size}, hits {int(ref[0].sum())}, hit mask equal "
-        f"{hit_eq}, pen max diff {dpen:.3g}, winner fields max diff {dwin:.3g} "
-        f"on {int(robust.sum())} lanes")
-    need(hit_eq and dpen < 1e-5 and dwin < 1e-5, "narrow: " + TOLS["narrow"])
+    # C also on the seven-shape scene: every shape group, dead padding slots
+    # in most of them; 10K objects uniform in [-2.5, 2.5]^3
+    g7 = PC.group_cobjs(SC.pack_cobjs(KP.seven_shape_scene(), device=dev))
+    rg7 = np.random.default_rng(3)
+    nin7 = tuple(torch.as_tensor(rg7.uniform(lo, hi, NUM_OBJS).astype(np.float32),
+                                 device=dev)
+                 for lo, hi in ((-2.5, 2.5),) * 3 + ((0.02, 0.2),))
+    dwin = dpen = 0.0
+    for scene, g, ins in (("spheres, dense pile", gc, nin),
+                          ("seven shapes", g7, nin7)):
+        out = NK.deepest_hits(*ins, g)
+        ref = PC.deepest_hits_grouped(*ins, g)
+        top2 = torch.topk(PC.sphere_cobj_test_grouped(*ins, g)[0], 2).values
+        robust = ref[0] & ((top2[:, 0] - top2[:, 1]) > 1e-4)
+        hit_eq = bool(torch.equal(out[0], ref[0]))
+        dp = float((out[1] - ref[1]).abs().max())
+        dw = max(float(torch.where(robust, a - b, 0.0).abs().max())
+                 for a, b in zip(out[2:], ref[2:]))
+        log(f"narrow, {scene}: M={g.size}, hits {int(ref[0].sum())}, hit mask "
+            f"equal {hit_eq}, pen max diff {dp:.3g}, winner fields max diff "
+            f"{dw:.3g} on {int(robust.sum())} lanes")
+        need(hit_eq and dp < 1e-5 and dw < 1e-5 and int(ref[0].sum()) > 500,
+             f"narrow ({scene}): " + TOLS["narrow"] + ", with hits")
+        dpen, dwin = max(dpen, dp), max(dwin, dw)
     cf = NK.pack_cobj_fields(gc)
+    nin_floor = tuple(t[:FLOOR_N].contiguous() for t in nin)
     add("narrow", max(dpen, dwin),
         in_turns(lambda: PC.deepest_hits_grouped(*nin, gc),
                  lambda: NK.deepest_hits(*nin, gc), rounds=10, plain_calls=5),
-        KP.bound_ms(10 * NUM_OBJS * 4 + cf.numel() * 4 + 32,
+        KP.bound_ms((10 * 4 + 1) * NUM_OBJS              # 4 in, 6 out, hit mask
+                    + NK.kernel_tables(gc)[2].numel() * 4 + 32,
                     COBJ_TEST_OPS * NUM_OBJS * ncobj),
-        "no PyTorch call tests spheres against cobj shapes")
+        "no PyTorch call tests spheres against cobj shapes",
+        floor=lambda: NK.deepest_hits(*nin_floor, gc))
 
     act = (dense.status > 0) & (rad >= 0.01)
     pin = (dense.px, dense.py, dense.pz, dense.vx, dense.vy, dense.vz,
@@ -560,10 +587,12 @@ def main() -> int:
             "diffuse_smoke": ("diffuse_smoke_open", "w3d_torch/csrc/stencil.cu",
                               "3dworld_tpu/ops/pallas/stencil_kernel.py:62")}
     for n, r in report.items():
-        log(f"{n}: kernel {r['ms']:.4f} ms device-only, plain {r['plain_ms']:.4f} "
-            f"ms, bound {r['bound'][0]:.5f} ms by {r['bound'][1]} (roofline "
-            f"share {100 * r['bound'][0] / r['ms']:.1f}%), max abs err "
-            f"{r['err']:.3g} ({TOLS[n]}); no library call: {r['note']}")
+        floor = ("" if r["floor"] is None else
+                 f", floor {r['floor']:.4f} ms ({FLOOR_N} objects)")
+        log(f"{n}: kernel {r['ms']:.4f} ms device-only{floor}, plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound'][0]:.5f} ms by "
+            f"{r['bound'][1]} (roofline share {100 * r['bound'][0] / r['ms']:.1f}%), "
+            f"max abs err {r['err']:.3g} ({TOLS[n]}); no library call: {r['note']}")
     log(json.dumps({
         "metrics": {"terrain_tiles_per_sec": tiles_per_s,
                     "physics_frames_per_sec_10k": fps[5],
@@ -578,7 +607,8 @@ def main() -> int:
          "max_abs_err": report[n]["err"], "ms": report[n]["ms"],
          "plain_ms": report[n]["plain_ms"], "bound_ms": report[n]["bound"][0],
          "bound_by": report[n]["bound"][1], "library_ms": None,
-         "library_none_because": report[n]["note"]} for n in srcs]}))
+         "library_none_because": report[n]["note"],
+         "floor_ms": report[n]["floor"]} for n in srcs]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -163,6 +163,7 @@ def test_cobj_table_columns_match_cuda_header():
     src = (Path(GK.__file__).parents[2] / "csrc" / "cobj_shapes.cuh").read_text()
     consts = {k: int(v) for k, v in re.findall(r"\b(C_[A-Z0-9]+|CF) = (\d+)", src)}
     assert consts.pop("CF") == CF_PAD
+    assert int(re.search(r"\bCF_USED = (\d+)", src).group(1)) == len(CF_COLUMNS)
     assert consts == {k: CF_INDEX[v] for k, v in _CUH_COLUMNS.items()}
     # the pt and pn blocks are contiguous xyz triples, as the kernels read them
     assert CF_INDEX["pt3z"] == CF_INDEX["pt0x"] + 11
@@ -174,3 +175,14 @@ def test_cobj_table_columns_match_cuda_header():
     for name, col in (("r1", c.r1), ("elas", c.elasticity), ("fric", c.friction),
                       ("pt2y", c.pts[:, 2, 1]), ("pnz", c.pnorm[:, 2])):
         assert torch.equal(tab[:, CF_INDEX[name]], col), name
+    # the narrow kernel's field-major copy: used columns as rows, padded to
+    # a multiple of 4 rows
+    fm = NK.field_major(tab[:-3])
+    assert fm.shape == (len(CF_COLUMNS), c.size) and fm.is_contiguous()
+    assert torch.equal(fm[:, :c.size - 3], tab[:-3, :len(CF_COLUMNS)].t())
+    assert not fm[:, c.size - 3:].any()
+    fm = NK.field_major(tab)
+    assert fm.shape == (len(CF_COLUMNS), c.size) and fm.is_contiguous()
+    assert torch.equal(fm[:, :c.size], tab[:, :len(CF_COLUMNS)].t())
+    assert not fm[:, c.size:].any()
+    assert NK.field_major(torch.zeros((NK.MAX_ROWS + 1, CF_PAD))) is None

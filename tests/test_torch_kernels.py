@@ -10,7 +10,8 @@ Tolerances: erosion bitwise, and bitwise from run to run (each step's
 writes are summed in integer fixed point, whose order does not matter);
 sample heights bitwise (same op order, no FMA contraction in either), normals
 1e-6 (torch's CUDA rsqrt is not correctly rounded); narrow phase as the
-CPU tests hold the JAX kernel; pairs 1e-6, and bitwise from run to run
+CPU tests hold the JAX kernel (`torch_port_util.check_narrow`), with
+first-index ties exact; pairs 1e-6, and bitwise from run to run
 (no float atomics); the fused substep 1e-5 with
 status and flags equal; tile noise 1e-3 (the kernel's own fused
 multiply-add loop against a float32 einsum); smoke stencil 1e-6.
@@ -28,7 +29,8 @@ from w3d_torch.physics import step as PS
 from w3d_torch.scene import cobj as SC
 from w3d_torch.utils.constants import WorldConst
 
-from torch_port_util import cuda_device, seven_shape_scene  # noqa: F401
+from torch_port_util import (check_narrow, cuda_device,  # noqa: F401
+                             narrow_case, seven_shape_scene)
 
 pytestmark = pytest.mark.gpu
 
@@ -68,24 +70,21 @@ def test_sample_kernel_matches_plain(cuda_device):
         assert (a - b).abs().max().item() < 1e-6
 
 
-def test_narrow_kernel_matches_plain(cuda_device):
+@pytest.mark.parametrize("case,n", [("base", 10000), ("far", 10000),
+                                    ("ties", 10000), ("wide", 10000),
+                                    ("base", 4097)])
+def test_narrow_kernel_matches_plain(cuda_device, case, n):
+    """The CPU parity cases (tests/test_torch_physics.py) at 10K objects,
+    among them a table of 200 slots, and a ragged N whose last team and CTA
+    are partial."""
     from w3d_torch.ops.cuda import narrow_kernel as NK
-    g = PC.group_cobjs(SC.pack_cobjs(seven_shape_scene(SC), device=cuda_device))
-    rg = np.random.default_rng(3)
-    n = 10000
-    ins = [torch.as_tensor(rg.uniform(-2.5, 2.5, n).astype(np.float32),
-                           device=cuda_device) for _ in range(3)]
-    ins.append(torch.as_tensor(rg.uniform(0.02, 0.2, n).astype(np.float32),
-                               device=cuda_device))
-    out = NK.deepest_hits(*ins, g)
-    ref = PC.deepest_hits_grouped(*ins, g)
-    assert int(ref[0].sum()) > 500
-    assert torch.equal(out[0], ref[0])
-    assert (out[1] - ref[1]).abs().max().item() < 1e-5
-    top2 = torch.topk(PC.sphere_cobj_test_grouped(*ins, g)[0], 2).values
-    robust = ref[0] & ((top2[:, 0] - top2[:, 1]) > 1e-4)
-    for a, b in zip(out[2:], ref[2:]):
-        assert torch.where(robust, a - b, 0.0).abs().max().item() < 1e-5
+    sp, ins = narrow_case(case, SC, n)
+    g = PC.group_cobjs(SC.pack_cobjs(sp, device=cuda_device))
+    ins = [torch.as_tensor(a, device=cuda_device) for a in ins]
+    out = [a.cpu().numpy() for a in NK.deepest_hits(*ins, g)]
+    ref = [a.cpu().numpy() for a in PC.deepest_hits_grouped(*ins, g)]
+    pen_all = PC.sphere_cobj_test_grouped(*ins, g)[0].cpu().numpy()
+    check_narrow(case, out, ref, pen_all)
 
 
 def test_pairs_kernel_matches_plain(cuda_device):

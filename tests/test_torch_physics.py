@@ -33,7 +33,8 @@ from w3d_torch.physics import types as TT
 from w3d_torch.scene import cobj as TSC
 from w3d_torch.utils.constants import WorldConst as TWorld
 
-from torch_port_util import bumpy_world, np_tree, seven_shape_scene, ulp_diff
+from torch_port_util import (bumpy_world, check_narrow, narrow_case, np_tree,
+                             seven_shape_scene, ulp_diff)
 
 
 def test_type_table_matches():
@@ -88,29 +89,22 @@ def test_sample_mesh_matches():
         np.testing.assert_allclose(b, a, rtol=0, atol=1e-6)
 
 
-def _narrow_inputs(n=2048, seed=3):
-    rg = np.random.default_rng(seed)
-    p = [rg.uniform(-2.5, 2.5, n).astype(np.float32) for _ in range(3)]
-    return p + [rg.uniform(0.02, 0.2, n).astype(np.float32)]
-
-
-def test_deepest_hits_grouped_matches():
-    jg = JC.group_cobjs(JSC.pack_cobjs(seven_shape_scene(JSC)))
-    tg = TC.group_cobjs(TSC.pack_cobjs(seven_shape_scene(TSC), device="cpu"))
-    ins = _narrow_inputs()
+@pytest.mark.parametrize("case", ["base", "far", "ties", "wide"])
+def test_deepest_hits_grouped_matches(case):
+    """The seven-shape scene; objects far from every cobj (first dead slot
+    wins); duplicated cobjs on different lanes of a team (first index on
+    exact ties); the scene copied to 200 slots."""
+    jsp, ins = narrow_case(case, JSC, 2048)
+    tsp, _ = narrow_case(case, TSC, 2048)
+    jg = JC.group_cobjs(JSC.pack_cobjs(jsp))
+    tg = TC.group_cobjs(TSC.pack_cobjs(tsp, device="cpu"))
     ref = [np.asarray(a) for a in JC.deepest_hits_grouped(
         *(jnp.asarray(a) for a in ins), jg)]
     out = [a.numpy() for a in TC.deepest_hits_grouped(
         *(torch.as_tensor(a) for a in ins), tg)]
-    assert ref[0].sum() > 100                       # many lanes hit
-    np.testing.assert_array_equal(ref[0], out[0])   # hit mask
-    np.testing.assert_allclose(out[1], ref[1], rtol=0, atol=1e-5)
     pen_all = np.asarray(JC.sphere_cobj_test_grouped(
         *(jnp.asarray(a) for a in ins), jg)[0])
-    top2 = -np.sort(-pen_all, axis=1)[:, :2]
-    robust = ref[0] & ((top2[:, 0] - top2[:, 1]) > 1e-4)
-    for a, b in zip(ref[2:], out[2:]):              # winner fields
-        assert np.abs(np.where(robust, a - b, 0.0)).max() < 1e-5
+    check_narrow(case, out, ref, pen_all)
 
 
 def _sorted_population(n=900):

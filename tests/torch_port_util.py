@@ -1,8 +1,12 @@
 """Shared helpers for the torch-port parity tests (tests/test_torch_*.py)."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
+
+from w3d_torch.utils.kernel_probe import seven_shape_scene  # noqa: F401
 
 
 @pytest.fixture
@@ -67,42 +71,81 @@ def jax_angle_tables(num_iters: int, batch_size: int, max_steps: int,
                      for b in range(nb)])
 
 
-def seven_shape_scene(SC):
-    """tests/test_pallas.py::test_pallas_narrow_phase_matches_xla's scene:
-    every shape group plus dead padding slots, built with `SC`'s classes."""
-    sp = SC.SceneParse()
-    lay = SC.CobjLayer(elasticity=0.8, friction=0.6)
-    rg = np.random.default_rng(3)
-    for _ in range(17):
-        p = rg.uniform(-2, 2, 3)
-        sp.cobjs.append(SC.RawCobj(SC.COLL_SPHERE, tuple(p),
-                                   r1=float(rg.uniform(0.1, 0.5)), layer=lay))
-    for _ in range(11):
-        p = rg.uniform(-2, 2, 3)
-        q = p + rg.uniform(0.2, 1.0, 3)
-        sp.cobjs.append(SC.RawCobj(SC.COLL_CUBE, tuple(p), tuple(q), layer=lay))
-    for shp, n in ((SC.COLL_CYLINDER, 7), (SC.COLL_CAPSULE, 6),
-                   (SC.COLL_CYLINDER_ROT, 5), (SC.COLL_TORUS, 4)):
-        for _ in range(n):
-            p = rg.uniform(-2, 2, 3)
-            q = p + rg.uniform(-0.8, 0.8, 3)
-            if shp == SC.COLL_CYLINDER:
-                q[0], q[1] = p[0], p[1]
-            if shp == SC.COLL_TORUS:
-                q = np.asarray([0.0, 0.0, 1.0])
-            sp.cobjs.append(SC.RawCobj(shp, tuple(p), tuple(q),
-                                       r1=float(rg.uniform(0.1, 0.4)),
-                                       r2=float(rg.uniform(0.1, 0.4)),
-                                       layer=lay))
-    for _ in range(5):
-        a = rg.uniform(-2, 2, 3)
-        pts = (a, a + [1.0, 0.0, 0.0], a + [1.0, 1.0, 0.0], a + [0.0, 1.0, 0.0])
-        sp.cobjs.append(SC.RawCobj(SC.COLL_POLYGON,
-                                   pts=tuple(tuple(p) for p in pts),
-                                   r1=0.05, layer=lay))
-    # a negative cube carving the first positive cube (CSG at pack time)
-    c0 = next(c for c in sp.cobjs if c.shape == SC.COLL_CUBE)
-    mid = tuple(0.5 * (a + b) for a, b in zip(c0.p1, c0.p2))
-    sp.cobjs.append(SC.RawCobj(SC.COLL_CUBE, mid, c0.p2, negative=True,
-                               layer=lay))
-    return sp
+def narrow_case(case: str, SC, n: int, seed: int = 3):
+    """(scene, [px, py, pz, radius] float32 numpy) of one narrow-phase
+    parity case, built with `SC`'s classes:
+
+    - "base": the seven-shape scene, objects uniform in [-2.5, 2.5]^3;
+    - "far": the same objects at z = 50, farther than 1 from every cobj, so
+      each takes the first dead padding slot (pen -1, zero normal);
+    - "ties": spheres 3 and 12 of the scene replaced by copies of spheres 0
+      and 5 under another layer (elasticity 0.3, friction 0.2), so each pair
+      ties exactly in pen and normal and the winner's elasticity shows which
+      row won.  In the packed order the pairs are sphere-group rows 0 and 3
+      (lanes 0 and 3 of an 8-lane team) and 5 and 12 (lane 5 of one pass,
+      lane 4 of the next); a quarter of the objects sit inside them;
+    - "wide": the scene's positive cobjs copied twice more, each copy
+      shifted, so the table holds 129 to 384 slots (M = 200).
+    """
+    sp = seven_shape_scene(SC)
+    rg = np.random.default_rng(seed)
+    p = [rg.uniform(-2.5, 2.5, n).astype(np.float32) for _ in range(3)]
+    rad = rg.uniform(0.02, 0.2, n).astype(np.float32)
+    if case == "far":
+        p[2] = np.full(n, 50.0, np.float32)
+    elif case == "ties":
+        spheres = [k for k, c in enumerate(sp.cobjs) if c.shape == SC.COLL_SPHERE]
+        dup = SC.CobjLayer(elasticity=0.3, friction=0.2)
+        for src, dst in ((0, 3), (5, 12)):
+            s = sp.cobjs[spheres[src]]
+            sp.cobjs[spheres[dst]] = SC.RawCobj(SC.COLL_SPHERE, s.p1, r1=s.r1,
+                                                layer=dup)
+        for k, src in enumerate((0, 5)):
+            s = sp.cobjs[spheres[src]]
+            sel = slice(k, n // 4, 2)
+            for a in range(3):
+                m = len(p[a][sel])
+                p[a][sel] = (s.p1[a] + rg.uniform(-0.5, 0.5, m) * s.r1).astype(np.float32)
+    elif case == "wide":
+        base = [c for c in sp.cobjs if not c.negative]
+        for k in (1, 2):
+            d = np.asarray([0.31, -0.17, 0.23]) * k
+            for c in base:
+                sp.cobjs.append(dataclasses.replace(
+                    c, p1=tuple(np.asarray(c.p1) + d),
+                    # a torus's p2 is its axis, not a point
+                    p2=c.p2 if c.shape == SC.COLL_TORUS else tuple(np.asarray(c.p2) + d),
+                    pts=tuple(tuple(np.asarray(q) + d) for q in c.pts)))
+    elif case != "base":
+        raise ValueError(case)
+    return sp, p + [rad]
+
+
+def check_narrow(case: str, out, ref, pen_all) -> None:
+    """Hold a narrow-phase result against its reference, both (hit, pen, nx,
+    ny, nz, elas, fric) numpy arrays; `pen_all` [N, M] is the reference's
+    pen on every slot.  Hit mask equal, pen within 1e-5 on every lane, the
+    winner's fields within 1e-5 where the argmax margin exceeds 1e-4; per
+    case, that the case happened: hits ("base"), the first dead slot on
+    every lane ("far"), the first of two tied rows ("ties")."""
+    n = len(ref[0])
+    np.testing.assert_array_equal(out[0], ref[0])
+    np.testing.assert_allclose(out[1], ref[1], rtol=0, atol=1e-5)
+    top2 = -np.sort(-pen_all, axis=1)[:, :2]
+    robust = ref[0] & ((top2[:, 0] - top2[:, 1]) > 1e-4)
+    for a, b in zip(ref[2:], out[2:]):
+        assert np.abs(np.where(robust, a - b, 0.0)).max() < 1e-5
+    if case in ("base", "wide"):
+        assert ref[0].sum() > 0.05 * n
+    elif case == "far":
+        assert not ref[0].any() and (ref[1] == -1.0).all()
+        for a, b in zip(ref[2:], out[2:]):
+            assert not a.any() and not b.any()
+    else:
+        tie = ref[0] & (top2[:, 0] == top2[:, 1])
+        assert tie.sum() > 0.05 * n
+        assert (ref[5][tie] == np.float32(0.8)).all()   # the first row's layer
+        for k in (2, 3, 4):
+            assert np.abs(out[k][tie] - ref[k][tie]).max() < 1e-5
+        for k in (5, 6):
+            np.testing.assert_array_equal(out[k][tie], ref[k][tie])

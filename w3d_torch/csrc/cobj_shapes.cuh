@@ -1,21 +1,28 @@
 // Sphere-vs-cobj penetration formulas shared by the narrow-phase kernel
 // (narrow.cu) and the fused substep kernel (substep.cu).
 //
-// Each function takes one row of the packed [M, 32] cobj field table
+// Each function takes one row of the packed cobj field table
 // (physics/cobj_table.py layout) and an object's centre
 // and radius, and returns the penetration depth and push-out normal the
 // plain PyTorch versions compute for that shape (physics/cobjs.py and
 // physics/fused.py), op for op: built with -fmad=false, every product and
 // sum rounds on its own.  Sqrt and divide are IEEE; the rotated cylinder's
 // 1/|ab| is a divide by sqrtf, not the approximate rsqrtf.
+//
+// A row is any view `c` whose c[k] is column k: a `const float*` to a row
+// of the row-major [M, 32] table (substep.cu), or a `FieldRow<S>` into a
+// field-major [CF_USED][S] table (narrow.cu).  `team_deepest_hit` splits
+// one object's rows over a team of lanes and merges their winners.
 
 #pragma once
 
 #include <cuda_runtime.h>
+#include <math_constants.h>
 
 namespace w3d {
 
 constexpr int CF = 32;   // packed field columns per cobj (padded)
+constexpr int CF_USED = 27;   // columns in use (physics/cobj_table.CF_COLUMNS)
 // column indices of the packed table (physics/cobj_table.CF_COLUMNS)
 constexpr int C_SHAPE = 0, C_P1 = 1, C_P2 = 4, C_R1 = 7, C_R2 = 8,
               C_NPTS = 9, C_PTS = 10, C_PN = 22, C_ELAS = 25, C_FRIC = 26;
@@ -44,7 +51,8 @@ __device__ __forceinline__ float norm3(float ax, float ay, float az,
   return d;
 }
 
-__device__ __forceinline__ Hit cube(const float* c, float X, float Y, float Z,
+template <class V>
+__device__ __forceinline__ Hit cube(const V& c, float X, float Y, float Z,
                                     float r) {
   const float lox = fminf(c[C_P1], c[C_P2]), hix = fmaxf(c[C_P1], c[C_P2]);
   const float loy = fminf(c[C_P1 + 1], c[C_P2 + 1]),
@@ -73,7 +81,8 @@ __device__ __forceinline__ Hit cube(const float* c, float X, float Y, float Z,
   return h;
 }
 
-__device__ __forceinline__ Hit sphere(const float* c, float X, float Y,
+template <class V>
+__device__ __forceinline__ Hit sphere(const V& c, float X, float Y,
                                       float Z, float r) {
   Hit h;
   const float dist =
@@ -82,7 +91,8 @@ __device__ __forceinline__ Hit sphere(const float* c, float X, float Y,
   return h;
 }
 
-__device__ __forceinline__ Hit vcylinder(const float* c, float X, float Y,
+template <class V>
+__device__ __forceinline__ Hit vcylinder(const V& c, float X, float Y,
                                          float Z, float r) {
   const float zlo = fminf(c[C_P1 + 2], c[C_P2 + 2]);
   const float zhi = fmaxf(c[C_P1 + 2], c[C_P2 + 2]);
@@ -105,7 +115,8 @@ __device__ __forceinline__ Hit vcylinder(const float* c, float X, float Y,
   return h;
 }
 
-__device__ __forceinline__ Hit capsule(const float* c, float X, float Y,
+template <class V>
+__device__ __forceinline__ Hit capsule(const V& c, float X, float Y,
                                        float Z, float r) {
   const float p1x = c[C_P1], p1y = c[C_P1 + 1], p1z = c[C_P1 + 2];
   const float abx = c[C_P2] - p1x, aby = c[C_P2 + 1] - p1y,
@@ -121,13 +132,14 @@ __device__ __forceinline__ Hit capsule(const float* c, float X, float Y,
   return h;
 }
 
-__device__ __forceinline__ Hit polygon(const float* c, float X, float Y,
+template <class V>
+__device__ __forceinline__ Hit polygon(const V& c, float X, float Y,
                                        float Z, float r) {
   const float pnx = c[C_PN], pny = c[C_PN + 1], pnz = c[C_PN + 2];
   const float npts = c[C_NPTS];
-  const float* pt = c + C_PTS;   // pt[3k + axis]
-  const float dp =
-      (X - pt[0]) * pnx + (Y - pt[1]) * pny + (Z - pt[2]) * pnz;
+  // point k's axis a is column C_PTS + 3k + a
+  const float dp = (X - c[C_PTS]) * pnx + (Y - c[C_PTS + 1]) * pny +
+                   (Z - c[C_PTS + 2]) * pnz;
   const float side = dp > 0.0f ? 1.0f : (dp < 0.0f ? -1.0f : 0.0f);
   const float prx = X - dp * pnx, pry = Y - dp * pny, prz = Z - dp * pnz;
   bool inside = true;
@@ -135,10 +147,11 @@ __device__ __forceinline__ Hit polygon(const float* c, float X, float Y,
   for (int k = 0; k < 4; ++k) {
     const int kn = (k + 1) % 4;
     const bool nxt_ok = (float)kn < npts;
-    const float ax = pt[3 * k], ay = pt[3 * k + 1], az = pt[3 * k + 2];
-    const float bx = nxt_ok ? pt[3 * kn] : pt[0];
-    const float by = nxt_ok ? pt[3 * kn + 1] : pt[1];
-    const float bz = nxt_ok ? pt[3 * kn + 2] : pt[2];
+    const float ax = c[C_PTS + 3 * k], ay = c[C_PTS + 3 * k + 1],
+                az = c[C_PTS + 3 * k + 2];
+    const float bx = nxt_ok ? c[C_PTS + 3 * kn] : c[C_PTS];
+    const float by = nxt_ok ? c[C_PTS + 3 * kn + 1] : c[C_PTS + 1];
+    const float bz = nxt_ok ? c[C_PTS + 3 * kn + 2] : c[C_PTS + 2];
     const float ex = bx - ax, ey = by - ay, ez = bz - az;
     const float vx = prx - ax, vy = pry - ay, vz = prz - az;
     const float crx = ey * vz - ez * vy;
@@ -155,7 +168,8 @@ __device__ __forceinline__ Hit polygon(const float* c, float X, float Y,
   return h;
 }
 
-__device__ __forceinline__ Hit torus(const float* c, float X, float Y,
+template <class V>
+__device__ __forceinline__ Hit torus(const V& c, float X, float Y,
                                      float Z, float r) {
   const float tx = X - c[C_P1], ty = Y - c[C_P1 + 1], tz = Z - c[C_P1 + 2];
   const float axx = c[C_P2], axy = c[C_P2 + 1], axz = c[C_P2 + 2];
@@ -171,7 +185,8 @@ __device__ __forceinline__ Hit torus(const float* c, float X, float Y,
   return h;
 }
 
-__device__ __forceinline__ Hit rcylinder(const float* c, float X, float Y,
+template <class V>
+__device__ __forceinline__ Hit rcylinder(const V& c, float X, float Y,
                                          float Z, float r) {
   const float p1x = c[C_P1], p1y = c[C_P1 + 1], p1z = c[C_P1 + 2];
   const float abx = c[C_P2] - p1x, aby = c[C_P2 + 1] - p1y,
@@ -209,7 +224,8 @@ __device__ __forceinline__ Hit rcylinder(const float* c, float X, float Y,
 
 // The formula of the row's own shape; a dead slot (shape 0) or an unknown
 // id scores -1 with a zero normal.
-__device__ __forceinline__ Hit eval_shape(int shape, const float* c, float X,
+template <class V>
+__device__ __forceinline__ Hit eval_shape(int shape, const V& c, float X,
                                           float Y, float Z, float r) {
   switch (shape) {
     case COLL_CUBE: return cube(c, X, Y, Z, r);
@@ -221,6 +237,81 @@ __device__ __forceinline__ Hit eval_shape(int shape, const float* c, float X,
     case COLL_TORUS: return torus(c, X, Y, Z, r);
     default: return Hit{-1.0f, 0.0f, 0.0f, 0.0f};
   }
+}
+
+// The formula of group g of the shape-sorted table (physics/cobjs.py
+// GroupedCobjs.SHAPE_ORDER).
+template <class V>
+__device__ __forceinline__ Hit eval_group(int g, const V& c, float X, float Y,
+                                          float Z, float r) {
+  switch (g) {
+    case 0: return cube(c, X, Y, Z, r);
+    case 1: return sphere(c, X, Y, Z, r);
+    case 2: return vcylinder(c, X, Y, Z, r);
+    case 3: return capsule(c, X, Y, Z, r);
+    case 4: return polygon(c, X, Y, Z, r);
+    case 5: return torus(c, X, Y, Z, r);
+    default: return rcylinder(c, X, Y, Z, r);
+  }
+}
+
+// Row `row` of a field-major [CF_USED][S] table: column k sits S floats
+// after column k - 1, so every column offset is an immediate.
+template <int S>
+struct FieldRow {
+  const float* p;   // &table[0][row]
+  __device__ __forceinline__ float operator[](int k) const { return p[k * S]; }
+};
+
+constexpr int NO_ROW = 0x7fffffff;
+
+// One object's deepest hit against the shape-sorted field-major table `tab`
+// ([CF_USED][S], group g in rows [gstart[g], gstart[g + 1])), split over a
+// team of K consecutive lanes of a warp (K a power of two, at most 32,
+// teams aligned to K; every lane of the warp must call it).  Lane `lane` of
+// the team evaluates rows gstart[g] + lane, + K, ... of each group, so all
+// teams of a warp run the same group's formula at the same time.  Dead
+// padding slots (shape 0) score -1 with a zero normal and stay candidates,
+// as in the plain version.  Each lane keeps its strictly deepest row (the
+// first of its own rows on ties); the team then merges over offsets K/2 ..
+// 1, taking the other lane's row when it is deeper or equally deep with a
+// lower index: the first index on ties, as torch.argmax, for finite input.
+// Every lane returns the team's winner and its row (NO_ROW for a table
+// without rows).
+template <int K, int S>
+__device__ __forceinline__ Hit team_deepest_hit(const float* tab,
+                                                const int* gstart, float X,
+                                                float Y, float Z, float r,
+                                                int lane, int* row_out) {
+  Hit best = {-CUDART_INF_F, 0.0f, 0.0f, 0.0f};
+  int best_row = NO_ROW;
+#pragma unroll
+  for (int g = 0; g < 7; ++g) {
+    const int hi = gstart[g + 1];
+    for (int row = gstart[g] + lane; row < hi; row += K) {
+      const FieldRow<S> c{tab + row};
+      const Hit h = c[C_SHAPE] == 0.0f ? Hit{-1.0f, 0.0f, 0.0f, 0.0f}
+                                       : eval_group(g, c, X, Y, Z, r);
+      if (h.pen > best.pen) {
+        best = h;
+        best_row = row;
+      }
+    }
+  }
+#pragma unroll
+  for (int off = K / 2; off > 0; off /= 2) {
+    const Hit o = {__shfl_xor_sync(0xffffffffu, best.pen, off),
+                   __shfl_xor_sync(0xffffffffu, best.nx, off),
+                   __shfl_xor_sync(0xffffffffu, best.ny, off),
+                   __shfl_xor_sync(0xffffffffu, best.nz, off)};
+    const int o_row = __shfl_xor_sync(0xffffffffu, best_row, off);
+    if (o.pen > best.pen || (o.pen == best.pen && o_row < best_row)) {
+      best = o;
+      best_row = o_row;
+    }
+  }
+  *row_out = best_row;
+  return best;
 }
 
 }  // namespace w3d

@@ -56,10 +56,11 @@
 //
 // After this design a step costs read 1,370, write 3,285 and combine 2,209
 // cycles: the shared-memory atomic unit now bounds the walk, and A is still
-// the kernel with the most main-path time above its bound (ROADMAP Queue 2,
-// first).  The `W3D_EROSION_PHASES` counters below are the instrument that
-// measures each step's phases for that next pass; the default build leaves
-// them out.
+// the kernel with the most main-path time above its bound; that residual is
+// performance work once a benchmark exists (ROADMAP Queue 2 redesigns each
+// kernel once).  The `W3D_EROSION_PHASES` counters below are the instrument
+// that measures each step's phases for that next pass; the default build
+// leaves them out.
 
 #include <cuda_runtime.h>
 

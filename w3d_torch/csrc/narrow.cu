@@ -6,25 +6,46 @@
 // Plain PyTorch version: w3d_torch/physics/cobjs.py `deepest_hits_grouped`;
 // wrapper: w3d_torch/ops/cuda/narrow_kernel.py.
 //
-// What bounds it on this card: arithmetic.  Each object tests every cobj
+// What bounds it on this card: latency.  Each object tests every cobj
 // slot (M = 112 for the spheres scene) with its shape's formula, tens of
-// flops with a sqrt and a divide each; device memory sees only 4 floats in
-// and 6 out per object plus the 14 KB table per block.
+// dependent flops with an IEEE sqrt and divide each; device memory sees
+// only 4 floats in and 6 floats and a byte out per object plus the 12 KB
+// table per block.
+// With one thread per object, N = 10K is 79 CTAs of 4 warps on the 132
+// SMs, and each warp waits out every instruction's latency through 112
+// serial rows.
 //
-// Design: one thread per object.  The packed [M, 32] cobj field table
-// (physics/cobj_table.py layout; the shape formulas are in
-// cobj_shapes.cuh) is copied to shared memory once per block and read as
-// a broadcast: every thread of a warp reads the same row at the same time.  The groups of the shape-sorted table are walked in
-// their padded order (cube, sphere, vertical cylinder, capsule, polygon,
-// torus, rotated cylinder) and each group's formula runs only on its own
-// rows, so the branch is uniform across the warp.  Dead padding slots
-// (shape 0) score -1 with a zero normal, as in the plain version.  The
-// best slot is kept on strictly greater penetration, which gives the
-// first index on ties, as torch.argmax and jnp.argmax do.  The TPU
-// kernel's [M, Nb] planes and iota-min argmax become a running maximum in
-// registers.  Built with -fmad=false: every formula rounds op by op as the
-// plain version does, so pen and the winner's fields agree bitwise except
-// where sqrt/divide differ.
+// Design: a team of LANES (8) consecutive threads per object
+// (cobj_shapes.cuh `team_deepest_hit`).  Lane j of the team evaluates rows
+// gstart[g] + j, + LANES, ... of each shape group g, so a thread runs M /
+// LANES rows and N = 10K objects fill the card with 80K threads.  Every
+// team of a warp runs the same group at the same time, so each group's
+// formula is warp-uniform code (the group loop is unrolled; no switch is
+// left).  Rows past a group's end are masked, so any group starts work
+// (those of `group_cobjs(pad_to=8)` are multiples of 8, and no lane idles
+// at LANES = 8).  The table sits in shared memory field-major,
+// [CF_USED][S] with the fixed row stride S = MAX_ROWS (384), so each
+// column offset is an immediate: the LANES rows a team reads at once are
+// consecutive words in distinct banks, and every team of the warp reads
+// the same words.  The wrapper packs it compact, [CF_USED][m4] with m4 =
+// M rounded up to 4 (`narrow_kernel.kernel_tables`), and each CTA stages
+// those m4 rows as float4s into the stride-S columns.  Dead padding slots
+// (shape 0) score -1 with a zero normal and stay candidates, as in the
+// plain version (an object farther than ~1 from every live cobj takes the
+// first dead slot).  Each lane keeps its strictly deepest row; the team
+// merges with `__shfl_xor_sync`, taking the other lane's row when deeper
+// or equally deep with a lower index: the first index on ties, as
+// torch.argmax and jnp.argmax.  Team lane 0 writes the object's seven
+// outputs (the hit mask pen > 0 too, so the wrapper launches nothing
+// else), no atomics.  The TPU kernel's [M, Nb] planes and iota-min argmax
+// become a running maximum in registers.  Built with -fmad=false: every
+// formula rounds op by op as the plain version does, so pen and the
+// winner's fields agree bitwise except where sqrt/divide differ.
+//
+// Tuned once on an H100 80GB HBM3 at 700 W with `utils/kernel_probe`:
+// 8 lanes and 256-thread CTAs; 4 and 16 lanes and 128- or 512-thread CTAs
+// were slower (PERF.md).  What is left is one lane's 14 dependent rows,
+// the staging and the launch, which no wider grid shortens.
 
 #include <cuda_runtime.h>
 
@@ -33,80 +54,64 @@
 namespace {
 
 using namespace w3d;
-constexpr int F = CF;
+constexpr int LANES = 8;
+constexpr int BLOCK = 256;
+constexpr int S = 48 * 1024 / (CF * 4);   // narrow_kernel.MAX_ROWS
 
-__device__ __forceinline__ Hit eval_group(int g, const float* c, float X,
-                                          float Y, float Z, float r) {
-  switch (g) {
-    case 0: return cube(c, X, Y, Z, r);
-    case 1: return sphere(c, X, Y, Z, r);
-    case 2: return vcylinder(c, X, Y, Z, r);
-    case 3: return capsule(c, X, Y, Z, r);
-    case 4: return polygon(c, X, Y, Z, r);
-    case 5: return torus(c, X, Y, Z, r);
-    default: return rcylinder(c, X, Y, Z, r);
+__global__ void __launch_bounds__(BLOCK)
+    narrow_kernel(const float* __restrict__ tab,   // [CF_USED][m4]
+                  int m4, const int* __restrict__ gstart,  // [8]
+                  const float* __restrict__ px, const float* __restrict__ py,
+                  const float* __restrict__ pz, const float* __restrict__ rad,
+                  bool* __restrict__ hit_out, float* __restrict__ pen_out,
+                  float* __restrict__ nx_out, float* __restrict__ ny_out,
+                  float* __restrict__ nz_out, float* __restrict__ el_out,
+                  float* __restrict__ fr_out, int n) {
+  __shared__ __align__(16) float s_tab[CF_USED * S];
+  __shared__ int s_start[8];
+  const int q = m4 / 4;   // float4s per column
+  const float4* src = reinterpret_cast<const float4*>(tab);
+  float4* dst = reinterpret_cast<float4*>(s_tab);
+  for (int k = threadIdx.x; k < CF_USED * q; k += BLOCK) {
+    const int col = k / q;
+    dst[col * (S / 4) + (k - col * q)] = src[k];
   }
-}
-
-__global__ void narrow_kernel(const float* __restrict__ cf,
-                              const int* __restrict__ gstart, int M,
-                              const float* __restrict__ px,
-                              const float* __restrict__ py,
-                              const float* __restrict__ pz,
-                              const float* __restrict__ rad,
-                              float* __restrict__ pen_out,
-                              float* __restrict__ nx_out,
-                              float* __restrict__ ny_out,
-                              float* __restrict__ nz_out,
-                              float* __restrict__ el_out,
-                              float* __restrict__ fr_out, int n) {
-  extern __shared__ float s_cf[];
-  for (int k = threadIdx.x; k < M * F; k += blockDim.x) s_cf[k] = cf[k];
+  if (threadIdx.x < 8) s_start[threadIdx.x] = gstart[threadIdx.x];
   __syncthreads();
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const float X = px[i], Y = py[i], Z = pz[i], r = rad[i];
-  Hit best = {-1.0f, 0.0f, 0.0f, 0.0f};
-  int best_row = -1;
-  for (int g = 0; g < 7; ++g) {
-    const int hi = gstart[g + 1];
-    for (int row = gstart[g]; row < hi; ++row) {
-      const float* c = s_cf + row * F;
-      Hit h;
-      if (c[C_SHAPE] == 0.0f) {   // dead padding slot
-        h.pen = -1.0f;
-        h.nx = h.ny = h.nz = 0.0f;
-      } else {
-        h = eval_group(g, c, X, Y, Z, r);
-      }
-      // strictly greater: first index on ties
-      if (best_row < 0 || h.pen > best.pen) {
-        best = h;
-        best_row = row;
-      }
-    }
-  }
-  pen_out[i] = best.pen;
-  nx_out[i] = best.nx;
-  ny_out[i] = best.ny;
-  nz_out[i] = best.nz;
-  el_out[i] = best_row < 0 ? 0.0f : s_cf[best_row * F + C_ELAS];
-  fr_out[i] = best_row < 0 ? 0.0f : s_cf[best_row * F + C_FRIC];
+  const int i = (int)(((long long)blockIdx.x * BLOCK + threadIdx.x) / LANES);
+  const int lane = threadIdx.x % LANES;
+  // a team past the last object evaluates the last one and writes nothing:
+  // every lane of the warp takes part in the team merge's shuffles
+  const int o = i < n ? i : n - 1;
+  int row;
+  const Hit h = team_deepest_hit<LANES, S>(s_tab, s_start, px[o], py[o],
+                                           pz[o], rad[o], lane, &row);
+  if (lane != 0 || i >= n) return;
+  const bool any = row != NO_ROW;
+  const float pen = any ? h.pen : -1.0f;
+  hit_out[i] = pen > 0.0f;
+  pen_out[i] = pen;
+  nx_out[i] = h.nx;
+  ny_out[i] = h.ny;
+  nz_out[i] = h.nz;
+  el_out[i] = any ? s_tab[C_ELAS * S + row] : 0.0f;
+  fr_out[i] = any ? s_tab[C_FRIC * S + row] : 0.0f;
 }
 
 }  // namespace
 
-extern "C" int w3d_narrow(const float* cf, const int* gstart, int M,
+// `tab` is the compact field-major [CF_USED][m4] table, m4 a multiple of 4
+// no larger than the kernel's row stride (384).
+extern "C" int w3d_narrow(const float* tab, const int* gstart, int m4,
                           const float* px, const float* py, const float* pz,
-                          const float* rad, float* pen, float* nx, float* ny,
-                          float* nz, float* el, float* fr, int n,
+                          const float* rad, bool* hit, float* pen, float* nx,
+                          float* ny, float* nz, float* el, float* fr, int n,
                           void* stream) {
+  if (m4 < 0 || m4 % 4 != 0 || m4 > S) return (int)cudaErrorInvalidValue;
   if (n > 0) {
-    const int block = 128;
-    const size_t smem = (size_t)M * F * sizeof(float);
-    narrow_kernel<<<(n + block - 1) / block, block, smem,
-                    (cudaStream_t)stream>>>(cf, gstart, M, px, py, pz, rad, pen,
-                                            nx, ny, nz, el, fr, n);
+    const int grid = (int)(((long long)n * LANES + BLOCK - 1) / BLOCK);
+    narrow_kernel<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
+        tab, m4, gstart, px, py, pz, rad, hit, pen, nx, ny, nz, el, fr, n);
   }
   return (int)cudaGetLastError();
 }

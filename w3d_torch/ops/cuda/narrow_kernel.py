@@ -2,11 +2,11 @@
 (replaces the Pallas `_narrow_kernel`,
 `3dworld_tpu/ops/pallas/narrow_kernel.py:83`).
 
-One thread per object against the packed [M, 32] cobj field table in
-shared memory, group by group; deepest hit kept on strictly greater
-penetration (first index on ties).  Takes any N; raises when the table
-does not fit the kernel's shared memory.  The plain version is
-`physics/cobjs.deepest_hits_grouped`.
+A team of 8 threads per object splits its cobj rows, group by group,
+over a field-major copy of the packed cobj table in shared memory; the
+team merges its lanes' deepest hits, first index on ties.  Takes any N;
+raises when the table does not fit the kernel's shared memory.  The plain
+version is `physics/cobjs.deepest_hits_grouped`.
 """
 
 from __future__ import annotations
@@ -17,15 +17,15 @@ import weakref
 import torch
 
 from . import build
-from ...physics.cobj_table import CF_PAD
+from ...physics.cobj_table import CF_COLUMNS, CF_PAD
 from ...physics.cobjs import CobjSet, GroupedCobjs, deepest_hits_grouped
 
 KERNEL = build.Kernel("w3d_narrow",
                       [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
-                      + [ctypes.c_void_p] * 10 + [ctypes.c_int])
+                      + [ctypes.c_void_p] * 11 + [ctypes.c_int])
 
 MAX_ROWS = 48 * 1024 // (CF_PAD * 4)   # the table in 48 KB of shared memory
-# GroupedCobjs -> (packed table, group starts), built once per scene
+# GroupedCobjs -> kernel_tables(g), built once per scene
 _TABLES: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
 
 
@@ -46,15 +46,28 @@ def pack_cobj_fields(c: CobjSet | GroupedCobjs) -> torch.Tensor:
     return torch.nn.functional.pad(m, (0, CF_PAD - m.shape[1])).contiguous()
 
 
+def field_major(cf: torch.Tensor) -> torch.Tensor | None:
+    """[M, 32] field table -> [27, m4] f32: column k of the used columns as
+    row k, zero-padded to m4 = M rounded up to 4 (the narrow kernel stages
+    it as float4s); None when M exceeds the kernel's MAX_ROWS."""
+    M = cf.shape[0]
+    if M > MAX_ROWS:
+        return None
+    t = cf[:, :len(CF_COLUMNS)].t()
+    return torch.nn.functional.pad(t, (0, -M % 4)).contiguous()
+
+
 def kernel_tables(g: GroupedCobjs) -> tuple:
-    """(packed [M, 32] field table, [8] int32 padded group starts) on the
-    scene's device: the kernel's inputs, packed at the first call for `g`
+    """(packed [M, 32] field table, [8] int32 padded group starts, its
+    field-major [27, m4] copy) on the scene's device: the kernels' inputs
+    (G reads the first, C the other two), packed at the first call for `g`
     and reused while `g` lives."""
     tabs = _TABLES.get(g)
     if tabs is None:
         dev = g.cobjs.shape.device
-        tabs = (pack_cobj_fields(g),
-                torch.tensor(g.padded_starts, dtype=torch.int32, device=dev))
+        cf = pack_cobj_fields(g)
+        tabs = (cf, torch.tensor(g.padded_starts, dtype=torch.int32, device=dev),
+                field_major(cf))
         _TABLES[g] = tabs
     return tabs
 
@@ -71,16 +84,16 @@ def deepest_hits(px, py, pz, radius, g: GroupedCobjs):
     dev = px.device
     for name, t in (("px", px), ("py", py), ("pz", pz), ("radius", radius)):
         build.check(name, t, torch.float32, (n,), dev)
-    cf, starts = kernel_tables(g)
+    cf, starts, tab = kernel_tables(g)
     M = cf.shape[0]
-    build.check("fields", cf, torch.float32, (M, CF_PAD), dev)
-    build.check("starts", starts, torch.int32, (8,), dev)
-    if M > MAX_ROWS:
+    if tab is None:
         raise ValueError(f"deepest_hits: {M} cobj slots exceed the kernel's "
                          f"{MAX_ROWS}-row shared-memory table")
-    outs = [torch.empty_like(px) for _ in range(6)]
-    KERNEL.launch(cf.data_ptr(), starts.data_ptr(), M,
+    build.check("fields", tab, torch.float32, (len(CF_COLUMNS), tab.shape[1]), dev)
+    build.check("starts", starts, torch.int32, (8,), dev)
+    outs = [torch.empty(n, dtype=torch.bool, device=dev)]
+    outs += [torch.empty_like(px) for _ in range(6)]
+    KERNEL.launch(tab.data_ptr(), starts.data_ptr(), tab.shape[1],
                   px.data_ptr(), py.data_ptr(), pz.data_ptr(),
                   radius.data_ptr(), *(o.data_ptr() for o in outs), n)
-    pen, nx, ny, nz, el, fr = outs
-    return pen > 0.0, pen, nx, ny, nz, el, fr
+    return tuple(outs)

@@ -1,9 +1,10 @@
 """Bilinear mesh sampling: CUDA kernel `csrc/sample.cu` (replaces the Pallas
 `_sample_kernel`, `3dworld_tpu/ops/pallas/sample_kernel.py:49`).
 
-One thread per object; the four taps and their central-difference
-gradients are read straight from the mesh.  Takes any N and any mesh
-size.  The plain version is `physics/step.sample_mesh`.
+One thread per object in 64-thread CTAs; the four taps and their
+central-difference gradients come from the 12 distinct mesh cells around
+the object, each read once.  Takes any N and any mesh size.  The plain
+version is `physics/step.sample_mesh`.
 """
 
 from __future__ import annotations

@@ -1,23 +1,28 @@
-"""Probe the erosion walk (kernel A) and the banded pair pass (kernel D) on
-the GPU, and the timing and bound helpers that `chip_smoke.py` shares.
+"""Probe the erosion walk (A), the mesh sample (B), the narrow phase (C)
+and the banded pair pass (D) on the GPU, and the timing, bound and scene
+helpers that `chip_smoke.py` shares.
 
     python3 -m w3d_torch.utils.kernel_probe
 
 Prints, at the main path's shapes (256 tiles of 128^2 with 512 droplets
-and 64 steps; 10K balls in a dense x-sorted pile, window 288):
+and 64 steps; 10K balls in a dense x-sorted pile in the spheres scene,
+M = 112 cobj slots, window 288):
 
-1. what `ptxas` reports for both kernels (registers, shared memory,
+1. what `ptxas` reports for the four kernels (registers, shared memory,
    spills), and the shared-memory atomic instructions in the erosion
    kernel's SASS (`cuobjdump`);
-2. the erosion walk's phase split: a variant library built with
+2. each kernel's device-only time: one replay of a CUDA graph of 20
+   launches between CUDA events, divided by 20; and the floors of B and C,
+   the same timer at N = 128 (one CTA's worth of objects): launch plus
+   fixed set-up;
+3. the erosion walk's phase split: a variant library built with
    `W3D_EROSION_PHASES`, whose thread 0 in each CTA sums the SM cycles
    between the step's barriers (read phase, write phase, combine);
-3. each kernel's device-only time: one replay of a CUDA graph of 20
-   launches between CUDA events, divided by 20 (and CUDA events around 20
-   back-to-back eager calls, which for a kernel shorter than its wrapper's
-   host work time the host); beside its bound.
+4. A's and D's CUDA-event times around 20 back-to-back eager calls (for a
+   kernel shorter than its wrapper's host work they time the host), beside
+   their bounds.
 
-With `--times` it prints only step 3's graph times, through wrappers that
+With `--times` it prints only step 2's graph times, through wrappers that
 older checkouts of the port have too, so two versions can be timed in one
 call on one card (`cd <checkout> && PYTHONPATH=. python3 <this file>
 --times`).
@@ -35,6 +40,7 @@ import statistics
 import subprocess
 import tempfile
 
+import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory (data sheet)
@@ -135,6 +141,51 @@ def dense_pile(state, table, seed: int = 7):
     return dense, rad.contiguous(), elas.contiguous(), mass.contiguous()
 
 
+def seven_shape_scene(SC=None):
+    """tests/test_pallas.py::test_pallas_narrow_phase_matches_xla's scene:
+    every shape group plus dead padding slots, built with `SC`'s classes
+    (the port's `w3d_torch.scene.cobj` by default; the tests pass the JAX
+    package's too, so both packages pack the same scene)."""
+    if SC is None:
+        from w3d_torch.scene import cobj as SC
+    sp = SC.SceneParse()
+    lay = SC.CobjLayer(elasticity=0.8, friction=0.6)
+    rg = np.random.default_rng(3)
+    for _ in range(17):
+        p = rg.uniform(-2, 2, 3)
+        sp.cobjs.append(SC.RawCobj(SC.COLL_SPHERE, tuple(p),
+                                   r1=float(rg.uniform(0.1, 0.5)), layer=lay))
+    for _ in range(11):
+        p = rg.uniform(-2, 2, 3)
+        q = p + rg.uniform(0.2, 1.0, 3)
+        sp.cobjs.append(SC.RawCobj(SC.COLL_CUBE, tuple(p), tuple(q), layer=lay))
+    for shp, n in ((SC.COLL_CYLINDER, 7), (SC.COLL_CAPSULE, 6),
+                   (SC.COLL_CYLINDER_ROT, 5), (SC.COLL_TORUS, 4)):
+        for _ in range(n):
+            p = rg.uniform(-2, 2, 3)
+            q = p + rg.uniform(-0.8, 0.8, 3)
+            if shp == SC.COLL_CYLINDER:
+                q[0], q[1] = p[0], p[1]
+            if shp == SC.COLL_TORUS:
+                q = np.asarray([0.0, 0.0, 1.0])
+            sp.cobjs.append(SC.RawCobj(shp, tuple(p), tuple(q),
+                                       r1=float(rg.uniform(0.1, 0.4)),
+                                       r2=float(rg.uniform(0.1, 0.4)),
+                                       layer=lay))
+    for _ in range(5):
+        a = rg.uniform(-2, 2, 3)
+        pts = (a, a + [1.0, 0.0, 0.0], a + [1.0, 1.0, 0.0], a + [0.0, 1.0, 0.0])
+        sp.cobjs.append(SC.RawCobj(SC.COLL_POLYGON,
+                                   pts=tuple(tuple(p) for p in pts),
+                                   r1=0.05, layer=lay))
+    # a negative cube carving the first positive cube (CSG at pack time)
+    c0 = next(c for c in sp.cobjs if c.shape == SC.COLL_CUBE)
+    mid = tuple(0.5 * (a + b) for a, b in zip(c0.p1, c0.p2))
+    sp.cobjs.append(SC.RawCobj(SC.COLL_CUBE, mid, c0.p2, negative=True,
+                               layer=lay))
+    return sp
+
+
 def pair_work(px, py, pz, radius, active, window: int,
               i_limit: int | None = None) -> tuple[int, int]:
     """(valid pairs in the band, overlapping pairs): the pair tests and
@@ -180,7 +231,7 @@ def _ptxas_and_sass() -> None:
     from w3d_torch.ops.cuda import build
     nvcc = build._nvcc()
     with tempfile.TemporaryDirectory() as tmp:
-        for name in ("erosion", "pairs"):
+        for name in ("erosion", "pairs", "narrow", "sample"):
             src = os.path.join(build.CSRC, f"{name}.cu")
             cubin = os.path.join(tmp, f"{name}.cubin")
             res = subprocess.run([nvcc] + build.COMPILE_FLAGS
@@ -251,13 +302,19 @@ def _phase_split(case, kernel_ms: float) -> None:
           f"{per[3] / steps:.1f} cycles/step")
 
 
+def _graph_ms(fn) -> list[float]:
+    """Five replays of a CUDA graph of 20 calls of `fn`: ms per call."""
+    timer = GraphTimer(fn)
+    return [timer.time() for _ in range(5)]
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--times", action="store_true",
-                    help="only the two kernels' device-only times (CUDA graphs "
-                         "of 20 launches), through their public wrappers; runs "
-                         "against another checkout too: cd <checkout> && "
-                         "PYTHONPATH=. python3 <this file> --times")
+                    help="only the kernels' device-only times and B's and C's "
+                         "floors (CUDA graphs of 20 launches), through their "
+                         "public wrappers; runs against another checkout too: "
+                         "cd <checkout> && PYTHONPATH=. python3 <this file> --times")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("kernel_probe: needs a CUDA device")
@@ -265,7 +322,10 @@ def main() -> None:
     from w3d_torch.ops import erosion as E
     from w3d_torch.ops.cuda import build
     from w3d_torch.ops.cuda import erosion_kernel as EK
+    from w3d_torch.ops.cuda import narrow_kernel as NK
     from w3d_torch.ops.cuda import pairs_kernel as PK
+    from w3d_torch.ops.cuda import sample_kernel as SK
+    from w3d_torch.utils.constants import WorldConst
     dev = torch.device("cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,"
                           "clocks.max.sm", "--format=csv,noheader"],
@@ -275,22 +335,33 @@ def main() -> None:
         _ptxas_and_sass()
     build.library()
     gen = torch.Generator(device=dev).manual_seed(1234)
+    world = WorldConst()
 
     case = erosion_case(dev, gen)
-    timer = GraphTimer(lambda: EK.erosion_walk(*case))
-    a_gr = [timer.time() for _ in range(5)]
+    times = {"erosion": _graph_ms(lambda: EK.erosion_walk(*case))}
     pos, vel = PM.spawn(10000, gen, device=dev)
     sw = PM.build_spheres_world(pos, vel, device=dev)
     dense, rad, elas, mass = dense_pile(sw.state, sw.table)
     act = (dense.status > 0) & (rad >= 0.01)
     pin = (dense.px, dense.py, dense.pz, dense.vx, dense.vy, dense.vz,
            rad, mass, elas, act)
-    timer = GraphTimer(lambda: PK.banded_pairs(*pin, window=288))
-    d_gr = [timer.time() for _ in range(5)]
-    print(f"device-only ms (CUDA graph of 20 launches, 5 replays): erosion "
-          f"median {statistics.median(a_gr):.4f} {[round(t, 4) for t in a_gr]}; "
-          f"pairs median {statistics.median(d_gr):.4f} "
-          f"{[round(t, 4) for t in d_gr]}")
+    times["pairs"] = _graph_ms(lambda: PK.banded_pairs(*pin, window=288))
+    gc = sw.cobjs
+    nin = (dense.px, dense.py, dense.pz, rad)
+    times["narrow"] = _graph_ms(lambda: NK.deepest_hits(*nin, gc))
+    mesh = torch.rand((world.mesh_y, world.mesh_x), generator=gen, device=dev)
+    sxy = (dense.px, dense.py)
+    times["sample"] = _graph_ms(lambda: SK.sample_mesh(mesh, *sxy, world))
+    # floors: one CTA's worth of objects
+    nin128 = tuple(t[:128].contiguous() for t in nin)
+    sxy128 = tuple(t[:128].contiguous() for t in sxy)
+    times["narrow floor (N = 128)"] = _graph_ms(lambda: NK.deepest_hits(*nin128, gc))
+    times["sample floor (N = 128)"] = _graph_ms(
+        lambda: SK.sample_mesh(mesh, *sxy128, world))
+    print(f"device-only ms (CUDA graph of 20 launches, 5 replays; 10K objects, "
+          f"M = {gc.size}): " + "; ".join(
+              f"{k} median {statistics.median(v):.4f} {[round(t, 4) for t in v]}"
+              for k, v in times.items()))
     if args.times:
         return
 
