@@ -27,14 +27,17 @@ Phases, each fatal on failure (no phase hides an error):
    path's shapes: max difference and mismatch counts; erosion and pairs
    also bitwise from run to run and at one ragged shape each (3 tiles of
    48x64 with 200 droplets; 4,097 ranks, window 300, `i_limit` 3,001);
-   narrow also on the seven-shape scene (every shape group, dead padding
-   slots).  Times in turns (plain, kernel, kernel, plain, ...): the kernel
-   device-only, a CUDA graph of 20 launches replayed between CUDA events;
-   the plain version, CUDA events around back-to-back calls.  Beside each,
-   its bound: the larger of the bytes it must move over 3.35 TB/s and the
-   operations it does on these inputs over 67 TFLOP/s (float32); beside
-   sample's and narrow's, their floor: the same graph timer at 128 objects
-   (one CTA's worth), the launch plus fixed set-up.
+   narrow and the substep also on the seven-shape scene (every shape
+   group, dead padding slots); the tile noise also at the origins of 3a's
+   rate loop (x0 + 11 * 256 * 128, sine arguments past sinf's fast
+   reduction).  Times in turns (plain, kernel, kernel, plain, ...): the
+   kernel device-only, a CUDA graph of 20 launches replayed between CUDA
+   events; the plain version, CUDA events around back-to-back calls.
+   Beside each, its bound: the larger of the bytes it must move over 3.35
+   TB/s and the operations it does on these inputs over 67 TFLOP/s
+   (float32); beside sample's, narrow's and the substep's, their floor: the
+   same graph timer at 128 objects (one CTA's worth), the launch plus fixed
+   set-up; beside the tile noise's, its floor at one tile.
 5. The combined step and a small fused frame on a small input on the card
    against the same steps on the CPU (plain versions).
 
@@ -61,7 +64,7 @@ NUM_OBJS = 10000
 SUBSTEPS = 10
 WINDOW = 288
 LIGHT_GRID = (32, 128, 128)   # (mesh_z, mesh_y, mesh_x), lighting/lmap.py
-FLOOR_N = 128            # objects in B's and C's floor runs: one CTA's worth
+FLOOR_N = 128            # objects in B's, C's and G's floor runs: one CTA's worth
 # ops per unit of work for the bounds, counted from the kernel sources
 # (adds, multiplies, divides, square roots, min/max, compares: one each);
 # the erosion and pair counts are in w3d_torch/utils/kernel_probe.py
@@ -114,7 +117,6 @@ def main() -> int:
     from w3d_torch.physics import cobjs as PC
     from w3d_torch.physics import fused as PF
     from w3d_torch.physics import step as PS
-    from w3d_torch.physics import types as PT
     from w3d_torch.scene import cobj as SC
     from w3d_torch.utils import kernel_probe as KP
     from w3d_torch.utils.constants import WorldConst
@@ -311,8 +313,8 @@ def main() -> int:
         return statistics.median(tp), statistics.median(tk)
 
     def add(name, err, times, bound, note, floor=None):
-        """`floor`: the kernel's call at FLOOR_N objects, timed as its
-        launch-plus-set-up floor."""
+        """`floor`: the kernel's call at FLOOR_N objects (one tile for the
+        tile noise), timed as its launch-plus-set-up floor."""
         pm, km = times
         fm = (statistics.median(KP.GraphTimer(floor).time() for _ in range(5))
               if floor is not None else None)
@@ -405,7 +407,6 @@ def main() -> int:
         need(hit_eq and dp < 1e-5 and dw < 1e-5 and int(ref[0].sum()) > 500,
              f"narrow ({scene}): " + TOLS["narrow"] + ", with hits")
         dpen, dwin = max(dpen, dp), max(dwin, dw)
-    cf = NK.pack_cobj_fields(gc)
     nin_floor = tuple(t[:FLOOR_N].contiguous() for t in nin)
     add("narrow", max(dpen, dwin),
         in_turns(lambda: PC.deepest_hits_grouped(*nin, gc),
@@ -454,16 +455,11 @@ def main() -> int:
         KP.pairs_bound(NUM_OBJS, valid, hits),
         "no PyTorch call computes banded pair impulses")
 
-    # G: one fused substep at 10K, on the dense pile in the spheres scene
+    # G: one fused substep at 10K, on the dense pile in the spheres scene,
     # and on random objects (random status, flag bits and params) over a
-    # bumpy mesh with water, so every branch sees objects
-    par = PS._type_params(dense.otype, sw0.table)[:7]
-    env12 = lambda water_z: torch.tensor(
-        [PT.DEF_TIMESTEP / SUBSTEPS, 1.0, 0.4, 0.2, 0.0, water_z, world.dx_inv,
-         world.dy_inv, world.x_scene, world.dx, world.dy, 0.0], device=dev)
-    maps3 = GK.mesh_maps(sw0.env.mesh_height, world)
-    gin = (dense.px, dense.py, dense.pz, dense.vx, dense.vy, dense.vz,
-           dense.status, dense.flags, *par, maps3, cf, env12(-100.0))
+    # bumpy mesh with water in the spheres and the seven-shape scenes, so
+    # every branch and every shape group sees objects
+    gin = KP.substep_args(dense, sw0, world)
     rng = np.random.default_rng(5)
     rnd = lambda lo, hi: torch.as_tensor(
         rng.uniform(lo, hi, NUM_OBJS).astype(np.float32), device=dev)
@@ -475,44 +471,61 @@ def main() -> int:
                 torch.as_tensor(rng.integers(0, 128, NUM_OBJS).astype(np.int32), device=dev),
                 rnd(0.02, 0.1), rnd(0.0, 0.3), rnd(0.0, 1.3), rnd(0.5, 1.5),
                 rnd(0.2, 1.0), rnd(0.3, 2.0), rnd(5.0, 30.0),
-                GK.mesh_maps(bumpy, world), cf, env12(0.25))
+                GK.mesh_maps(bumpy, world), NK.kernel_tables(gc), gin[-1].clone())
+    gin_rand[-1][5] = 0.25                          # the water plane
+    gin7 = gin_rand[:-2] + (NK.kernel_tables(g7), gin_rand[-1])
+    plain_g = lambda a: PF.substep_plain(*a[:-2], a[-2][0], a[-1])
     dg, unequal = 0.0, []
-    for args in (gin, gin_rand):
+    for args in (gin, gin_rand, gin7):
         out = GK.substep(*args)
-        ref = PF.substep_plain(*args)
+        ref = plain_g(args)
         dg = max(dg, max(float((a - b).abs().max()) for a, b in zip(out[:6], ref[:6])))
         bad = torch.zeros(NUM_OBJS, dtype=torch.bool, device=dev)
         for a, b in zip(out, ref):
             bad |= a != b
         unequal.append((int(bad.sum()), int((out[6] != ref[6]).sum()),
                         int((out[7] != ref[7]).sum()),
-                        int(((ref[7] & 2) != 0).sum())))
+                        int(((ref[7] & ~args[7] & 2) != 0).sum())))
     log(f"substep: max diff {dg:.3g}; (objects not bitwise equal, status "
-        f"unequal, flags unequal, cobj hits) dense pile {unequal[0]}, random "
-        f"objects {unequal[1]} of {NUM_OBJS}")
+        f"unequal, flags unequal, new cobj hits) dense pile {unequal[0]}, random "
+        f"objects {unequal[1]}, seven shapes {unequal[2]} of {NUM_OBJS}")
     need(dg < 1e-5 and all(u[1] == 0 and u[2] == 0 for u in unequal)
-         and unequal[0][3] > 1000, "substep: " + TOLS["substep"] + ", with cobj hits")
+         and unequal[0][3] > 1000 and unequal[2][3] > 100,
+         "substep: " + TOLS["substep"] + ", with cobj hits")
+    gin_floor = tuple(t[:FLOOR_N].contiguous() for t in gin[:15]) + gin[15:]
     add("substep", dg,
-        in_turns(lambda: PF.substep_plain(*gin), lambda: GK.substep(*gin),
+        in_turns(lambda: plain_g(gin), lambda: GK.substep(*gin),
                  rounds=6, plain_calls=2),
-        KP.bound_ms(23 * NUM_OBJS * 4 + maps3.numel() * 4 + cf.numel() * 4 + 48,
+        KP.bound_ms(23 * NUM_OBJS * 4 + gin[15].numel() * 4
+                    + gin[16][2].numel() * 4 + 32 + 48,
                     NUM_OBJS * (COBJ_TEST_OPS * ncobj + SUBSTEP_OBJ_OPS)),
-        "no PyTorch call runs a physics substep")
+        "no PyTorch call runs a physics substep",
+        floor=lambda: GK.substep(*gin_floor))
 
-    # E: 256 tiles of 128^2, all 90 terms
+    # E: 256 tiles of 128^2, all 90 terms, at the terrain path's origins
+    # (the timed case) and at the rate loop's last ones
     out = NZK.tile_noise(*nargs, start_sin=0)
     ref = N.tile_noise(*nargs, start_sin=0)
     de = float((out - ref).abs().max())
-    log(f"tile_noise: max diff {de:.3g} on heights up to {float(ref.abs().max()):.3g}")
-    need(de < 1e-3, "tile_noise: " + TOLS["tile_noise"])
+    far = (table, (x0 + KP.RATE_SHIFT).contiguous()) + nargs[2:]
+    de_far = float((NZK.tile_noise(*far) - N.tile_noise(*far)).abs().max())
+    slow = float((KP.sine_arguments(*far).abs() > KP.SINF_FAST_MAX).float().mean())
+    log(f"tile_noise: max diff {de:.3g} on heights up to {float(ref.abs().max()):.3g}; "
+        f"at x0 + {KP.RATE_SHIFT} ({100 * slow:.1f}% of the sine arguments above "
+        f"{KP.SINF_FAST_MAX:.0f}): max diff {de_far:.3g}, device-only "
+        f"{statistics.median(KP.GraphTimer(lambda: NZK.tile_noise(*far)).time() for _ in range(5)):.4f} ms")
+    need(de < 1e-3 and de_far < 1e-3 and slow > 0.05,
+         "tile_noise: " + TOLS["tile_noise"] + ", at both origins")
     K = N.F_TABLE_SIZE
-    add("tile_noise", de,
+    nargs1 = (table, x0[:1].contiguous(), y0[:1].contiguous()) + nargs[3:]
+    add("tile_noise", max(de, de_far),
         in_turns(lambda: N.tile_noise(*nargs, start_sin=0),
                  lambda: NZK.tile_noise(*nargs, start_sin=0), rounds=10,
                  plain_calls=5),
         KP.bound_ms(out.numel() * 4 + 5 * K * 4 + 2 * NUM_TILES * 4,
                     out.numel() * K * 2 + NUM_TILES * 2 * 128 * K * SIN_TERM_OPS),
-        "the term tables need sin, then an einsum: two calls or more")
+        "the term tables need sin, then an einsum: two calls or more",
+        floor=lambda: NZK.tile_noise(*nargs1))
 
     # F: the default light grid
     out = FK.diffuse_smoke_open(smoke0)
@@ -588,7 +601,8 @@ def main() -> int:
                               "3dworld_tpu/ops/pallas/stencil_kernel.py:62")}
     for n, r in report.items():
         floor = ("" if r["floor"] is None else
-                 f", floor {r['floor']:.4f} ms ({FLOOR_N} objects)")
+                 f", floor {r['floor']:.4f} ms "
+                 f"({'one tile' if n == 'tile_noise' else f'{FLOOR_N} objects'})")
         log(f"{n}: kernel {r['ms']:.4f} ms device-only{floor}, plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound'][0]:.5f} ms by "
             f"{r['bound'][1]} (roofline share {100 * r['bound'][0] / r['ms']:.1f}%), "

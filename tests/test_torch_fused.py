@@ -38,7 +38,8 @@ from w3d_torch.physics import step as TPS
 from w3d_torch.scene import cobj as TSC
 from w3d_torch.utils.constants import WorldConst as TWorld
 
-from torch_port_util import bumpy_world, np_tree, seven_shape_scene
+from torch_port_util import (bumpy_world, into_tied_sphere, np_tree,
+                             seven_shape_scene, tied_spheres_scene)
 
 N = 128
 NAMES = ("px", "py", "pz", "vx", "vy", "vz", "status", "flags")
@@ -49,6 +50,8 @@ def _cobjs(scene):
     if scene == "spheres":
         _, sw = bumpy_world(8, False)
         jg = sw.cobjs
+    elif scene == "tied_spheres":
+        jg = JC.group_cobjs(JSC.pack_cobjs(tied_spheres_scene(JSC)[0]))
     else:
         jg = JC.group_cobjs(JSC.pack_cobjs(seven_shape_scene(JSC)))
     return jg, convert.grouped_cobjs(np_tree(jg), "cpu")
@@ -88,26 +91,33 @@ def _substep_inputs(water):
     return state + params, maps3, env
 
 
-@pytest.mark.parametrize("water", [True, False])
-@pytest.mark.parametrize("scene", ["spheres", "seven_shapes"])
-def test_substep_plain_matches_pallas(scene, water):
-    ins, maps3, env = _substep_inputs(water)
-    jg, tg = _cobjs(scene)
+def _check_substep(ins, maps3, env, jg, tg):
+    """Hold `substep_plain` (and the wrapper on CPU tensors) against the JAX
+    `substep_pallas` in interpret mode; returns the JAX outputs."""
     cf = np.asarray(jax_pack(jg))
     ref = [np.asarray(a) for a in substep_pallas(
         *(jnp.asarray(a) for a in ins), jnp.asarray(maps3), jnp.asarray(cf),
         jnp.asarray(env), Nb=128, interpret=True)]
-    targs = (*(convert.array(a, "cpu") for a in ins), convert.array(maps3, "cpu"),
-             NK.pack_cobj_fields(tg), convert.array(env, "cpu"))
-    out = TF.substep_plain(*targs)
+    tabs = NK.kernel_tables(tg)
+    targs = (*(convert.array(a, "cpu") for a in ins), convert.array(maps3, "cpu"))
+    tenv = convert.array(env, "cpu")
+    out = TF.substep_plain(*targs, tabs[0], tenv)
     for name, a, b in zip(NAMES, ref, out):
         if name in ("status", "flags"):
             np.testing.assert_array_equal(a, b.numpy(), err_msg=name)
         else:
             assert np.abs(a - b.numpy()).max() < 1e-5, (name, np.abs(a - b.numpy()).max())
     # the wrapper takes the plain version for CPU tensors
-    for a, b in zip(out, GK.substep(*targs)):
+    for a, b in zip(out, GK.substep(*targs, tabs, tenv)):
         assert torch.equal(a, b)
+    return ref
+
+
+@pytest.mark.parametrize("water", [True, False])
+@pytest.mark.parametrize("scene", ["spheres", "seven_shapes"])
+def test_substep_plain_matches_pallas(scene, water):
+    ins, maps3, env = _substep_inputs(water)
+    ref = _check_substep(ins, maps3, env, *_cobjs(scene))
     # the substep exercised cobj hits, stops, rolling, kills and water
     # (when present)
     flags = ref[7]
@@ -115,6 +125,25 @@ def test_substep_plain_matches_pallas(scene, water):
     assert len(np.unique(ref[6])) >= 4
     wet = int(JT.FL_IN_WATER | JT.FL_UNDERWATER | JT.FL_FLOATING)
     assert bool((flags & ~ins[7] & wet).any()) == water   # objects entered water
+
+
+def test_substep_plain_averages_tied_rows():
+    """Half the objects inside three coincident spheres of different
+    elasticity and friction: every such hit averages three rows tied at a
+    positive pen, as the JAX kernel does."""
+    ins, maps3, env = _substep_inputs(False)
+    _, centre, radius = tied_spheres_scene(JSC)
+    ins[:3] = into_tied_sphere(*ins[:3], centre, radius, N // 2)
+    jg, tg = _cobjs("tied_spheres")
+    ref = _check_substep(ins, maps3, env, jg, tg)
+    # the three rows tie on every object inside the sphere
+    pen = TF._narrow(NK.kernel_tables(tg)[0], *(convert.array(a, "cpu")[None, :]
+                                                for a in (ins[0], ins[1], ins[2], ins[8])))[0]
+    top = pen.max(dim=0).values
+    ties = ((pen == top) & (top > 0)).sum(dim=0)[:N // 2]
+    assert (ties == 3).all()
+    hits = (ref[7][:N // 2] & int(JT.FL_STATIC_COBJ_COLL)) != 0
+    assert hits.sum() > N // 4
 
 
 # pair_every 2 over 2 substeps runs the pair pass on the first substep

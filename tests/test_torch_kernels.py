@@ -14,7 +14,8 @@ CPU tests hold the JAX kernel (`torch_port_util.check_narrow`), with
 first-index ties exact; pairs 1e-6, and bitwise from run to run
 (no float atomics); the fused substep 1e-5 with
 status and flags equal; tile noise 1e-3 (the kernel's own fused
-multiply-add loop against a float32 einsum); smoke stencil 1e-6.
+multiply-add loop against a float32 einsum; at far origins its sines of
+arguments above 105,615 reduce in double precision); smoke stencil 1e-6.
 """
 
 import numpy as np
@@ -30,7 +31,8 @@ from w3d_torch.scene import cobj as SC
 from w3d_torch.utils.constants import WorldConst
 
 from torch_port_util import (check_narrow, cuda_device,  # noqa: F401
-                             narrow_case, seven_shape_scene)
+                             into_tied_sphere, narrow_case, seven_shape_scene,
+                             tied_spheres_scene)
 
 pytestmark = pytest.mark.gpu
 
@@ -174,24 +176,62 @@ def _substep_inputs(n, g, dev, water_z=0.25):
                            .astype(np.float32) * 0.3 - 0.5, device=dev)
     env = torch.tensor([0.0035, 1.0, 0.4, 0.2, -0.1, water_z, w.dx_inv,
                         w.dy_inv, w.x_scene, w.dx, w.dy, 0.0], device=dev)
-    return (*state, *params, GK.mesh_maps(mesh, w),
-            NK.pack_cobj_fields(g).contiguous(), env)
+    return [*state, *params, GK.mesh_maps(mesh, w), NK.kernel_tables(g), env]
 
 
-@pytest.mark.parametrize("scene", ["spheres", "seven_shapes"])
-def test_substep_kernel_matches_plain(cuda_device, scene):
+def _substep_vs_plain(args):
+    """Kernel G and its plain version on `args` (the wrapper's arguments):
+    positions and velocities within 1e-5, status and flags equal.  Returns
+    the plain version's outputs."""
     from w3d_torch.ops.cuda import physics_kernel as GK
     from w3d_torch.physics import fused as PF
-    sp = PM.spheres_scene() if scene == "spheres" else seven_shape_scene(SC)
-    g = PC.group_cobjs(SC.pack_cobjs(sp, device=cuda_device))
-    args = _substep_inputs(10000, g, cuda_device)
     out = GK.substep(*args)
-    ref = PF.substep_plain(*args)
+    ref = PF.substep_plain(*args[:-2], args[-2][0], args[-1])
     for a, b in zip(out[:6], ref[:6]):
         assert (a - b).abs().max().item() < 1e-5
     assert torch.equal(out[6], ref[6]) and torch.equal(out[7], ref[7])
+    return ref
+
+
+@pytest.mark.parametrize("scene", ["spheres", "seven_shapes", "tied_spheres"])
+def test_substep_kernel_matches_plain(cuda_device, scene):
+    """10K random objects; in the tied-spheres scene a quarter of them sit
+    inside three coincident spheres on rows of lanes 0, 3 and 5 of a team,
+    so their hits average three rows tied at a positive pen."""
+    if scene == "spheres":
+        sp = PM.spheres_scene()
+    elif scene == "seven_shapes":
+        sp = seven_shape_scene(SC)
+    else:
+        sp, centre, radius = tied_spheres_scene(SC)
+    g = PC.group_cobjs(SC.pack_cobjs(sp, device=cuda_device))
+    args = _substep_inputs(10000, g, cuda_device)
+    if scene == "tied_spheres":
+        args[:3] = (torch.as_tensor(a, device=cuda_device) for a in into_tied_sphere(
+            *(t.cpu().numpy() for t in args[:3]), centre, radius, 2500))
+        args[7] = args[7] & ~2          # so the cobj-hit bit shows this substep's
+    ref = _substep_vs_plain(args)
     assert int(((ref[7] & 2) != 0).sum()) > 500     # cobj hits
     assert len(torch.unique(ref[6])) >= 4
+    if scene == "tied_spheres":
+        assert int(((ref[7][:2500] & 2) != 0).sum()) > 1500
+
+
+@pytest.mark.parametrize("case,n", [("far", 10000), ("wide", 10000),
+                                    ("base", 10001)])
+def test_substep_kernel_edge_cases(cuda_device, case, n):
+    """Objects farther than 1 from every cobj (the deepest pen is -1, tied
+    over the dead slots and the missed polygons and cylinders, and never
+    reaches an output), a table of 200 slots, and a ragged N whose last
+    team and CTA are partial."""
+    sp, ins = narrow_case(case, SC, n)
+    g = PC.group_cobjs(SC.pack_cobjs(sp, device=cuda_device))
+    args = _substep_inputs(n, g, cuda_device)
+    args[:3] = (torch.as_tensor(a, device=cuda_device) for a in ins[:3])
+    args[7] = args[7] & ~2              # so the cobj-hit bit shows this substep's
+    ref = _substep_vs_plain(args)
+    hits = int(((ref[7] & 2) != 0).sum())
+    assert hits == 0 if case == "far" else hits > 300
 
 
 @pytest.mark.parametrize("n,start_sin", [(128, 0), (100, 20), (200, 0)])
@@ -204,6 +244,21 @@ def test_tile_noise_kernel_matches_plain(cuda_device, n, start_sin):
     y0 = torch.full((16,), 64.0, device=cuda_device)
     out = EK.tile_noise(table, x0, y0, n, w.dx, w.dy, start_sin=start_sin)
     ref = N.tile_noise(table, x0, y0, n, w.dx, w.dy, start_sin=start_sin)
+    assert ref.abs().max().item() > 1.0
+    assert (out - ref).abs().max().item() < 1e-3
+
+
+def test_tile_noise_kernel_far_origins(cuda_device):
+    """256 tiles at the origins of chip_smoke.py's rate loop (x0 ~ 3.6e5
+    grid units), where many sine arguments lie above 105,615."""
+    from w3d_torch.ops import noise as N
+    from w3d_torch.ops.cuda import noise_kernel as EK
+    w = WorldConst()
+    table = N.gen_sine_table(w, mesh_seed=3, device=cuda_device)
+    x0 = torch.arange(256, dtype=torch.float32, device=cuda_device) * 128 + 360448.0
+    y0 = torch.full((256,), 64.0, device=cuda_device)
+    out = EK.tile_noise(table, x0, y0, 128, w.dx, w.dy)
+    ref = N.tile_noise(table, x0, y0, 128, w.dx, w.dy)
     assert ref.abs().max().item() > 1.0
     assert (out - ref).abs().max().item() < 1e-3
 
@@ -281,7 +336,9 @@ def test_wrappers_reject_bad_input(cuda_device):
     with pytest.raises(ValueError):
         FK.diffuse_smoke_open(mesh)                            # not 3-D
     g = PC.group_cobjs(SC.pack_cobjs(PM.spheres_scene(), device=cuda_device))
-    args = list(_substep_inputs(10, g, cuda_device))
-    args[-2] = torch.zeros((1000, 32), device=cuda_device)    # M > MAX_ROWS
+    from w3d_torch.ops.cuda import narrow_kernel as NK
+    args = _substep_inputs(10, g, cuda_device)
+    wide = torch.zeros((1000, 32), device=cuda_device)
+    args[-2] = (wide, args[-2][1], NK.field_major(wide))      # M > MAX_ROWS
     with pytest.raises(ValueError):
         GK.substep(*args)

@@ -6,8 +6,10 @@ interpret mode, and the gated `diffuse_smoke` and `add_smoke` against the
 JAX package's.
 
 Tolerances: tile heights 1e-4 (sin and the 90-term sum round differently
-in the two packages; heights reach ~10); smoke 1e-6 (the same ops in the
-same order on values up to 5).
+in the two packages; heights reach ~10); at far tile origins, one float32
+unit of each term's largest sine argument, weighted by its magnitude (see
+`test_tile_noise_matches_pallas_far_origins`); smoke 1e-6 (the same ops in
+the same order on values up to 5).
 """
 
 import numpy as np
@@ -27,6 +29,7 @@ from w3d_torch import convert
 from w3d_torch.ops.cuda import noise_kernel as EK
 from w3d_torch.ops.cuda import stencil_kernel as FK
 from w3d_torch.ops import noise as TN
+from w3d_torch.utils.kernel_probe import RATE_SHIFT, sine_arguments
 from w3d_torch.water import smoke as TS
 
 
@@ -47,6 +50,33 @@ def test_tile_noise_matches_pallas(n, start_sin):
     # the wrapper takes the plain version for CPU tensors
     assert torch.equal(EK.tile_noise(tt, tx0, ty0, n, w.dx, w.dy,
                                      start_sin=start_sin), out)
+
+
+def test_tile_noise_matches_pallas_far_origins():
+    """Tiles at the origins of chip_smoke.py's rate loop (x0 ~ 3.6e5 grid
+    units), where the sine arguments reach ~6e5 and one float32 unit of an
+    argument is ~0.06 rad.  XLA on the CPU fuses the argument's products
+    and sums into FMAs where the port rounds each op, so an argument may
+    differ by a unit; the bound is the sum over terms of |mag| times one
+    unit of the term's largest x and y argument (~1.6e-2 here; the heights
+    differ by ~1.6e-3, and by 5e-7 at the origins of the other test)."""
+    w = JWorld()
+    n = 64
+    table = JN.gen_sine_table(w, mesh_seed=3)
+    x0 = np.array([0.0, 64.0, 32768.0], np.float32) + np.float32(RATE_SHIFT)
+    y0 = np.array([0.0, 32.0, 16.0], np.float32)
+    ref = np.asarray(tile_noise_pallas(table, jnp.asarray(x0), jnp.asarray(y0),
+                                       n, w.dx, w.dy, interpret=True))
+    tt = convert.sine_table(jax.tree.map(np.asarray, table), "cpu")
+    tx0, ty0 = convert.array(x0, "cpu"), convert.array(y0, "cpu")
+    out = TN.tile_noise(tt, tx0, ty0, n, w.dx, w.dy)
+    amax = sine_arguments(tt, tx0, ty0, n, w.dx, w.dy, 1.0, 1.0).abs().amax(dim=(1, 2))
+    assert float(amax.max()) > 105615.0              # past sinf's fast reduction
+    unit = np.spacing(amax.numpy().astype(np.float32))           # [2, K]
+    tol = float((np.abs(tt.mag.numpy()) * unit.sum(axis=0)).sum())
+    assert out.shape == (3, n, n) and np.abs(ref).max() > 1.0
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=tol)
+    assert torch.equal(EK.tile_noise(tt, tx0, ty0, n, w.dx, w.dy), out)
 
 
 def _smoke(shape=(8, 16, 24), seed=0):

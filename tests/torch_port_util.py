@@ -121,6 +121,51 @@ def narrow_case(case: str, SC, n: int, seed: int = 3):
     return sp, p + [rad]
 
 
+# sphere-group rows of the three coincident spheres in `tied_spheres_scene`:
+# lanes 0, 3 and 5 of an 8-lane team (row 13 in the team's second pass)
+TIED_ROWS = (0, 3, 13)
+
+
+def tied_spheres_scene(SC):
+    """(scene, centre, radius), built with `SC`'s classes: a ground cube
+    and 16 spheres, of which sphere-group rows `TIED_ROWS` share one centre
+    and radius under three layers of different elasticity and friction, so
+    an object inside that sphere penetrates three rows equally deep and the
+    fused substep averages them."""
+    sp = SC.SceneParse()
+    sp.cobjs.append(SC.RawCobj(SC.COLL_CUBE, (-4.0, -4.0, -0.7), (4.0, 4.0, 0.0),
+                               layer=SC.CobjLayer(elasticity=0.9)))
+    rg = np.random.default_rng(4)
+    lay = SC.CobjLayer(elasticity=0.7, friction=0.4)
+    centre, radius = (0.3, -0.2, 1.2), 0.45
+    tied = {TIED_ROWS[0]: SC.CobjLayer(elasticity=0.8, friction=0.6),
+            TIED_ROWS[1]: SC.CobjLayer(elasticity=0.3, friction=0.2),
+            TIED_ROWS[2]: SC.CobjLayer(elasticity=0.5, friction=1.3)}
+    for k in range(16):
+        if k in tied:
+            sp.cobjs.append(SC.RawCobj(SC.COLL_SPHERE, centre, r1=radius,
+                                       layer=tied[k]))
+        else:
+            p = (float(rg.uniform(-2.5, 2.5)), float(rg.uniform(-2.5, 2.5)),
+                 float(rg.uniform(-0.5, 0.5)))
+            sp.cobjs.append(SC.RawCobj(SC.COLL_SPHERE, p,
+                                       r1=float(rg.uniform(0.1, 0.3)), layer=lay))
+    return sp, centre, radius
+
+
+def into_tied_sphere(px, py, pz, centre, radius, k: int, seed: int = 9):
+    """px, py, pz (float32 numpy) with the first `k` objects moved to
+    random points inside the tied sphere (within half its radius of the
+    centre)."""
+    rg = np.random.default_rng(seed)
+    out = []
+    for a, c in zip((px, py, pz), centre):
+        a = np.array(a, np.float32)
+        a[:k] = (c + rg.uniform(-0.5, 0.5, k) * radius).astype(np.float32)
+        out.append(a)
+    return out
+
+
 def check_narrow(case: str, out, ref, pen_all) -> None:
     """Hold a narrow-phase result against its reference, both (hit, pen, nx,
     ny, nz, elas, fric) numpy arrays; `pen_all` [N, M] is the reference's

@@ -9,10 +9,12 @@
 // sum rounds on its own.  Sqrt and divide are IEEE; the rotated cylinder's
 // 1/|ab| is a divide by sqrtf, not the approximate rsqrtf.
 //
-// A row is any view `c` whose c[k] is column k: a `const float*` to a row
-// of the row-major [M, 32] table (substep.cu), or a `FieldRow<S>` into a
-// field-major [CF_USED][S] table (narrow.cu).  `team_deepest_hit` splits
-// one object's rows over a team of lanes and merges their winners.
+// A row is any view `c` whose c[k] is column k; both kernels read a
+// `FieldRow<S>` into a field-major [CF_USED][S] table in shared memory,
+// staged by `stage_field_table`.  `team_walk` splits one object's rows over
+// a team of lanes and merges what the lanes kept: the first deepest row
+// (`FirstDeepest`, narrow.cu) or the sums of the rows tied at the deepest
+// penetration (`TieSums`, substep.cu).
 
 #pragma once
 
@@ -26,10 +28,6 @@ constexpr int CF_USED = 27;   // columns in use (physics/cobj_table.CF_COLUMNS)
 // column indices of the packed table (physics/cobj_table.CF_COLUMNS)
 constexpr int C_SHAPE = 0, C_P1 = 1, C_P2 = 4, C_R1 = 7, C_R2 = 8,
               C_NPTS = 9, C_PTS = 10, C_PN = 22, C_ELAS = 25, C_FRIC = 26;
-// shape ids (collision_detect.h:14)
-constexpr int COLL_NULL = 0, COLL_CUBE = 1, COLL_CYLINDER = 2,
-              COLL_SPHERE = 3, COLL_CYLINDER_ROT = 4, COLL_POLYGON = 5,
-              COLL_CAPSULE = 6, COLL_TORUS = 7;
 constexpr float EPS = 1e-12f;
 
 struct Hit {
@@ -222,23 +220,6 @@ __device__ __forceinline__ Hit rcylinder(const V& c, float X, float Y,
   return h;
 }
 
-// The formula of the row's own shape; a dead slot (shape 0) or an unknown
-// id scores -1 with a zero normal.
-template <class V>
-__device__ __forceinline__ Hit eval_shape(int shape, const V& c, float X,
-                                          float Y, float Z, float r) {
-  switch (shape) {
-    case COLL_CUBE: return cube(c, X, Y, Z, r);
-    case COLL_SPHERE: return sphere(c, X, Y, Z, r);
-    case COLL_CYLINDER: return vcylinder(c, X, Y, Z, r);
-    case COLL_CAPSULE: return capsule(c, X, Y, Z, r);
-    case COLL_CYLINDER_ROT: return rcylinder(c, X, Y, Z, r);
-    case COLL_POLYGON: return polygon(c, X, Y, Z, r);
-    case COLL_TORUS: return torus(c, X, Y, Z, r);
-    default: return Hit{-1.0f, 0.0f, 0.0f, 0.0f};
-  }
-}
-
 // The formula of group g of the shape-sorted table (physics/cobjs.py
 // GroupedCobjs.SHAPE_ORDER).
 template <class V>
@@ -264,27 +245,44 @@ struct FieldRow {
 };
 
 constexpr int NO_ROW = 0x7fffffff;
+// row stride of the shared field-major table: the packed table in 48 KB of
+// shared memory (narrow_kernel.MAX_ROWS)
+constexpr int MAX_ROWS = 48 * 1024 / (CF * 4);
 
-// One object's deepest hit against the shape-sorted field-major table `tab`
+// Every thread of the CTA (`block` threads) copies the compact field-major
+// table `tab` ([CF_USED][m4], m4 a multiple of 4 and at most MAX_ROWS) as
+// float4s into the stride-MAX_ROWS columns of `s_tab`, and the 8 group
+// starts into `s_start`; returns after the CTA's barrier.
+__device__ __forceinline__ void stage_field_table(float* s_tab, int* s_start,
+                                                  const float* tab, int m4,
+                                                  const int* gstart,
+                                                  int block) {
+  const int q = m4 / 4;   // float4s per column
+  const float4* src = reinterpret_cast<const float4*>(tab);
+  float4* dst = reinterpret_cast<float4*>(s_tab);
+  for (int k = threadIdx.x; k < CF_USED * q; k += block) {
+    const int col = k / q;
+    dst[col * (MAX_ROWS / 4) + (k - col * q)] = src[k];
+  }
+  if (threadIdx.x < 8) s_start[threadIdx.x] = gstart[threadIdx.x];
+  __syncthreads();
+}
+
+// One object's walk over the shape-sorted field-major table `tab`
 // ([CF_USED][S], group g in rows [gstart[g], gstart[g + 1])), split over a
 // team of K consecutive lanes of a warp (K a power of two, at most 32,
 // teams aligned to K; every lane of the warp must call it).  Lane `lane` of
 // the team evaluates rows gstart[g] + lane, + K, ... of each group, so all
 // teams of a warp run the same group's formula at the same time.  Dead
 // padding slots (shape 0) score -1 with a zero normal and stay candidates,
-// as in the plain version.  Each lane keeps its strictly deepest row (the
-// first of its own rows on ties); the team then merges over offsets K/2 ..
-// 1, taking the other lane's row when it is deeper or equally deep with a
-// lower index: the first index on ties, as torch.argmax, for finite input.
-// Every lane returns the team's winner and its row (NO_ROW for a table
-// without rows).
-template <int K, int S>
-__device__ __forceinline__ Hit team_deepest_hit(const float* tab,
-                                                const int* gstart, float X,
-                                                float Y, float Z, float r,
-                                                int lane, int* row_out) {
-  Hit best = {-CUDART_INF_F, 0.0f, 0.0f, 0.0f};
-  int best_row = NO_ROW;
+// as in the plain versions.  Each lane folds its rows, in row order, into
+// `acc` (`acc.add(hit, row, c)`); then the team merges over offsets K/2 ..
+// 1 (`acc.merge(off)`, xor shuffles), after which every lane holds the
+// team's result.
+template <int K, int S, class Acc>
+__device__ __forceinline__ void team_walk(const float* tab, const int* gstart,
+                                          float X, float Y, float Z, float r,
+                                          int lane, Acc& acc) {
 #pragma unroll
   for (int g = 0; g < 7; ++g) {
     const int hi = gstart[g + 1];
@@ -292,26 +290,110 @@ __device__ __forceinline__ Hit team_deepest_hit(const float* tab,
       const FieldRow<S> c{tab + row};
       const Hit h = c[C_SHAPE] == 0.0f ? Hit{-1.0f, 0.0f, 0.0f, 0.0f}
                                        : eval_group(g, c, X, Y, Z, r);
-      if (h.pen > best.pen) {
-        best = h;
-        best_row = row;
-      }
+      acc.add(h, row, c);
     }
   }
 #pragma unroll
-  for (int off = K / 2; off > 0; off /= 2) {
+  for (int off = K / 2; off > 0; off /= 2) acc.merge(off);
+}
+
+// The strictly deepest row and its hit.  A lane keeps the first of its own
+// rows on ties; the merge takes the other lane's row when it is deeper or
+// equally deep with a lower index: the first index on ties, as
+// torch.argmax, for finite input.  `row` is NO_ROW for a table without
+// rows.
+struct FirstDeepest {
+  Hit best;
+  int row;
+
+  // (the start values are set in the body: nvcc's host pass drops device
+  // function bodies, not member initializers, and has no CUDART_INF_F)
+  __device__ FirstDeepest() {
+    best = Hit{-CUDART_INF_F, 0.0f, 0.0f, 0.0f};
+    row = NO_ROW;
+  }
+
+  template <class V>
+  __device__ __forceinline__ void add(const Hit& h, int r, const V&) {
+    if (h.pen > best.pen) {
+      best = h;
+      row = r;
+    }
+  }
+  __device__ __forceinline__ void merge(int off) {
     const Hit o = {__shfl_xor_sync(0xffffffffu, best.pen, off),
                    __shfl_xor_sync(0xffffffffu, best.nx, off),
                    __shfl_xor_sync(0xffffffffu, best.ny, off),
                    __shfl_xor_sync(0xffffffffu, best.nz, off)};
-    const int o_row = __shfl_xor_sync(0xffffffffu, best_row, off);
-    if (o.pen > best.pen || (o.pen == best.pen && o_row < best_row)) {
+    const int o_row = __shfl_xor_sync(0xffffffffu, row, off);
+    if (o.pen > best.pen || (o.pen == best.pen && o_row < row)) {
       best = o;
-      best_row = o_row;
+      row = o_row;
     }
   }
-  *row_out = best_row;
-  return best;
-}
+};
+
+// The deepest penetration, the count of rows at it, and the sums of their
+// normals, elasticities and frictions (the fused substep averages ties).
+// The merge takes the other lane's record when it is deeper and adds counts
+// and sums when it is equally deep.  A lane sums its own tied rows in row
+// order and the team adds the lanes' sums pairwise, so one or two tied rows
+// give the sum of a serial walk to the bit; three or more may differ in
+// the last place.
+struct TieSums {
+  float pen, nx, ny, nz, el, fr;
+  int count;
+
+  __device__ TieSums() {   // start values in the body, as FirstDeepest's
+    pen = -CUDART_INF_F;
+    nx = ny = nz = el = fr = 0.0f;
+    count = 0;
+  }
+
+  template <class V>
+  __device__ __forceinline__ void add(const Hit& h, int, const V& c) {
+    if (h.pen > pen) {
+      pen = h.pen;
+      count = 1;
+      nx = h.nx;
+      ny = h.ny;
+      nz = h.nz;
+      el = c[C_ELAS];
+      fr = c[C_FRIC];
+    } else if (h.pen == pen) {
+      ++count;
+      nx = nx + h.nx;
+      ny = ny + h.ny;
+      nz = nz + h.nz;
+      el = el + c[C_ELAS];
+      fr = fr + c[C_FRIC];
+    }
+  }
+  __device__ __forceinline__ void merge(int off) {
+    const float o_pen = __shfl_xor_sync(0xffffffffu, pen, off);
+    const float o_nx = __shfl_xor_sync(0xffffffffu, nx, off);
+    const float o_ny = __shfl_xor_sync(0xffffffffu, ny, off);
+    const float o_nz = __shfl_xor_sync(0xffffffffu, nz, off);
+    const float o_el = __shfl_xor_sync(0xffffffffu, el, off);
+    const float o_fr = __shfl_xor_sync(0xffffffffu, fr, off);
+    const int o_count = __shfl_xor_sync(0xffffffffu, count, off);
+    if (o_pen > pen) {
+      pen = o_pen;
+      count = o_count;
+      nx = o_nx;
+      ny = o_ny;
+      nz = o_nz;
+      el = o_el;
+      fr = o_fr;
+    } else if (o_pen == pen) {
+      count += o_count;
+      nx = nx + o_nx;
+      ny = ny + o_ny;
+      nz = nz + o_nz;
+      el = el + o_el;
+      fr = fr + o_fr;
+    }
+  }
+};
 
 }  // namespace w3d

@@ -16,7 +16,7 @@
 // serial rows.
 //
 // Design: a team of LANES (8) consecutive threads per object
-// (cobj_shapes.cuh `team_deepest_hit`).  Lane j of the team evaluates rows
+// (cobj_shapes.cuh `team_walk` with the `FirstDeepest` record).  Lane j of the team evaluates rows
 // gstart[g] + j, + LANES, ... of each shape group g, so a thread runs M /
 // LANES rows and N = 10K objects fill the card with 80K threads.  Every
 // team of a warp runs the same group at the same time, so each group's
@@ -56,7 +56,6 @@ namespace {
 using namespace w3d;
 constexpr int LANES = 8;
 constexpr int BLOCK = 256;
-constexpr int S = 48 * 1024 / (CF * 4);   // narrow_kernel.MAX_ROWS
 
 __global__ void __launch_bounds__(BLOCK)
     narrow_kernel(const float* __restrict__ tab,   // [CF_USED][m4]
@@ -67,35 +66,27 @@ __global__ void __launch_bounds__(BLOCK)
                   float* __restrict__ nx_out, float* __restrict__ ny_out,
                   float* __restrict__ nz_out, float* __restrict__ el_out,
                   float* __restrict__ fr_out, int n) {
-  __shared__ __align__(16) float s_tab[CF_USED * S];
+  __shared__ __align__(16) float s_tab[CF_USED * MAX_ROWS];
   __shared__ int s_start[8];
-  const int q = m4 / 4;   // float4s per column
-  const float4* src = reinterpret_cast<const float4*>(tab);
-  float4* dst = reinterpret_cast<float4*>(s_tab);
-  for (int k = threadIdx.x; k < CF_USED * q; k += BLOCK) {
-    const int col = k / q;
-    dst[col * (S / 4) + (k - col * q)] = src[k];
-  }
-  if (threadIdx.x < 8) s_start[threadIdx.x] = gstart[threadIdx.x];
-  __syncthreads();
+  stage_field_table(s_tab, s_start, tab, m4, gstart, BLOCK);
   const int i = (int)(((long long)blockIdx.x * BLOCK + threadIdx.x) / LANES);
   const int lane = threadIdx.x % LANES;
   // a team past the last object evaluates the last one and writes nothing:
   // every lane of the warp takes part in the team merge's shuffles
   const int o = i < n ? i : n - 1;
-  int row;
-  const Hit h = team_deepest_hit<LANES, S>(s_tab, s_start, px[o], py[o],
-                                           pz[o], rad[o], lane, &row);
+  FirstDeepest w;
+  team_walk<LANES, MAX_ROWS>(s_tab, s_start, px[o], py[o], pz[o], rad[o],
+                             lane, w);
   if (lane != 0 || i >= n) return;
-  const bool any = row != NO_ROW;
-  const float pen = any ? h.pen : -1.0f;
+  const bool any = w.row != NO_ROW;
+  const float pen = any ? w.best.pen : -1.0f;
   hit_out[i] = pen > 0.0f;
   pen_out[i] = pen;
-  nx_out[i] = h.nx;
-  ny_out[i] = h.ny;
-  nz_out[i] = h.nz;
-  el_out[i] = any ? s_tab[C_ELAS * S + row] : 0.0f;
-  fr_out[i] = any ? s_tab[C_FRIC * S + row] : 0.0f;
+  nx_out[i] = w.best.nx;
+  ny_out[i] = w.best.ny;
+  nz_out[i] = w.best.nz;
+  el_out[i] = any ? s_tab[C_ELAS * MAX_ROWS + w.row] : 0.0f;
+  fr_out[i] = any ? s_tab[C_FRIC * MAX_ROWS + w.row] : 0.0f;
 }
 
 }  // namespace
@@ -107,7 +98,7 @@ extern "C" int w3d_narrow(const float* tab, const int* gstart, int m4,
                           const float* rad, bool* hit, float* pen, float* nx,
                           float* ny, float* nz, float* el, float* fr, int n,
                           void* stream) {
-  if (m4 < 0 || m4 % 4 != 0 || m4 > S) return (int)cudaErrorInvalidValue;
+  if (m4 < 0 || m4 % 4 != 0 || m4 > MAX_ROWS) return (int)cudaErrorInvalidValue;
   if (n > 0) {
     const int grid = (int)(((long long)n * LANES + BLOCK - 1) / BLOCK);
     narrow_kernel<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(

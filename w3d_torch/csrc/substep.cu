@@ -9,27 +9,36 @@
 // One whole substep per object: integrate (gravity, terminal velocity,
 // wind drag) -> bilinear mesh sample from the [3*my, mx] stack of height
 // and gradient maps -> water skip/float/sink -> narrow phase against every
-// row of the packed [M, 32] cobj table -> cobj bounce or stick -> mesh
-// bounce -> on-ground rolling.
+// row of the packed cobj table -> cobj bounce or stick -> mesh bounce ->
+// on-ground rolling.
 //
-// What bounds it on this card: arithmetic in the narrow phase.  Each
-// object runs its M rows' formulas (M = 112 for the spheres scene), tens of
-// flops with a sqrt and a divide each; device memory sees 15 words in and
-// 8 out per object, 12 map taps that stay in L1/L2, and the 14 KB table per
-// block.  At N = 10K the grid is 79 blocks of 128 threads, under one wave
-// of the 132 SMs, so latency and not throughput sets the time.
+// What bounds it on this card: latency in the narrow phase.  Each object
+// runs its M rows' formulas (M = 112 for the spheres scene), tens of
+// dependent flops with a sqrt and a divide each; device memory sees 15
+// words in and 8 out per object, 12 map taps that stay in L1/L2, and the
+// 12 KB table per block.  With one thread per object, N = 10K is 79 CTAs
+// of 128 threads, under one wave of the 132 SMs, and each warp waits out
+// every instruction's latency through M serial rows.
 //
-// Design: one thread per object with all of its state in registers: the
-// TPU kernel's [1, Nb] rows and [M, Nb] narrow-phase planes become scalars
-// and a loop.  The cobj table is staged once per block in shared memory
-// and read as a broadcast.  Each row is evaluated by its own shape's
-// formula only (cobj_shapes.cuh), which gives what the TPU kernel's
-// select over all seven formulas gives.  The deepest penetration is kept
-// with its tie count and the running sums of the tied rows' normals,
-// elasticities and frictions; the sums are scaled by 1/count at the end,
-// as `wnorm = wsel / count` averages them (for one or two tied rows the
-// result is the same to the bit).  The map taps are read straight from
-// global memory and contract x first, then y, in the order of the TPU
+// Design: the narrow phase's (narrow.cu): a team of LANES (8) consecutive
+// threads per object, so N = 10K fills the card with 80K threads.  Every
+// lane of a team runs the per-object preamble (integrate, mesh sample,
+// water) on the same object, whose loads are one transaction for the 8
+// lanes, so no state is shuffled.  The rows then split over the lanes,
+// group by group of the shape-sorted table (cobj_shapes.cuh `team_walk`),
+// against a field-major copy in shared memory with the fixed row stride
+// MAX_ROWS, staged per CTA from the compact [CF_USED][m4] copy the wrapper
+// passes (`stage_field_table`).  Each lane keeps the deepest penetration of
+// its rows with their tie count and the sums of the tied rows' normals,
+// elasticities and frictions (`TieSums`); the team merges the lanes'
+// records with xor shuffles, adding counts and sums on equal pens, and the
+// sums are scaled by 1/count, as `wnorm = wsel / count` averages them (for
+// one or two tied rows the result is the serial walk's to the bit; three or
+// more can differ in the last place).  Team lane 0 alone runs the bounces
+// and the rolling and writes the 8 outputs; a team past the last object
+// evaluates the last object and writes nothing, since every lane of the
+// warp takes part in the merge's shuffles.  The map taps are read straight
+// from global memory and contract x first, then y, in the order of the TPU
 // kernel's `maps @ XW` product.  Built with -fmad=false: every product and
 // sum rounds on its own, as the plain version's ops do.
 
@@ -41,6 +50,8 @@
 namespace {
 
 using namespace w3d;
+constexpr int LANES = 8;
+constexpr int BLOCK = 256;
 
 // FL_* object flag bits (physics/types.py)
 constexpr int FL_COLLIDED = 1 << 0, FL_STATIC_COBJ_COLL = 1 << 1,
@@ -94,9 +105,10 @@ __device__ __forceinline__ float tap(const float* __restrict__ m, int mx,
   return a0 * wy0 + a1 * fy;
 }
 
-__global__ void substep_kernel(
+__global__ void __launch_bounds__(BLOCK) substep_kernel(
     const float* __restrict__ env, const float* __restrict__ maps, int my,
-    int mx, const float* __restrict__ cf, int M,
+    int mx, const float* __restrict__ tab,   // [CF_USED][m4]
+    int m4, const int* __restrict__ gstart,  // [8]
     const float* __restrict__ px_in, const float* __restrict__ py_in,
     const float* __restrict__ pz_in, const float* __restrict__ vx_in,
     const float* __restrict__ vy_in, const float* __restrict__ vz_in,
@@ -109,11 +121,12 @@ __global__ void substep_kernel(
     float* __restrict__ vx_out, float* __restrict__ vy_out,
     float* __restrict__ vz_out, int* __restrict__ st_out,
     int* __restrict__ fl_out, int n) {
-  extern __shared__ float s_cf[];
-  for (int k = threadIdx.x; k < M * CF; k += blockDim.x) s_cf[k] = cf[k];
-  __syncthreads();
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+  __shared__ __align__(16) float s_tab[CF_USED * MAX_ROWS];
+  __shared__ int s_start[8];
+  stage_field_table(s_tab, s_start, tab, m4, gstart, BLOCK);
+  const int i = (int)(((long long)blockIdx.x * BLOCK + threadIdx.x) / LANES);
+  const int lane = threadIdx.x % LANES;
+  const int o = i < n ? i : n - 1;   // a team past the last object
 
   // ---- env scalars ----
   const float tstep = env[0], base_gravity = env[1];
@@ -123,12 +136,12 @@ __global__ void substep_kernel(
   const float x_scene = env[8], dx_val = env[9], dy_val = env[10];
 
   // ---- state and per-object params ----
-  float px = px_in[i], py = py_in[i], pz = pz_in[i];
-  float vx = vx_in[i], vy = vy_in[i], vz = vz_in[i];
-  int status = st_in[i], flags = fl_in[i];
-  const float rad = rad_in[i], air = air_in[i], fric = fric_in[i];
-  const float grav = grav_in[i], elas = elas_in[i], dens = dens_in[i];
-  const float tv = tv_in[i];
+  float px = px_in[o], py = py_in[o], pz = pz_in[o];
+  float vx = vx_in[o], vy = vy_in[o], vz = vz_in[o];
+  int status = st_in[o], flags = fl_in[o];
+  const float rad = rad_in[o], air = air_in[o], fric = fric_in[o];
+  const float grav = grav_in[o], elas = elas_in[o], dens = dens_in[o];
+  const float tv = tv_in[o];
 
   const bool alive = status > 0;
   // capture + clear last-substep collision (Physics.cpp:720-721)
@@ -228,32 +241,13 @@ __global__ void substep_kernel(
   }
 
   // ---- cobj narrow phase: deepest hit, ties averaged ----
-  float best = -CUDART_INF_F, snx = 0.0f, sny = 0.0f, snz = 0.0f, sel = 0.0f,
-        sfr = 0.0f;
-  int count = 0;
-  for (int row = 0; row < M; ++row) {
-    const float* c = s_cf + row * CF;
-    const Hit h = eval_shape((int)c[C_SHAPE], c, px, py, pz, rad);
-    if (h.pen > best) {
-      best = h.pen;
-      count = 1;
-      snx = h.nx;
-      sny = h.ny;
-      snz = h.nz;
-      sel = c[C_ELAS];
-      sfr = c[C_FRIC];
-    } else if (h.pen == best) {
-      ++count;
-      snx = snx + h.nx;
-      sny = sny + h.ny;
-      snz = snz + h.nz;
-      sel = sel + c[C_ELAS];
-      sfr = sfr + c[C_FRIC];
-    }
-  }
-  const float wsel = 1.0f / fmaxf((float)count, 1.0f);
-  const float bnx = snx * wsel, bny = sny * wsel, bnz = snz * wsel;
-  const float celas = sel * wsel, cfric = sfr * wsel;
+  TieSums t;
+  team_walk<LANES, MAX_ROWS>(s_tab, s_start, px, py, pz, rad, lane, t);
+  if (lane != 0 || i >= n) return;
+  const float best = t.pen;
+  const float wsel = 1.0f / fmaxf((float)t.count, 1.0f);
+  const float bnx = t.nx * wsel, bny = t.ny * wsel, bnz = t.nz * wsel;
+  const float celas = t.el * wsel, cfric = t.fr * wsel;
 
   const bool hit = (best > 0.0f) && alive && !touches_water;
   px = px + (hit ? best * bnx : 0.0f);
@@ -323,23 +317,27 @@ __global__ void substep_kernel(
 
 }  // namespace
 
+// `tab` is the compact field-major [CF_USED][m4] cobj table and `gstart`
+// its [8] group starts (narrow_kernel.kernel_tables), m4 a multiple of 4 no
+// larger than MAX_ROWS (384).
 extern "C" int w3d_substep(const float* env, const float* maps, int my,
-                           int mx, const float* cf, int M, const float* px,
-                           const float* py, const float* pz, const float* vx,
-                           const float* vy, const float* vz, const int* st,
-                           const int* fl, const float* rad, const float* air,
+                           int mx, const float* tab, const int* gstart,
+                           int m4, const float* px, const float* py,
+                           const float* pz, const float* vx, const float* vy,
+                           const float* vz, const int* st, const int* fl,
+                           const float* rad, const float* air,
                            const float* fric, const float* grav,
                            const float* elas, const float* dens,
                            const float* tv, float* opx, float* opy,
                            float* opz, float* ovx, float* ovy, float* ovz,
                            int* ost, int* ofl, int n, void* stream) {
+  if (m4 < 0 || m4 % 4 != 0 || m4 > MAX_ROWS) return (int)cudaErrorInvalidValue;
   if (n > 0) {
-    const int block = 128;
-    const size_t smem = (size_t)M * CF * sizeof(float);
-    substep_kernel<<<(n + block - 1) / block, block, smem,
-                     (cudaStream_t)stream>>>(
-        env, maps, my, mx, cf, M, px, py, pz, vx, vy, vz, st, fl, rad, air,
-        fric, grav, elas, dens, tv, opx, opy, opz, ovx, ovy, ovz, ost, ofl, n);
+    const int grid = (int)(((long long)n * LANES + BLOCK - 1) / BLOCK);
+    substep_kernel<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
+        env, maps, my, mx, tab, m4, gstart, px, py, pz, vx, vy, vz, st, fl,
+        rad, air, fric, grav, elas, dens, tv, opx, opy, opz, ovx, ovy, ovz,
+        ost, ofl, n);
   }
   return (int)cudaGetLastError();
 }

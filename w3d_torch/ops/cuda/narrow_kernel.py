@@ -60,8 +60,8 @@ def field_major(cf: torch.Tensor) -> torch.Tensor | None:
 def kernel_tables(g: GroupedCobjs) -> tuple:
     """(packed [M, 32] field table, [8] int32 padded group starts, its
     field-major [27, m4] copy) on the scene's device: the kernels' inputs
-    (G reads the first, C the other two), packed at the first call for `g`
-    and reused while `g` lives."""
+    (the kernels C and G read the other two, G's plain version the first),
+    packed at the first call for `g` and reused while `g` lives."""
     tabs = _TABLES.get(g)
     if tabs is None:
         dev = g.cobjs.shape.device

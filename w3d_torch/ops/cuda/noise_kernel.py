@@ -3,9 +3,10 @@ Pallas `_tile_noise_kernel`, `3dworld_tpu/ops/pallas/noise_kernel.py:28`,
 called through `tile_noise_pallas` at :60).
 
 One CTA per tile builds the tile's X and Y term tables in shared memory
-and contracts them in its own loop.  Takes any T and any n whose two term
-tables fit a block's shared memory.  The plain version is
-`ops/noise.tile_noise`.
+(rows padded to a multiple of 64) and contracts them in its own loop, each
+thread an 8 x 8 block of heights from float4 operands.  Takes any T and
+any n whose two term tables fit a block's shared memory.  The plain
+version is `ops/noise.tile_noise`.
 """
 
 from __future__ import annotations
@@ -45,7 +46,7 @@ def tile_noise(table: N.SineTable, x0: torch.Tensor, y0: torch.Tensor, n: int,
     build.check("x0", x0, torch.float32, (T,), dev)
     build.check("y0", y0, torch.float32, (T,), dev)
     start = min(max(int(start_sin), 0), K)
-    if 2 * (K - start) * n * 4 > SMEM_LIMIT:
+    if 2 * (-(-n // 64) * 64) * (K - start) * 4 > SMEM_LIMIT:
         raise ValueError(f"tile_noise: n={n} term tables exceed a block's "
                          f"{SMEM_LIMIT} bytes of shared memory")
     params = torch.stack(list(table)).contiguous()       # [5, K], field order

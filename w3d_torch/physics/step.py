@@ -582,7 +582,7 @@ def step_objects_fused(
         state = spatial_sort(state)
     rad, air, fric, grav, elas, dens, tv, mass, life = _type_params(state.otype, table)
     maps3 = GK.mesh_maps(env.mesh_height, world)
-    cf = NK.kernel_tables(cobjs)[0]
+    tables = NK.kernel_tables(cobjs)
     f32 = dict(dtype=torch.float32, device=state.px.device)
     env12 = torch.cat([torch.tensor([tstep / substeps], **f32),
                        env.base_gravity.reshape(1), env.wind.reshape(3),
@@ -594,7 +594,7 @@ def step_objects_fused(
     for k in range(substeps):
         px, py, pz, vx, vy, vz, status, flags = GK.substep(
             s.px, s.py, s.pz, s.vx, s.vy, s.vz, s.status, s.flags,
-            rad, air, fric, grav, elas, dens, tv, maps3, cf, env12)
+            rad, air, fric, grav, elas, dens, tv, maps3, tables, env12)
         alive = s.status > 0
         # off-mesh kill tests the position before the pair pass
         off = outside_mesh(px, py, world)

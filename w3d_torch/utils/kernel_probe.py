@@ -1,31 +1,38 @@
-"""Probe the erosion walk (A), the mesh sample (B), the narrow phase (C)
-and the banded pair pass (D) on the GPU, and the timing, bound and scene
-helpers that `chip_smoke.py` shares.
+"""Probe the erosion walk (A), the mesh sample (B), the narrow phase (C),
+the banded pair pass (D), the fused substep (G) and the tile noise (E) on
+the GPU, and the timing, bound and scene helpers that `chip_smoke.py`
+shares.
 
     python3 -m w3d_torch.utils.kernel_probe
 
 Prints, at the main path's shapes (256 tiles of 128^2 with 512 droplets
 and 64 steps; 10K balls in a dense x-sorted pile in the spheres scene,
-M = 112 cobj slots, window 288):
+M = 112 cobj slots, window 288; E on the terrain path's 256 tile origins
+and on those of `chip_smoke.py`'s rate loop, shifted by RATE_SHIFT):
 
-1. what `ptxas` reports for the four kernels (registers, shared memory,
-   spills), and the shared-memory atomic instructions in the erosion
-   kernel's SASS (`cuobjdump`);
+1. what `ptxas` reports for the six kernels (registers, shared memory,
+   stack frame, spills), the shared-memory atomic instructions in the
+   erosion kernel's SASS, and the local-memory instructions (`LDL`, `STL`:
+   `sinf`'s slow path for arguments above 105,615) in the noise kernel's
+   (`cuobjdump`);
 2. each kernel's device-only time: one replay of a CUDA graph of 20
-   launches between CUDA events, divided by 20; and the floors of B and C,
-   the same timer at N = 128 (one CTA's worth of objects): launch plus
-   fixed set-up;
-3. the erosion walk's phase split: a variant library built with
-   `W3D_EROSION_PHASES`, whose thread 0 in each CTA sums the SM cycles
-   between the step's barriers (read phase, write phase, combine);
+   launches between CUDA events, divided by 20; and the floors of B, C and
+   G (the same timer at N = 128, one CTA's worth of objects) and of E (one
+   tile): launch plus fixed set-up;
+3. the phase splits of two variant libraries: `W3D_EROSION_PHASES`, whose
+   thread 0 in each CTA sums the SM cycles between the step's barriers
+   (read phase, write phase, combine), and `W3D_NOISE_PHASES` (table
+   build, product, store), at both sets of E's origins, beside the share
+   of E's sine arguments on `sinf`'s slow path;
 4. A's and D's CUDA-event times around 20 back-to-back eager calls (for a
    kernel shorter than its wrapper's host work they time the host), beside
    their bounds.
 
-With `--times` it prints only step 2's graph times, through wrappers that
-older checkouts of the port have too, so two versions can be timed in one
+With `--times` it prints only step 2's graph times and a digest of E's
+heights, through wrappers that older checkouts of the port have too, so
+two versions can be timed, and E's heights compared bit for bit, in one
 call on one card (`cd <checkout> && PYTHONPATH=. python3 <this file>
---times`).
+--times`).  `--phases` prints only step 3.
 
 Needs a CUDA device and nvcc.
 """
@@ -34,6 +41,8 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import hashlib
+import inspect
 import os
 import re
 import statistics
@@ -45,6 +54,10 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory (data sheet)
 FP32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
+# chip_smoke.py's rate loop times the terrain call at x0 + (7 + g) * 256 *
+# 128 for g < 5; E is also checked and timed at the last of those origins
+RATE_SHIFT = 11 * 256 * 128
+SINF_FAST_MAX = 105615.0     # |x| above which CUDA's sinf reduces slowly
 
 
 def bound_ms(nbytes: float, nops: float) -> tuple[float, str]:
@@ -141,6 +154,60 @@ def dense_pile(state, table, seed: int = 7):
     return dense, rad.contiguous(), elas.contiguous(), mass.contiguous()
 
 
+def noise_args(dev, gen: torch.Generator, shift: float = 0.0,
+               num_tiles: int = 256) -> tuple:
+    """Kernel E's arguments (table, x0, y0, n, dx, dy, mesh_scale,
+    mesh_scale_z_inv) at the terrain path's shapes: `num_tiles` tiles of
+    128^2 at the path's origins, x0 shifted by `shift` grid units."""
+    from w3d_torch.models import terrain_model as TMOD
+    from w3d_torch.utils.constants import WorldConst
+    world = WorldConst()
+    mcfg = TMOD.TileModelConfig(tile_size=128, erosion_iters_tt=0)
+    table, x0, y0, *_ = TMOD.example_inputs(mcfg, world, gen,
+                                            num_tiles=num_tiles, device=dev)
+    return (table, (x0 + shift).contiguous(), y0, 128, world.dx, world.dy,
+            mcfg.cfg.mesh_scale, 1.0 / mcfg.cfg.mesh_scale_z)
+
+
+def sine_arguments(table, x0, y0, n, dx, dy, mesh_scale, mszi) -> torch.Tensor:
+    """[2, T, n, K] the arguments of kernel E's sines (x table, y table),
+    op for op as the kernel and `ops/noise.tile_noise` form them."""
+    f32 = lambda v: float(np.float32(v))
+    i = torch.arange(n, dtype=torch.float32, device=x0.device)[None, :, None]
+    out = []
+    for o, d, freq, phase in ((x0, dx, table.freq_x, table.phase_x),
+                              (y0, dy, table.freq_y, table.phase_y)):
+        mult = f32(mesh_scale / d) * freq
+        const = f32(0.5 * mesh_scale) * freq + phase + mult * (f32(d) * o[:, None])
+        out.append(mult * f32(d) * i + const[:, None, :])
+    return torch.stack(out)
+
+
+def substep_tables(g):
+    """Kernel G's cobj-table argument for `g`: the `narrow_kernel.
+    kernel_tables` triple, or its row-major table alone for a checkout
+    whose wrapper takes only that (`--times` against an older port)."""
+    from w3d_torch.ops.cuda import narrow_kernel as NK
+    from w3d_torch.ops.cuda import physics_kernel as GK
+    tabs = NK.kernel_tables(g)
+    return tabs if "tables" in inspect.signature(GK.substep).parameters else tabs[0]
+
+
+def substep_args(dense, sw, world, water_z: float = -100.0) -> tuple:
+    """Kernel G's arguments for one substep of the 10-substep frame on the
+    objects of `dense` in `sw`'s scene (no water by default)."""
+    from w3d_torch.ops.cuda import physics_kernel as GK
+    from w3d_torch.physics import step as PS
+    from w3d_torch.physics import types as PT
+    par = PS._type_params(dense.otype, sw.table)[:7]
+    env = torch.tensor([PT.DEF_TIMESTEP / 10, 1.0, 0.4, 0.2, 0.0, water_z,
+                        world.dx_inv, world.dy_inv, world.x_scene, world.dx,
+                        world.dy, 0.0], device=dense.px.device)
+    return (dense.px, dense.py, dense.pz, dense.vx, dense.vy, dense.vz,
+            dense.status, dense.flags, *(p.contiguous() for p in par),
+            GK.mesh_maps(sw.env.mesh_height, world), substep_tables(sw.cobjs), env)
+
+
 def seven_shape_scene(SC=None):
     """tests/test_pallas.py::test_pallas_narrow_phase_matches_xla's scene:
     every shape group plus dead padding slots, built with `SC`'s classes
@@ -230,8 +297,13 @@ def pairs_bound(n: int, valid: int, hits: int) -> tuple[float, str]:
 def _ptxas_and_sass() -> None:
     from w3d_torch.ops.cuda import build
     nvcc = build._nvcc()
+    dump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    # SASS opcodes counted per kernel: the erosion kernel's shared-memory
+    # atomics and barriers, the noise kernel's local-memory traffic
+    counted = {"erosion": r"\b(ATOMS\.[A-Z0-9.]+|ATOM\.[A-Z0-9.]+|RED\.[A-Z0-9.]+|BAR\.[A-Z0-9.]+)",
+               "noise": r"\b(LDL(?:\.[A-Z0-9.]+)?|STL(?:\.[A-Z0-9.]+)?|CALL\.[A-Z0-9.]+)"}
     with tempfile.TemporaryDirectory() as tmp:
-        for name in ("erosion", "pairs", "narrow", "sample"):
+        for name in ("erosion", "pairs", "narrow", "sample", "substep", "noise"):
             src = os.path.join(build.CSRC, f"{name}.cu")
             cubin = os.path.join(tmp, f"{name}.cubin")
             res = subprocess.run([nvcc] + build.COMPILE_FLAGS
@@ -240,16 +312,30 @@ def _ptxas_and_sass() -> None:
             print(f"ptxas {name}.cu:\n" + "\n".join(
                 ln for ln in (res.stdout + res.stderr).splitlines()
                 if "registers" in ln or "spill" in ln or "Compiling" in ln))
-            if name != "erosion":
+            if name not in counted:
                 continue
-            dump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
             sass = subprocess.run([dump, "-sass", cubin], capture_output=True,
                                   text=True, check=True).stdout
             ops: dict[str, int] = {}
-            for op in re.findall(r"\b(ATOMS\.[A-Z0-9.]+|ATOM\.[A-Z0-9.]+|"
-                                 r"RED\.[A-Z0-9.]+|BAR\.[A-Z0-9.]+)", sass):
+            for op in re.findall(counted[name], sass):
                 ops[op] = ops.get(op, 0) + 1
-            print(f"erosion.cu SASS atomics and barriers (static count): {ops}")
+            print(f"{name}.cu SASS, static count of {counted[name]}: {ops}")
+            if name == "noise":
+                _sass_loops(sass)
+
+
+def _sass_loops(sass: str) -> None:
+    """Each loop of a SASS listing (a branch back to an earlier address):
+    its instructions, FFMAs and shared loads, innermost loops first."""
+    ins = [(int(a, 16), op.strip()) for a, op in
+           re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", sass)]
+    for addr, op in ins:
+        m = re.search(r"BRA (0x[0-9a-f]+)", op)
+        if m and int(m.group(1), 16) < addr:
+            body = [o for a, o in ins if int(m.group(1), 16) <= a <= addr]
+            print(f"    loop {m.group(1)}-{addr:#x}: {len(body)} instructions, "
+                  f"{sum('FFMA' in o for o in body)} FFMA, "
+                  f"{sum(o.startswith('LDS') for o in body)} LDS")
 
 
 def _phases_library():
@@ -302,6 +388,68 @@ def _phase_split(case, kernel_ms: float) -> None:
           f"{per[3] / steps:.1f} cycles/step")
 
 
+def _noise_launch(fn, table, x0, y0, n, dx, dy, mesh_scale, mszi):
+    """One call of a variant library's `w3d_tile_noise`, with the arguments
+    `ops/cuda/noise_kernel.tile_noise` gives it (all 90 terms)."""
+    K = table.mag.shape[0]
+    params = torch.stack(list(table)).contiguous()
+    out = torch.empty((x0.shape[0], n, n), dtype=torch.float32, device=x0.device)
+    f32 = lambda v: float(np.float32(v))
+    err = fn(params.data_ptr(), K, 0, x0.data_ptr(), y0.data_ptr(), out.data_ptr(),
+             x0.shape[0], n, f32(dx), f32(dy), f32(mesh_scale / dx),
+             f32(mesh_scale / dy), f32(0.5 * mesh_scale), f32(mszi),
+             torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"noise variant: CUDA error {err}")
+    return out
+
+
+def _noise_phase_split(cases: dict) -> None:
+    """`sin_fast` against sinf on every float it takes, then E's SM cycles
+    by phase, per CTA, for each named argument tuple."""
+    from w3d_torch.ops.cuda import build
+    from w3d_torch.ops.cuda import noise_kernel as NZK
+    lib = ctypes.CDLL(build.build(defines=("W3D_NOISE_PHASES",)))
+    fn = lib.w3d_tile_noise
+    fn.argtypes = NZK.KERNEL.argtypes
+    fn.restype = ctypes.c_int
+    read = lib.w3d_noise_phase_cycles
+    read.argtypes = [ctypes.c_void_p]
+    read.restype = ctypes.c_int
+    check = lib.w3d_sin_fast_mismatches
+    check.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    check.restype = ctypes.c_int
+    buf = torch.tensor([0, 0xffffffff], dtype=torch.int64, device="cuda")
+    if check(buf.data_ptr(), torch.cuda.current_stream().cuda_stream):
+        raise RuntimeError("sin_fast check: CUDA error")
+    bad, first = buf.tolist()
+    print(f"sin_fast vs sinf over every float below {SINF_FAST_MAX:.0f} in "
+          f"magnitude: {bad} differ" + (f", first {first:#010x}" if bad else ""))
+    cyc = (ctypes.c_ulonglong * 4)()
+    for label, nargs in cases.items():
+        _noise_launch(fn, *nargs)
+        torch.cuda.synchronize()
+        read(cyc)                                # clears the warm-up's sums
+        reps = 5
+        for _ in range(reps):
+            _noise_launch(fn, *nargs)
+        torch.cuda.synchronize()
+        if read(cyc):
+            raise RuntimeError("noise phase counters: CUDA error")
+        ctas = reps * nargs[1].shape[0]
+        per = [c / ctas for c in cyc]
+        args = sine_arguments(*nargs)
+        slow = float((args.abs() > SINF_FAST_MAX).float().mean())
+        print(f"noise phase split, {label} ({nargs[1].shape[0]} tiles, x0 "
+              f"{float(nargs[1].min()):.0f}..{float(nargs[1].max()):.0f}; "
+              f"{100 * slow:.1f}% of the sine arguments above {SINF_FAST_MAX:.0f}, "
+              f"max |arg| {float(args.abs().max()):.0f}); SM cycles per CTA, "
+              f"thread 0's view:")
+        for name, c in zip(("table build + barrier", "product", "store"), per[:3]):
+            print(f"    {name}: {c:10.1f} cycles, {100 * c / per[3]:5.1f}% of the kernel")
+        print(f"    whole kernel: {per[3]:.0f} cycles per CTA")
+
+
 def _graph_ms(fn) -> list[float]:
     """Five replays of a CUDA graph of 20 calls of `fn`: ms per call."""
     timer = GraphTimer(fn)
@@ -311,10 +459,14 @@ def _graph_ms(fn) -> list[float]:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--times", action="store_true",
-                    help="only the kernels' device-only times and B's and C's "
-                         "floors (CUDA graphs of 20 launches), through their "
-                         "public wrappers; runs against another checkout too: "
-                         "cd <checkout> && PYTHONPATH=. python3 <this file> --times")
+                    help="only the kernels' device-only times, the floors of B, "
+                         "C, G and E (CUDA graphs of 20 launches) and a digest of "
+                         "E's heights, through their public wrappers; runs against "
+                         "another checkout too: cd <checkout> && PYTHONPATH=. "
+                         "python3 <this file> --times")
+    ap.add_argument("--phases", action="store_true",
+                    help="only the phase splits of the erosion walk and the "
+                         "tile noise (variant builds)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("kernel_probe: needs a CUDA device")
@@ -323,7 +475,9 @@ def main() -> None:
     from w3d_torch.ops.cuda import build
     from w3d_torch.ops.cuda import erosion_kernel as EK
     from w3d_torch.ops.cuda import narrow_kernel as NK
+    from w3d_torch.ops.cuda import noise_kernel as NZK
     from w3d_torch.ops.cuda import pairs_kernel as PK
+    from w3d_torch.ops.cuda import physics_kernel as GK
     from w3d_torch.ops.cuda import sample_kernel as SK
     from w3d_torch.utils.constants import WorldConst
     dev = torch.device("cuda")
@@ -331,13 +485,19 @@ def main() -> None:
                           "clocks.max.sm", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     print(f"card: {smi}; package {os.path.dirname(E.__file__)}")
-    if not args.times:
+    if not (args.times or args.phases):
         _ptxas_and_sass()
     build.library()
     gen = torch.Generator(device=dev).manual_seed(1234)
     world = WorldConst()
-
     case = erosion_case(dev, gen)
+    nargs = {"phase 4's origins": noise_args(dev, gen),
+             "the rate loop's origins": noise_args(dev, gen, shift=RATE_SHIFT)}
+    if args.phases:
+        _phase_split(case, events_ms(lambda: EK.erosion_walk(*case)))
+        _noise_phase_split(nargs)
+        return
+
     times = {"erosion": _graph_ms(lambda: EK.erosion_walk(*case))}
     pos, vel = PM.spawn(10000, gen, device=dev)
     sw = PM.build_spheres_world(pos, vel, device=dev)
@@ -352,16 +512,29 @@ def main() -> None:
     mesh = torch.rand((world.mesh_y, world.mesh_x), generator=gen, device=dev)
     sxy = (dense.px, dense.py)
     times["sample"] = _graph_ms(lambda: SK.sample_mesh(mesh, *sxy, world))
-    # floors: one CTA's worth of objects
+    gin = substep_args(dense, sw, world)
+    times["substep"] = _graph_ms(lambda: GK.substep(*gin))
+    for label, na in nargs.items():
+        times[f"tile_noise at {label}"] = _graph_ms(lambda na=na: NZK.tile_noise(*na))
+    # floors: one CTA's worth of objects, one tile
     nin128 = tuple(t[:128].contiguous() for t in nin)
     sxy128 = tuple(t[:128].contiguous() for t in sxy)
+    gin128 = tuple(t[:128].contiguous() for t in gin[:15]) + gin[15:]
+    na1 = nargs["phase 4's origins"]
+    na1 = (na1[0], na1[1][:1].contiguous(), na1[2][:1].contiguous()) + na1[3:]
     times["narrow floor (N = 128)"] = _graph_ms(lambda: NK.deepest_hits(*nin128, gc))
     times["sample floor (N = 128)"] = _graph_ms(
         lambda: SK.sample_mesh(mesh, *sxy128, world))
+    times["substep floor (N = 128)"] = _graph_ms(lambda: GK.substep(*gin128))
+    times["tile_noise floor (1 tile)"] = _graph_ms(lambda: NZK.tile_noise(*na1))
     print(f"device-only ms (CUDA graph of 20 launches, 5 replays; 10K objects, "
-          f"M = {gc.size}): " + "; ".join(
+          f"M = {gc.size}; 256 tiles of 128^2): " + "; ".join(
               f"{k} median {statistics.median(v):.4f} {[round(t, 4) for t in v]}"
               for k, v in times.items()))
+    for label, na in nargs.items():
+        h = NZK.tile_noise(*na).cpu().numpy()
+        print(f"tile_noise heights at {label}: sha256 "
+              f"{hashlib.sha256(h.tobytes()).hexdigest()[:16]}")
     if args.times:
         return
 
@@ -374,6 +547,7 @@ def main() -> None:
     b, by = erosion_bound(case[0], case[1], case[3], stats)
     print(f"erosion: {a_ev:.4f} ms (events, 20 launches); bound {b:.4f} ms by {by}")
     _phase_split(case, a_ev)
+    _noise_phase_split(nargs)
     valid, hits = pair_work(dense.px, dense.py, dense.pz, rad, act, 288)
     d_ev = events_ms(lambda: PK.banded_pairs(*pin, window=288))
     b, by = pairs_bound(10000, valid, hits)
