@@ -11,9 +11,13 @@ Phases, each fatal on failure (no phase hides an error):
 3. The paths, through the port's own entry points, each with every kernel
    launch counter set to 0 just before it and read just after:
    a. the main path: 256 terrain tiles of 128^2 (512 droplets per tile,
-      batch 512, 64 steps); 10K-object spheres frames (10 substeps,
-      window 288, no water) with the pair pass every 5th substep and every
-      substep; one combined step at `w3d_torch.entry.entry()`'s shapes;
+      batch 512, 64 steps) on the kernel path's walk without a roam ring
+      (`use_pallas_erosion=True`, the rate kept comparable with earlier
+      runs), then on the padded path (`use_pallas_erosion=False`, the
+      default: 136^2 maps), its rate on its own line; 10K-object spheres
+      frames (10 substeps, window 288, no water) with the pair pass every
+      5th substep and every substep; one combined step at
+      `w3d_torch.entry.entry()`'s shapes;
    b. the fused frame (`step_objects_fused`) on the same 10K balls: 10
       substeps, pair pass every 5th; the substep kernel must launch 10
       times and the pair kernel 2 times per frame, sample and narrow never;
@@ -28,16 +32,21 @@ Phases, each fatal on failure (no phase hides an error):
    also bitwise from run to run and at one ragged shape each (3 tiles of
    48x64 with 200 droplets; 4,097 ranks, window 300, `i_limit` 3,001);
    narrow and the substep also on the seven-shape scene (every shape
-   group, dead padding slots); the tile noise also at the origins of 3a's
+   group, dead padding slots), on wide tables of M = 536 and 1,616 slots
+   (two and five of the kernels' 384-row shared-memory chunks) over the
+   dense pile, and on the M = 112 and 80 scenes bitwise against a variant
+   build whose chunks hold 64 rows; erosion also on the padded path's
+   136^2 maps; the tile noise also at the origins of 3a's
    rate loop (x0 + 11 * 256 * 128, sine arguments past sinf's fast
    reduction).  Times in turns (plain, kernel, kernel, plain, ...): the
    kernel device-only, a CUDA graph of 20 launches replayed between CUDA
    events; the plain version, CUDA events around back-to-back calls.
    Beside each, its bound: the larger of the bytes it must move over 3.35
    TB/s and the operations it does on these inputs over 67 TFLOP/s
-   (float32); beside sample's, narrow's and the substep's, their floor: the
-   same graph timer at 128 objects (one CTA's worth), the launch plus fixed
-   set-up; beside the tile noise's, its floor at one tile.
+   (float32); beside each, its floor: the same graph timer at one CTA's
+   worth of work (128 objects for sample, narrow and the substep, 32 ranks
+   for the pairs, one tile for the erosion walk and the tile noise), or at
+   a (2, 8, 8) smoke grid, the launch plus fixed set-up.
 5. The combined step and a small fused frame on a small input on the card
    against the same steps on the CPU (plain versions).
 
@@ -65,6 +74,9 @@ SUBSTEPS = 10
 WINDOW = 288
 LIGHT_GRID = (32, 128, 128)   # (mesh_z, mesh_y, mesh_x), lighting/lmap.py
 FLOOR_N = 128            # objects in B's, C's and G's floor runs: one CTA's worth
+PAIRS_FLOOR_N = 32       # ranks in D's floor run: one CTA's worth
+SMOKE_FLOOR = (2, 8, 8)  # F's floor grid
+WIDE_COPIES = (8, 27)    # kernel_probe.wide_scene copies: M = 536 and 1,616
 # ops per unit of work for the bounds, counted from the kernel sources
 # (adds, multiplies, divides, square roots, min/max, compares: one each);
 # the erosion and pair counts are in w3d_torch/utils/kernel_probe.py
@@ -80,7 +92,7 @@ TOLS = {"erosion": "bitwise equal to the plain version and across two runs",
         "pairs": "1e-6, bitwise across two runs",
         "substep": "1e-5, status and flags equal",
         "tile_noise": "1e-3",
-        "diffuse_smoke": "1e-6"}
+        "diffuse_smoke": "bitwise equal to the plain version"}
 
 
 def log(*a):
@@ -158,7 +170,8 @@ def main() -> int:
     # ---- 3a. main path ----------------------------------------------------
     reset_counts()
     mcfg = TMOD.TileModelConfig(tile_size=128, erosion_iters_tt=512,
-                                erosion_batch=512, erosion_steps=64)
+                                erosion_batch=512, erosion_steps=64,
+                                use_pallas_erosion=True)
     table, x0, y0, ze, wpz, ang = TMOD.example_inputs(
         mcfg, world, gen, num_tiles=NUM_TILES, device=dev)
     t0 = time.perf_counter()
@@ -180,6 +193,26 @@ def main() -> int:
     log(f"terrain: {NUM_TILES} tiles 128^2, first result {ttfr_tiles:.3f} s, "
         f"{tiles_per_s:.1f} tiles/s (median of 5, spread "
         f"{(max(rates) - min(rates)) / tiles_per_s:.3f})")
+    # the padded path (the default config): 136^2 maps through the same kernel
+    pcfg = mcfg._replace(use_pallas_erosion=False)
+    ptiles = TMOD.tile_batch_step(table, x0, y0, ze, wpz, ang, pcfg, world)
+    rates = []
+    for g in range(3):
+        ang_g = E.draw_angles(512, 512, 64, gen, device=dev)
+        t0 = time.perf_counter()
+        z = TMOD.tile_batch_step(table, x0 + (12.0 + g) * NUM_TILES * 128, y0,
+                                 ze, wpz, ang_g, pcfg, world)
+        torch.cuda.synchronize()
+        rates.append(NUM_TILES / (time.perf_counter() - t0))
+        need(bool(torch.isfinite(z).all()), "padded terrain tiles finite")
+    padded_tiles_per_s = statistics.median(rates)
+    dpad = float((ptiles - tiles).abs().max())
+    need(ptiles.shape == tiles.shape and bool(torch.isfinite(ptiles).all())
+         and dpad > 1e-3, "padded terrain tiles finite, and eroded otherwise "
+         "than without the roam ring")
+    log(f"terrain, padded path (roam ring {E.PAD}, 136^2 maps): "
+        f"{padded_tiles_per_s:.1f} tiles/s (median of 3), max |padded - "
+        f"unpadded| {dpad:.3g}")
 
     pos, vel = PM.spawn(NUM_OBJS, gen, device=dev)
     sw0 = PM.build_spheres_world(pos, vel, world=world, device=dev)
@@ -312,14 +345,17 @@ def main() -> int:
                     tk.append(timer.time())
         return statistics.median(tp), statistics.median(tk)
 
-    def add(name, err, times, bound, note, floor=None):
-        """`floor`: the kernel's call at FLOOR_N objects (one tile for the
-        tile noise), timed as its launch-plus-set-up floor."""
+    def graph_ms(fn) -> float:
+        """Device-only ms of `fn`: median of 5 replays of a graph of 20."""
+        timer = KP.GraphTimer(fn)
+        return statistics.median(timer.time() for _ in range(5))
+
+    def add(name, err, times, bound, note, floor, floor_at: str):
+        """`floor`: the kernel's call on one CTA's worth of work
+        (`floor_at`), timed as its launch-plus-set-up floor."""
         pm, km = times
-        fm = (statistics.median(KP.GraphTimer(floor).time() for _ in range(5))
-              if floor is not None else None)
         report[name] = dict(err=err, ms=km, plain_ms=pm, bound=bound, note=note,
-                            floor=fm)
+                            floor=graph_ms(floor), floor_at=floor_at)
 
     # A: one erosion batch on 256 raw tiles, then the ragged case
     case = KP.erosion_case(dev, gen)
@@ -351,11 +387,31 @@ def main() -> int:
         f"max |delta| {float(rref.abs().max()):.3g}")
     need(bool(torch.equal(r1, rref)) and bool(torch.equal(r1, r2))
          and float(rref.abs().max()) > 1e-3, "erosion (ragged): " + TOLS["erosion"])
+    # the padded path's walk: the same batch on 136^2 maps, droplets PAD in
+    pcase = KP.padded_erosion_case(case)
+    p1, p2 = EK.erosion_walk(*pcase), EK.erosion_walk(*pcase)
+    pstats: dict = {}
+    pref = E._walk_batch(*pcase, stats=pstats)
+    ring = float(torch.cat([pref[:, :E.PAD].flatten(), pref[:, -E.PAD:].flatten(),
+                            pref[:, :, :E.PAD].flatten(),
+                            pref[:, :, -E.PAD:].flatten()]).abs().max())
+    pad_ms = graph_ms(lambda: EK.erosion_walk(*pcase))
+    pad_bound = KP.erosion_bound(pcase[0], pcase[1], pcase[3], pstats)
+    log(f"erosion, padded path ({NUM_TILES} maps of {pcase[0].shape[1]}^2): cells "
+        f"not equal {int((p1 != pref).sum())}, run-to-run {int((p1 != p2).sum())}, "
+        f"max |delta| in the roam ring {ring:.3g}; device-only {pad_ms:.4f} ms, "
+        f"bound {pad_bound[0]:.5f} ms by {pad_bound[1]}")
+    need(bool(torch.equal(p1, pref)) and bool(torch.equal(p1, p2)) and ring > 0.0,
+         "erosion (padded): " + TOLS["erosion"] + ", droplets in the roam ring")
+    case1 = tuple(t[:1].contiguous() for t in case[:3]) + case[3:]
     add("erosion", float(d.max()),
         in_turns(lambda: E._walk_batch(*case), lambda: EK.erosion_walk(*case),
                  rounds=4, plain_calls=1),
         KP.erosion_bound(hm, xi, ang0, stats),
-        "no PyTorch call runs a lockstep droplet walk")
+        "no PyTorch call runs a lockstep droplet walk",
+        floor=lambda: EK.erosion_walk(*case1), floor_at="one tile")
+    report["erosion"]["padded"] = dict(ms=pad_ms, bound_ms=pad_bound[0],
+                                       bound_by=pad_bound[1])
 
     # B: mesh sampling, 10K objects over tile 0
     mesh = tiles[0].contiguous()
@@ -376,12 +432,12 @@ def main() -> int:
                  plain_calls=5),
         KP.bound_ms(mesh.numel() * 4 + 6 * n * 4, SAMPLE_OPS * n),
         "grid_sample gives the heights only, not the normals",
-        floor=lambda: SK.sample_mesh(mesh, sx_floor, sy_floor, world))
+        floor=lambda: SK.sample_mesh(mesh, sx_floor, sy_floor, world),
+        floor_at=f"{FLOOR_N} objects")
 
     # C and D: a dense pile so contacts happen
     dense, rad, elas, mass = KP.dense_pile(sw0.state, sw0.table)
     gc = sw0.cobjs
-    ncobj = sum(hi - lo for lo, hi in gc.bounds)
     nin = (dense.px, dense.py, dense.pz, rad)
     # C also on the seven-shape scene: every shape group, dead padding slots
     # in most of them; 10K objects uniform in [-2.5, 2.5]^3
@@ -390,9 +446,11 @@ def main() -> int:
     nin7 = tuple(torch.as_tensor(rg7.uniform(lo, hi, NUM_OBJS).astype(np.float32),
                                  device=dev)
                  for lo, hi in ((-2.5, 2.5),) * 3 + ((0.02, 0.2),))
+    wide = [KP.wide_cobjs(c, dev) for c in WIDE_COPIES]
     dwin = dpen = 0.0
     for scene, g, ins in (("spheres, dense pile", gc, nin),
-                          ("seven shapes", g7, nin7)):
+                          ("seven shapes", g7, nin7),
+                          *(("wide table, dense pile", gw, nin) for gw in wide)):
         out = NK.deepest_hits(*ins, g)
         ref = PC.deepest_hits_grouped(*ins, g)
         top2 = torch.topk(PC.sphere_cobj_test_grouped(*ins, g)[0], 2).values
@@ -407,15 +465,36 @@ def main() -> int:
         need(hit_eq and dp < 1e-5 and dw < 1e-5 and int(ref[0].sum()) > 500,
              f"narrow ({scene}): " + TOLS["narrow"] + ", with hits")
         dpen, dwin = max(dpen, dp), max(dwin, dw)
+    # one chunk against several: a variant build with 64-row chunks
+    nk64 = NK.KERNEL.variant("W3D_CHUNK_ROWS=64")
+    gk64 = GK.KERNEL.variant("W3D_CHUNK_ROWS=64")
+    for g, ins in ((gc, nin), (g7, nin7)):
+        need(all(torch.equal(a, b) for a, b in zip(
+            NK.deepest_hits(*ins, g), NK.deepest_hits(*ins, g, kernel=nk64))),
+            f"narrow, M = {g.size}: 384-row and 64-row chunks give the same bits")
+    log(f"narrow, M = {gc.size} and {g7.size}: bitwise equal through 64-row "
+        f"chunks ({-(-gc.size // 64)} and {-(-g7.size // 64)} chunks)")
+
+    def narrow_bound(g):
+        return KP.bound_ms((10 * 4 + 1) * NUM_OBJS          # 4 in, 6 out, hit mask
+                           + NK.kernel_tables(g)[2].numel() * 4 + 32,
+                           COBJ_TEST_OPS * NUM_OBJS * sum(hi - lo for lo, hi in g.bounds))
+
     nin_floor = tuple(t[:FLOOR_N].contiguous() for t in nin)
     add("narrow", max(dpen, dwin),
         in_turns(lambda: PC.deepest_hits_grouped(*nin, gc),
                  lambda: NK.deepest_hits(*nin, gc), rounds=10, plain_calls=5),
-        KP.bound_ms((10 * 4 + 1) * NUM_OBJS              # 4 in, 6 out, hit mask
-                    + NK.kernel_tables(gc)[2].numel() * 4 + 32,
-                    COBJ_TEST_OPS * NUM_OBJS * ncobj),
+        narrow_bound(gc),
         "no PyTorch call tests spheres against cobj shapes",
-        floor=lambda: NK.deepest_hits(*nin_floor, gc))
+        floor=lambda: NK.deepest_hits(*nin_floor, gc), floor_at=f"{FLOOR_N} objects")
+    report["narrow"]["wide"] = []
+    for gw in wide:
+        ms = graph_ms(lambda gw=gw: NK.deepest_hits(*nin, gw))
+        b = narrow_bound(gw)
+        report["narrow"]["wide"].append(dict(slots=gw.size, ms=ms, bound_ms=b[0],
+                                             bound_by=b[1]))
+        log(f"narrow, M = {gw.size} ({-(-gw.size // NK.CHUNK_ROWS)} chunks), dense "
+            f"pile: device-only {ms:.4f} ms, bound {b[0]:.5f} ms by {b[1]}")
 
     act = (dense.status > 0) & (rad >= 0.01)
     pin = (dense.px, dense.py, dense.pz, dense.vx, dense.vy, dense.vz,
@@ -448,12 +527,15 @@ def main() -> int:
     log(f"pairs, N {rn}, window 300, i_limit 3001: max diff {rdp:.3g}, ranks "
         f"with contacts {rnz}, run-to-run unequal {rrerun}")
     need(rdp < 1e-6 and rrerun == 0 and rnz > 100, "pairs (ragged): " + TOLS["pairs"])
+    pin_floor = tuple(t[:PAIRS_FLOOR_N].contiguous() for t in pin)
     add("pairs", dp,
         in_turns(lambda: PS.banded_pair_collisions(*pin, window=WINDOW),
                  lambda: PK.banded_pairs(*pin, window=WINDOW), rounds=4,
                  plain_calls=1),
         KP.pairs_bound(NUM_OBJS, valid, hits),
-        "no PyTorch call computes banded pair impulses")
+        "no PyTorch call computes banded pair impulses",
+        floor=lambda: PK.banded_pairs(*pin_floor, window=WINDOW),
+        floor_at=f"{PAIRS_FLOOR_N} ranks")
 
     # G: one fused substep at 10K, on the dense pile in the spheres scene,
     # and on random objects (random status, flag bits and params) over a
@@ -474,9 +556,10 @@ def main() -> int:
                 GK.mesh_maps(bumpy, world), NK.kernel_tables(gc), gin[-1].clone())
     gin_rand[-1][5] = 0.25                          # the water plane
     gin7 = gin_rand[:-2] + (NK.kernel_tables(g7), gin_rand[-1])
+    gin_wide = [gin[:16] + (NK.kernel_tables(gw), gin[17]) for gw in wide]
     plain_g = lambda a: PF.substep_plain(*a[:-2], a[-2][0], a[-1])
     dg, unequal = 0.0, []
-    for args in (gin, gin_rand, gin7):
+    for args in (gin, gin_rand, gin7, *gin_wide):
         out = GK.substep(*args)
         ref = plain_g(args)
         dg = max(dg, max(float((a - b).abs().max()) for a, b in zip(out[:6], ref[:6])))
@@ -488,19 +571,39 @@ def main() -> int:
                         int(((ref[7] & ~args[7] & 2) != 0).sum())))
     log(f"substep: max diff {dg:.3g}; (objects not bitwise equal, status "
         f"unequal, flags unequal, new cobj hits) dense pile {unequal[0]}, random "
-        f"objects {unequal[1]}, seven shapes {unequal[2]} of {NUM_OBJS}")
+        f"objects {unequal[1]}, seven shapes {unequal[2]}, wide tables M = "
+        f"{wide[0].size} {unequal[3]} and M = {wide[1].size} {unequal[4]} of {NUM_OBJS}")
     need(dg < 1e-5 and all(u[1] == 0 and u[2] == 0 for u in unequal)
-         and unequal[0][3] > 1000 and unequal[2][3] > 100,
+         and unequal[0][3] > 1000 and unequal[2][3] > 100
+         and all(u[3] > 500 for u in unequal[3:]),
          "substep: " + TOLS["substep"] + ", with cobj hits")
+    for args in (gin, gin7):
+        need(all(torch.equal(a, b) for a, b in zip(
+            GK.substep(*args), GK.substep(*args, kernel=gk64))),
+            "substep: 384-row and 64-row chunks give the same bits")
+    log(f"substep, M = {gc.size} and {g7.size}: bitwise equal through 64-row chunks")
+
+    def substep_bound(a, g):
+        return KP.bound_ms(23 * NUM_OBJS * 4 + a[15].numel() * 4
+                           + a[16][2].numel() * 4 + 32 + 48,
+                           NUM_OBJS * (COBJ_TEST_OPS * sum(hi - lo for lo, hi in g.bounds)
+                                       + SUBSTEP_OBJ_OPS))
+
     gin_floor = tuple(t[:FLOOR_N].contiguous() for t in gin[:15]) + gin[15:]
     add("substep", dg,
         in_turns(lambda: plain_g(gin), lambda: GK.substep(*gin),
                  rounds=6, plain_calls=2),
-        KP.bound_ms(23 * NUM_OBJS * 4 + gin[15].numel() * 4
-                    + gin[16][2].numel() * 4 + 32 + 48,
-                    NUM_OBJS * (COBJ_TEST_OPS * ncobj + SUBSTEP_OBJ_OPS)),
+        substep_bound(gin, gc),
         "no PyTorch call runs a physics substep",
-        floor=lambda: GK.substep(*gin_floor))
+        floor=lambda: GK.substep(*gin_floor), floor_at=f"{FLOOR_N} objects")
+    report["substep"]["wide"] = []
+    for gw, a in zip(wide, gin_wide):
+        ms = graph_ms(lambda a=a: GK.substep(*a))
+        b = substep_bound(a, gw)
+        report["substep"]["wide"].append(dict(slots=gw.size, ms=ms, bound_ms=b[0],
+                                              bound_by=b[1]))
+        log(f"substep, M = {gw.size} ({-(-gw.size // NK.CHUNK_ROWS)} chunks), dense "
+            f"pile: device-only {ms:.4f} ms, bound {b[0]:.5f} ms by {b[1]}")
 
     # E: 256 tiles of 128^2, all 90 terms, at the terrain path's origins
     # (the timed case) and at the rate loop's last ones
@@ -513,7 +616,7 @@ def main() -> int:
     log(f"tile_noise: max diff {de:.3g} on heights up to {float(ref.abs().max()):.3g}; "
         f"at x0 + {KP.RATE_SHIFT} ({100 * slow:.1f}% of the sine arguments above "
         f"{KP.SINF_FAST_MAX:.0f}): max diff {de_far:.3g}, device-only "
-        f"{statistics.median(KP.GraphTimer(lambda: NZK.tile_noise(*far)).time() for _ in range(5)):.4f} ms")
+        f"{graph_ms(lambda: NZK.tile_noise(*far)):.4f} ms")
     need(de < 1e-3 and de_far < 1e-3 and slow > 0.05,
          "tile_noise: " + TOLS["tile_noise"] + ", at both origins")
     K = N.F_TABLE_SIZE
@@ -525,21 +628,29 @@ def main() -> int:
         KP.bound_ms(out.numel() * 4 + 5 * K * 4 + 2 * NUM_TILES * 4,
                     out.numel() * K * 2 + NUM_TILES * 2 * 128 * K * SIN_TERM_OPS),
         "the term tables need sin, then an einsum: two calls or more",
-        floor=lambda: NZK.tile_noise(*nargs1))
+        floor=lambda: NZK.tile_noise(*nargs1), floor_at="one tile")
 
     # F: the default light grid
     out = FK.diffuse_smoke_open(smoke0)
     ref = WS.diffuse_smoke_open(smoke0)
     df = float((out - ref).abs().max())
+    # and a ragged grid of single-cell runs (nx % 4 != 0)
+    rsm = torch.rand((5, 37, 61), generator=gen, device=dev) * 5
+    rsm[0, 0, 0], rsm[-1, -1, -1] = 150.0, -20.0     # both clamps
+    rneq = int((FK.diffuse_smoke_open(rsm) != WS.diffuse_smoke_open(rsm)).sum())
     log(f"diffuse_smoke: {LIGHT_GRID}, max diff {df:.3g}, not bitwise "
-        f"{int((out != ref).sum())} of {out.numel()}")
-    need(df < 1e-6, "diffuse_smoke: " + TOLS["diffuse_smoke"])
+        f"{int((out != ref).sum())} of {out.numel()}; (5, 37, 61) not bitwise "
+        f"{rneq}; z block {FK.z_block(*LIGHT_GRID, 4)} layers")
+    need(bool(torch.equal(out, ref)) and rneq == 0,
+         "diffuse_smoke: " + TOLS["diffuse_smoke"])
+    tiny = torch.rand(SMOKE_FLOOR, generator=gen, device=dev) * 5
     add("diffuse_smoke", df,
         in_turns(lambda: WS.diffuse_smoke_open(smoke0),
                  lambda: FK.diffuse_smoke_open(smoke0), rounds=10, plain_calls=5),
         KP.bound_ms(2 * smoke0.numel() * 4, STENCIL_CELL_OPS * smoke0.numel()),
         "the z exchange depends on the sign of the difference and ends in a "
-        "clamp, so it is no conv3d")
+        "clamp, so it is no conv3d",
+        floor=lambda: FK.diffuse_smoke_open(tiny), floor_at=f"a {SMOKE_FLOOR} grid")
 
     # ---- 5. small combined step: card vs CPU ------------------------------
     from w3d_torch import convert
@@ -600,9 +711,7 @@ def main() -> int:
             "diffuse_smoke": ("diffuse_smoke_open", "w3d_torch/csrc/stencil.cu",
                               "3dworld_tpu/ops/pallas/stencil_kernel.py:62")}
     for n, r in report.items():
-        floor = ("" if r["floor"] is None else
-                 f", floor {r['floor']:.4f} ms "
-                 f"({'one tile' if n == 'tile_noise' else f'{FLOOR_N} objects'})")
+        floor = f", floor {r['floor']:.4f} ms ({r['floor_at']})"
         log(f"{n}: kernel {r['ms']:.4f} ms device-only{floor}, plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound'][0]:.5f} ms by "
             f"{r['bound'][1]} (roofline share {100 * r['bound'][0] / r['ms']:.1f}%), "
@@ -612,6 +721,7 @@ def main() -> int:
                     "physics_frames_per_sec_10k": fps[5],
                     "physics_fps_pair_every_1": fps[1],
                     "physics_fused_frames_per_sec_10k": fps["fused"],
+                    "terrain_tiles_per_sec_padded": padded_tiles_per_s,
                     "time_to_first_tiles_s": ttfr_tiles,
                     "time_to_first_fused_frame_s": ttfr_fused},
         "card": smi}))
@@ -622,7 +732,9 @@ def main() -> int:
          "plain_ms": report[n]["plain_ms"], "bound_ms": report[n]["bound"][0],
          "bound_by": report[n]["bound"][1], "library_ms": None,
          "library_none_because": report[n]["note"],
-         "floor_ms": report[n]["floor"]} for n in srcs]}))
+         "floor_ms": report[n]["floor"], "floor_at": report[n]["floor_at"],
+         **{k: report[n][k] for k in ("padded", "wide") if k in report[n]}}
+        for n in srcs]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

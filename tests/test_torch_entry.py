@@ -62,7 +62,8 @@ def test_combined_step_matches_jax():
     kw = dict(tile_size=32, erosion_iters_tt=150, erosion_batch=128,
               erosion_steps=8)
     jm = JTM.TileModelConfig(cfg=JM.TerrainConfig(erode_amount=0.01), **kw)
-    tm = TTM.TileModelConfig(cfg=TMESH.TerrainConfig(erode_amount=0.01), **kw)
+    tm = TTM.TileModelConfig(cfg=TMESH.TerrainConfig(erode_amount=0.01),
+                             use_pallas_erosion=True, **kw)
     table, x0, y0, ze, wpz = JTM.example_inputs(jm, jw, num_tiles=2)
     # the tiles sit near -7.5, under the ground cube: the frame samples
     # tiles[0] but its contacts are with the cobjs (the mesh contacts are

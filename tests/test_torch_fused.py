@@ -214,4 +214,10 @@ def test_cobj_table_columns_match_cuda_header():
     assert fm.shape == (len(CF_COLUMNS), c.size) and fm.is_contiguous()
     assert torch.equal(fm[:, :c.size], tab[:, :len(CF_COLUMNS)].t())
     assert not fm[:, c.size:].any()
-    assert NK.field_major(torch.zeros((NK.MAX_ROWS + 1, CF_PAD))) is None
+    # a table of several shared-memory chunks packs the same way
+    wide = torch.arange(NK.CHUNK_ROWS * 4 + 1, dtype=torch.float32)[:, None] \
+        + torch.zeros(CF_PAD)
+    fm = NK.field_major(wide)
+    assert fm.shape == (len(CF_COLUMNS), NK.CHUNK_ROWS * 4 + 4)
+    assert torch.equal(fm[:, :wide.shape[0]], wide[:, :len(CF_COLUMNS)].t())
+    assert not fm[:, wide.shape[0]:].any()

@@ -15,7 +15,11 @@ first-index ties exact; pairs 1e-6, and bitwise from run to run
 (no float atomics); the fused substep 1e-5 with
 status and flags equal; tile noise 1e-3 (the kernel's own fused
 multiply-add loop against a float32 einsum; at far origins its sines of
-arguments above 105,615 reduce in double precision); smoke stencil 1e-6.
+arguments above 105,615 reduce in double precision); smoke stencil
+bitwise (the same sums in the same order, no contraction).  Kernels C
+and G on tables of several shared-memory chunks: against their plain
+versions as above, and bitwise equal to a one-chunk run (a variant build
+with 64-row chunks against the 384-row build).
 """
 
 import numpy as np
@@ -32,7 +36,7 @@ from w3d_torch.utils.constants import WorldConst
 
 from torch_port_util import (check_narrow, cuda_device,  # noqa: F401
                              into_tied_sphere, narrow_case, seven_shape_scene,
-                             tied_spheres_scene)
+                             tied_spheres_scene, wide_scene)
 
 pytestmark = pytest.mark.gpu
 
@@ -263,16 +267,113 @@ def test_tile_noise_kernel_far_origins(cuda_device):
     assert (out - ref).abs().max().item() < 1e-3
 
 
-@pytest.mark.parametrize("shape", [(32, 128, 128), (5, 7, 33)])
-def test_smoke_stencil_kernel_matches_plain(cuda_device, shape):
+@pytest.mark.parametrize("shape", [(32, 128, 128), (5, 7, 33), (5, 37, 61),
+                                   (7, 9, 132)])
+@pytest.mark.parametrize("zb", [None, 1, 3, 64])
+def test_smoke_stencil_kernel_matches_plain(cuda_device, shape, zb):
+    """F equal to its plain version to the bit, on float4 runs (nx % 4 ==
+    0) and single cells, for the default z block and marches of 1, 3 (a
+    ragged last block) and 64 layers (one block)."""
     from w3d_torch.ops.cuda import stencil_kernel as FK
     from w3d_torch.water import smoke as WS
     g = torch.Generator(device=cuda_device).manual_seed(2)
     s = torch.rand(shape, generator=g, device=cuda_device) * 5
     s[0, 0, 0], s[-1, -1, -1] = 150.0, -20.0     # both clamps
-    out = FK.diffuse_smoke_open(s)
-    ref = WS.diffuse_smoke_open(s)
-    assert (out - ref).abs().max().item() < 1e-6
+    assert torch.equal(FK.diffuse_smoke_open(s, zb=zb), WS.diffuse_smoke_open(s))
+
+
+def _wide_narrow_inputs(copies, dev, n=10000):
+    """The grouped wide scene and 10K objects uniform in [-2.5, 2.5]^3, a
+    quarter of them inside its first duplicated sphere (exact ties on rows
+    in different chunks)."""
+    sp = wide_scene(copies, SC)
+    g = PC.group_cobjs(SC.pack_cobjs(sp, device=dev))
+    rg = np.random.default_rng(6)
+    ins = [rg.uniform(-2.5, 2.5, n).astype(np.float32) for _ in range(3)]
+    ins.append(rg.uniform(0.02, 0.2, n).astype(np.float32))
+    s = next(c for c in sp.cobjs if c.shape == SC.COLL_SPHERE)
+    for a in range(3):
+        ins[a][:n // 4] = (s.p1[a] + rg.uniform(-0.5, 0.5, n // 4) * s.r1).astype(np.float32)
+    return g, [torch.as_tensor(a, device=dev) for a in ins]
+
+
+@pytest.mark.parametrize("copies,m", [(8, 536), (27, 1616)])
+def test_narrow_kernel_wide_tables(cuda_device, copies, m):
+    """C on tables of two and five 384-row chunks against its plain
+    version, first index on ties that span chunks."""
+    from w3d_torch.ops.cuda import narrow_kernel as NK
+    g, ins = _wide_narrow_inputs(copies, cuda_device)
+    assert g.size == m
+    out = [a.cpu().numpy() for a in NK.deepest_hits(*ins, g)]
+    ref = [a.cpu().numpy() for a in PC.deepest_hits_grouped(*ins, g)]
+    pen_all = PC.sphere_cobj_test_grouped(*ins, g)[0].cpu().numpy()
+    check_narrow("wide", out, ref, pen_all)
+    top2 = -np.sort(-pen_all, axis=1)[:, :2]
+    tie = ref[0] & (top2[:, 0] == top2[:, 1])
+    assert tie.sum() > 1000
+    for k in (5, 6):
+        np.testing.assert_array_equal(out[k][tie], ref[k][tie])
+
+
+@pytest.mark.parametrize("copies,m", [(8, 536), (27, 1616)])
+def test_substep_kernel_wide_tables(cuda_device, copies, m):
+    """G on tables of two and five chunks against its plain version, with
+    tied rows in different chunks averaged."""
+    g, ins = _wide_narrow_inputs(copies, cuda_device)
+    assert g.size == m
+    args = _substep_inputs(10000, g, cuda_device)
+    args[:3] = ins[:3]
+    args[7] = args[7] & ~2              # so the cobj-hit bit shows this substep's
+    ref = _substep_vs_plain(args)
+    assert int(((ref[7] & 2) != 0).sum()) > 3000
+
+
+@pytest.mark.parametrize("scene", ["spheres", "seven_shapes"])
+def test_narrow_and_substep_chunks_bitwise(cuda_device, scene):
+    """The M = 112 and M = 80 scenes through a variant build whose chunks
+    hold 64 rows (two chunks each) give C's and G's one-chunk outputs to
+    the bit."""
+    from w3d_torch.ops.cuda import narrow_kernel as NK
+    from w3d_torch.ops.cuda import physics_kernel as GK
+    sp = PM.spheres_scene() if scene == "spheres" else seven_shape_scene(SC)
+    g = PC.group_cobjs(SC.pack_cobjs(sp, device=cuda_device))
+    assert g.size == (112 if scene == "spheres" else 80)
+    args = _substep_inputs(10000, g, cuda_device)
+    nk64 = NK.KERNEL.variant("W3D_CHUNK_ROWS=64")
+    gk64 = GK.KERNEL.variant("W3D_CHUNK_ROWS=64")
+    nin = (*args[:3], args[8])
+    for a, b in zip(NK.deepest_hits(*nin, g), NK.deepest_hits(*nin, g, kernel=nk64)):
+        assert torch.equal(a, b)
+    for a, b in zip(GK.substep(*args), GK.substep(*args, kernel=gk64)):
+        assert torch.equal(a, b)
+    assert nk64.launches == 1 and gk64.launches == 1
+
+
+def test_erosion_kernel_padded_tiles(cuda_device):
+    """The padded path's walk: 4 tiles of 128^2 with a roam ring of 4
+    cells (136^2 maps, 221,952 bytes of shared memory a tile), 512
+    droplets offset by the ring: bitwise equal to the plain version and to
+    itself across two runs."""
+    from w3d_torch.ops.cuda import erosion_kernel as EK
+    rng = np.random.default_rng(8)
+    hm = torch.as_tensor(rng.standard_normal((4, 128, 128)).astype(np.float32)
+                         * 0.5 + 1.0, device=cuda_device)
+    hm = torch.nn.functional.pad(hm[:, None], (E.PAD,) * 4, mode="replicate")[:, 0]
+    hm = hm.contiguous()
+    xi, zi = (t.expand(4, 512).contiguous()
+              for t in E.droplet_starts(512, 128, 128, pad=E.PAD, device=cuda_device))
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    ang = E.draw_angles(512, 512, 64, g, device=cuda_device)[0].contiguous()
+    p6 = E.pack_params(E.ErosionParams(water_plane_z=0.0, half_dxy=0.06,
+                                       zmin=-2.0, zmax=2.0, rock_thresh=0.75),
+                       cuda_device)
+    out = EK.erosion_walk(hm, xi, zi, ang, p6)
+    ref = E._walk_batch(hm, xi, zi, ang, p6)
+    assert ref.abs().max().item() > 1e-3
+    # droplets walked into the ring
+    assert ref[:, :E.PAD].abs().max().item() > 0 or ref[:, -E.PAD:].abs().max().item() > 0
+    assert torch.equal(out, ref)
+    assert torch.equal(EK.erosion_walk(hm, xi, zi, ang, p6), out)
 
 
 def test_fused_frame_runs_through_its_kernels(cuda_device):
@@ -339,6 +440,6 @@ def test_wrappers_reject_bad_input(cuda_device):
     from w3d_torch.ops.cuda import narrow_kernel as NK
     args = _substep_inputs(10, g, cuda_device)
     wide = torch.zeros((1000, 32), device=cuda_device)
-    args[-2] = (wide, args[-2][1], NK.field_major(wide))      # M > MAX_ROWS
+    args[-2] = (wide, args[-2][1], NK.field_major(wide)[:, :-4])   # short copy
     with pytest.raises(ValueError):
         GK.substep(*args)

@@ -89,17 +89,20 @@ def _erosion_case():
     return hms, JE.ErosionParams(**kw), TE.ErosionParams(**kw)
 
 
-@pytest.mark.parametrize("num_iters", [150, 100])
-def test_plain_erosion_matches_jax(num_iters):
-    """Plain `erode` vs `jax.vmap(E.erode(pad=0))` on the JAX angle draws
+@pytest.mark.parametrize("num_iters,pad", [
+    pytest.param(150, 0, id="150"), pytest.param(100, 0, id="100"),
+    pytest.param(150, 4, id="150-pad4"), pytest.param(100, 4, id="100-pad4")])
+def test_plain_erosion_matches_jax(num_iters, pad):
+    """Plain `erode` vs `jax.vmap(E.erode(pad=...))` on the JAX angle draws
     (mirrors tests/test_pallas.py::test_pallas_erosion_walk_matches_xla):
-    two batches, and one batch with dead padding droplets."""
+    two batches, and one batch with dead padding droplets; without the roam
+    ring (the kernel path's walk) and with the JAX default PAD = 4."""
     hms, jp, tp = _erosion_case()
     ref = jax.vmap(lambda h: JE.erode(h, num_iters, jp, batch_size=128,
-                                      max_steps=8, pad=0))(jnp.asarray(hms))
+                                      max_steps=8, pad=pad))(jnp.asarray(hms))
     ang = torch.as_tensor(jax_angle_tables(num_iters, 128, 8))
     out = TE.erode(torch.as_tensor(hms), num_iters, tp, ang, batch_size=128,
-                   max_steps=8)
+                   max_steps=8, pad=pad)
     ref = np.asarray(ref)
     assert np.abs(ref - hms).max() > 1e-3          # the walk changed the maps
     np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-5)
@@ -125,7 +128,8 @@ def test_tile_batch_step_matches_jax_kernel_path():
     jm = JTM.TileModelConfig(tile_size=32, erosion_iters_tt=150,
                              erosion_batch=128, erosion_steps=8)
     tm = TTM.TileModelConfig(tile_size=32, erosion_iters_tt=150,
-                             erosion_batch=128, erosion_steps=8)
+                             erosion_batch=128, erosion_steps=8,
+                             use_pallas_erosion=True)
     table, x0, y0, _, _ = JTM.example_inputs(jm, jw, num_tiles=3)
     ze, wpz = jnp.float32(2.0), jnp.float32(-1.5)   # heights reach the ocean cut
     z = JTM._tile_heights(JN.SineTable(*table), x0, y0, jm, jw, ze)
@@ -152,10 +156,61 @@ def test_tile_batch_step_matches_jax_kernel_path():
                                rock_thresh=TMESH.clip_hd1(tm.cfg),
                                relh_adj_tex=tm.cfg.relh_adj_tex)
     run = lambda h: TE.erode(h, 150, tparams, ang, min_zval=-1.0e9,
-                             batch_size=128, max_steps=8)
+                             batch_size=128, max_steps=8, pad=0)
     np.testing.assert_allclose(run(torch.as_tensor(z)).numpy(), ref, rtol=0,
                                atol=1e-4)
 
     out = TTM.tile_batch_step(*targs, ang, tm, tw)
     assert out.shape == (3, 32, 32)
     assert torch.equal(out, run(zt))
+
+
+def test_tile_batch_step_matches_jax_padded_path():
+    """Port `tile_batch_step(use_pallas_erosion=False)` vs the JAX one of
+    the same config, which erodes each tile through the padded XLA
+    `erode(pad=PAD)`.  Per stage, on heights that reach the ocean cut:
+    heights within 1e-5, the padded erosion of the same heights within
+    1e-5.  End to end at erode_amount 0.01 and the config's example
+    inputs, within 1e-3: where heights reach the ocean cut, a few-ulp
+    height difference decides whether a droplet dies there, which moves
+    cells by ~0.01 even at this erode amount."""
+    jw = JWorld(mesh_x=32, mesh_y=32)
+    tw = TWorld(mesh_x=32, mesh_y=32)
+    kw = dict(tile_size=32, erosion_iters_tt=150, erosion_batch=128,
+              erosion_steps=8, use_pallas_erosion=False)
+    jm = JTM.TileModelConfig(cfg=JM.TerrainConfig(erode_amount=0.01), **kw)
+    tm = TTM.TileModelConfig(cfg=TMESH.TerrainConfig(erode_amount=0.01), **kw)
+    table, x0, y0, ze_ex, wpz_ex = JTM.example_inputs(jm, jw, num_tiles=3)
+    ang = torch.as_tensor(jax_angle_tables(150, 128, 8))
+
+    ze, wpz = jnp.float32(2.0), jnp.float32(-1.5)   # heights reach the ocean cut
+    z = JTM._tile_heights(JN.SineTable(*table), x0, y0, jm, jw, ze)
+    targs = convert.tile_inputs(jax.tree.map(np.asarray, table), x0, y0, ze,
+                                wpz, "cpu")
+    zt = TTM._tile_heights(targs[0], targs[1], targs[2], tm, tw, targs[3])
+    np.testing.assert_allclose(zt.numpy(), np.asarray(z), rtol=0, atol=1e-5)
+    jp = JE.ErosionParams(erode_amount=0.01, water_plane_z=wpz,
+                          half_dxy=jw.half_dxy, zmin=-ze, zmax=ze,
+                          rock_thresh=JM.clip_hd1(jm.cfg),
+                          relh_adj_tex=jm.cfg.relh_adj_tex)
+    jstage = np.asarray(jax.vmap(lambda h: JE.erode(
+        h, 150, jp, batch_size=128, max_steps=8, pad=JE.PAD))(z))
+    assert np.abs(jstage - np.asarray(z)).max() > 1e-5   # erosion did something
+    tp = TE.ErosionParams(erode_amount=0.01, water_plane_z=targs[4],
+                          half_dxy=tw.half_dxy, zmin=-targs[3], zmax=targs[3],
+                          rock_thresh=TMESH.clip_hd1(tm.cfg),
+                          relh_adj_tex=tm.cfg.relh_adj_tex)
+    tstage = TE.erode(torch.as_tensor(np.array(z)), 150, tp, ang,
+                      batch_size=128, max_steps=8)
+    assert TE.PAD == JE.PAD
+    np.testing.assert_allclose(tstage.numpy(), jstage, rtol=0, atol=1e-5)
+    # the step is its two stages, on the padded walk
+    out = TTM.tile_batch_step(*targs, ang, tm, tw)
+    assert torch.equal(out, TE.erode(zt, 150, tp, ang, batch_size=128, max_steps=8))
+
+    ref = np.asarray(JTM.tile_batch_step(table, x0, y0, ze_ex, wpz_ex, jm, jw))
+    targs = convert.tile_inputs(jax.tree.map(np.asarray, table), x0, y0, ze_ex,
+                                wpz_ex, "cpu")
+    out = TTM.tile_batch_step(*targs, ang, tm, tw)
+    assert out.shape == (3, 32, 32)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-3)

@@ -6,7 +6,7 @@ import numpy as np
 import pytest
 import torch
 
-from w3d_torch.utils.kernel_probe import seven_shape_scene  # noqa: F401
+from w3d_torch.utils.kernel_probe import seven_shape_scene, wide_scene  # noqa: F401
 
 
 @pytest.fixture

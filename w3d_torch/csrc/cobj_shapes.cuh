@@ -11,10 +11,11 @@
 //
 // A row is any view `c` whose c[k] is column k; both kernels read a
 // `FieldRow<S>` into a field-major [CF_USED][S] table in shared memory,
-// staged by `stage_field_table`.  `team_walk` splits one object's rows over
-// a team of lanes and merges what the lanes kept: the first deepest row
-// (`FirstDeepest`, narrow.cu) or the sums of the rows tied at the deepest
-// penetration (`TieSums`, substep.cu).
+// one chunk of at most CHUNK_ROWS rows at a time (`stage_field_table`,
+// `stage_chunk`).  `team_walk` streams every chunk, splits one object's
+// rows over a team of lanes and merges what the lanes kept: the first
+// deepest row (`FirstDeepest`, narrow.cu) or the sums of the rows tied at
+// the deepest penetration (`TieSums`, substep.cu).
 
 #pragma once
 
@@ -245,52 +246,108 @@ struct FieldRow {
 };
 
 constexpr int NO_ROW = 0x7fffffff;
-// row stride of the shared field-major table: the packed table in 48 KB of
-// shared memory (narrow_kernel.MAX_ROWS)
-constexpr int MAX_ROWS = 48 * 1024 / (CF * 4);
+// rows of the packed table a CTA holds in shared memory at once, and the
+// row stride of its field-major copy there: one chunk in 48 KB
+// (narrow_kernel.CHUNK_ROWS).  A larger table streams through in chunks.
+// A variant build may set a smaller multiple of 4 (-DW3D_CHUNK_ROWS=64), so
+// that a small table too takes several chunks.
+#ifdef W3D_CHUNK_ROWS
+constexpr int CHUNK_ROWS = W3D_CHUNK_ROWS;
+#else
+constexpr int CHUNK_ROWS = 48 * 1024 / (CF * 4);
+#endif
+static_assert(CHUNK_ROWS % 4 == 0 && CHUNK_ROWS <= 48 * 1024 / (CF * 4),
+              "a chunk is float4 rows in 48 KB");
 
-// Every thread of the CTA (`block` threads) copies the compact field-major
-// table `tab` ([CF_USED][m4], m4 a multiple of 4 and at most MAX_ROWS) as
-// float4s into the stride-MAX_ROWS columns of `s_tab`, and the 8 group
-// starts into `s_start`; returns after the CTA's barrier.
+// Every thread of the CTA (`block` threads) copies rows [c0, c0 + rows) of
+// the compact field-major table `tab` ([CF_USED][m4]; m4, c0 and rows
+// multiples of 4, rows at most CHUNK_ROWS) as float4s into the
+// stride-CHUNK_ROWS columns of `s_tab`.  No barrier.
+__device__ __forceinline__ void stage_chunk(float* s_tab, const float* tab,
+                                            int m4, int c0, int rows,
+                                            int block) {
+  const int q = rows / 4;   // float4s per column of the chunk
+  const float4* src = reinterpret_cast<const float4*>(tab + c0);
+  float4* dst = reinterpret_cast<float4*>(s_tab);
+  for (int k = threadIdx.x; k < CF_USED * q; k += block) {
+    const int col = k / q;
+    const int j = k - col * q;
+    dst[col * (CHUNK_ROWS / 4) + j] = src[col * (m4 / 4) + j];
+  }
+}
+
+// The kernels' first step: stage the table's first chunk (CHUNKED false:
+// the whole table, m4 at most CHUNK_ROWS) and the 8 group starts into
+// `s_start`; returns after the CTA's barrier.
+template <bool CHUNKED>
 __device__ __forceinline__ void stage_field_table(float* s_tab, int* s_start,
                                                   const float* tab, int m4,
                                                   const int* gstart,
                                                   int block) {
-  const int q = m4 / 4;   // float4s per column
-  const float4* src = reinterpret_cast<const float4*>(tab);
-  float4* dst = reinterpret_cast<float4*>(s_tab);
-  for (int k = threadIdx.x; k < CF_USED * q; k += block) {
-    const int col = k / q;
-    dst[col * (MAX_ROWS / 4) + (k - col * q)] = src[k];
-  }
+  stage_chunk(s_tab, tab, m4, 0, CHUNKED ? CHUNK_ROWS : m4, block);
   if (threadIdx.x < 8) s_start[threadIdx.x] = gstart[threadIdx.x];
   __syncthreads();
 }
 
-// One object's walk over the shape-sorted field-major table `tab`
-// ([CF_USED][S], group g in rows [gstart[g], gstart[g + 1])), split over a
-// team of K consecutive lanes of a warp (K a power of two, at most 32,
-// teams aligned to K; every lane of the warp must call it).  Lane `lane` of
-// the team evaluates rows gstart[g] + lane, + K, ... of each group, so all
-// teams of a warp run the same group's formula at the same time.  Dead
-// padding slots (shape 0) score -1 with a zero normal and stay candidates,
-// as in the plain versions.  Each lane folds its rows, in row order, into
-// `acc` (`acc.add(hit, row, c)`); then the team merges over offsets K/2 ..
-// 1 (`acc.merge(off)`, xor shuffles), after which every lane holds the
-// team's result.
-template <int K, int S, class Acc>
-__device__ __forceinline__ void team_walk(const float* tab, const int* gstart,
-                                          float X, float Y, float Z, float r,
-                                          int lane, Acc& acc) {
+// One team's walk over rows [c0, c1) of the shape-sorted table (group g in
+// rows [gstart[g], gstart[g + 1])), staged at `s_tab` (row c0 first).  Lane
+// `lane` evaluates the rows gstart[g] + lane, + K, ... of each group that
+// fall in the chunk, so a lane sees the rows it would see in one pass over
+// the whole table, in the same order, wherever the chunk starts.  WHOLE:
+// the chunk is the whole table (c0 = 0, c1 past every group), and no row
+// is clipped.
+template <int K, bool WHOLE, class Acc>
+__device__ __forceinline__ void walk_chunk(const float* s_tab,
+                                           const int* gstart, int c0, int c1,
+                                           float X, float Y, float Z, float r,
+                                           int lane, Acc& acc) {
 #pragma unroll
   for (int g = 0; g < 7; ++g) {
-    const int hi = gstart[g + 1];
-    for (int row = gstart[g] + lane; row < hi; row += K) {
-      const FieldRow<S> c{tab + row};
+    int row = gstart[g] + lane, hi = gstart[g + 1];
+    if constexpr (!WHOLE) {
+      const int lo = max(gstart[g], c0);
+      hi = min(hi, c1);
+      if (row < lo) row += (lo - row + K - 1) & -K;   // first of the lane's rows in the chunk
+    }
+    for (; row < hi; row += K) {
+      const FieldRow<CHUNK_ROWS> c{s_tab + (row - c0)};
       const Hit h = c[C_SHAPE] == 0.0f ? Hit{-1.0f, 0.0f, 0.0f, 0.0f}
                                        : eval_group(g, c, X, Y, Z, r);
       acc.add(h, row, c);
+    }
+  }
+}
+
+// One object's walk over the whole compact field-major table `tab`
+// ([CF_USED][m4]), split over a team of K consecutive lanes of a warp (K a
+// power of two, at most 32, teams aligned to K; every thread of the CTA
+// must call it, since the chunks' barriers are the CTA's).  The first
+// chunk is staged (`stage_field_table`).  CHUNKED false: that chunk is
+// the whole table (m4 at most CHUNK_ROWS), walked in one pass with no
+// chunk state in registers.  CHUNKED true: each further chunk waits for
+// every team to finish the one before, is staged in its place, and is
+// walked in turn.  All teams of a warp run the same group's formula at the
+// same time.  Dead padding slots (shape 0) score -1 with a zero normal and
+// stay candidates, as in the plain versions.  Each lane folds its rows, in
+// row order across the chunks, into `acc` (`acc.add(hit, row, c)`); then
+// the team merges over offsets K/2 .. 1 (`acc.merge(off)`, xor shuffles),
+// after which every lane holds the team's result.
+template <int K, bool CHUNKED, class Acc>
+__device__ __forceinline__ void team_walk(float* s_tab, const int* gstart,
+                                          const float* tab, int m4, int block,
+                                          float X, float Y, float Z, float r,
+                                          int lane, Acc& acc) {
+  if constexpr (!CHUNKED) {
+    walk_chunk<K, true>(s_tab, gstart, 0, m4, X, Y, Z, r, lane, acc);
+  } else {
+    for (int c0 = 0;; c0 += CHUNK_ROWS) {
+      walk_chunk<K, false>(s_tab, gstart, c0, min(m4, c0 + CHUNK_ROWS), X, Y,
+                           Z, r, lane, acc);
+      if (c0 + CHUNK_ROWS >= m4) break;
+      __syncthreads();
+      stage_chunk(s_tab, tab, m4, c0 + CHUNK_ROWS,
+                  min(m4 - (c0 + CHUNK_ROWS), CHUNK_ROWS), block);
+      __syncthreads();
     }
   }
 #pragma unroll

@@ -27,8 +27,11 @@
 // lanes, so no state is shuffled.  The rows then split over the lanes,
 // group by group of the shape-sorted table (cobj_shapes.cuh `team_walk`),
 // against a field-major copy in shared memory with the fixed row stride
-// MAX_ROWS, staged per CTA from the compact [CF_USED][m4] copy the wrapper
-// passes (`stage_field_table`).  Each lane keeps the deepest penetration of
+// CHUNK_ROWS, staged per CTA from the compact [CF_USED][m4] copy the
+// wrapper passes, one chunk of at most CHUNK_ROWS rows at a time: the first
+// before the preamble (`stage_field_table`), the others, for a table of
+// more rows, between barriers in the walk; a table of one chunk takes its
+// own instantiation with no chunk loop.  Each lane keeps the deepest penetration of
 // its rows with their tie count and the sums of the tied rows' normals,
 // elasticities and frictions (`TieSums`); the team merges the lanes'
 // records with xor shuffles, adding counts and sums on equal pens, and the
@@ -105,6 +108,8 @@ __device__ __forceinline__ float tap(const float* __restrict__ m, int mx,
   return a0 * wy0 + a1 * fy;
 }
 
+// CHUNKED: the table spans more than one shared-memory chunk
+template <bool CHUNKED>
 __global__ void __launch_bounds__(BLOCK) substep_kernel(
     const float* __restrict__ env, const float* __restrict__ maps, int my,
     int mx, const float* __restrict__ tab,   // [CF_USED][m4]
@@ -121,9 +126,9 @@ __global__ void __launch_bounds__(BLOCK) substep_kernel(
     float* __restrict__ vx_out, float* __restrict__ vy_out,
     float* __restrict__ vz_out, int* __restrict__ st_out,
     int* __restrict__ fl_out, int n) {
-  __shared__ __align__(16) float s_tab[CF_USED * MAX_ROWS];
+  __shared__ __align__(16) float s_tab[CF_USED * CHUNK_ROWS];
   __shared__ int s_start[8];
-  stage_field_table(s_tab, s_start, tab, m4, gstart, BLOCK);
+  stage_field_table<CHUNKED>(s_tab, s_start, tab, m4, gstart, BLOCK);
   const int i = (int)(((long long)blockIdx.x * BLOCK + threadIdx.x) / LANES);
   const int lane = threadIdx.x % LANES;
   const int o = i < n ? i : n - 1;   // a team past the last object
@@ -242,7 +247,8 @@ __global__ void __launch_bounds__(BLOCK) substep_kernel(
 
   // ---- cobj narrow phase: deepest hit, ties averaged ----
   TieSums t;
-  team_walk<LANES, MAX_ROWS>(s_tab, s_start, px, py, pz, rad, lane, t);
+  team_walk<LANES, CHUNKED>(s_tab, s_start, tab, m4, BLOCK, px, py, pz, rad,
+                            lane, t);
   if (lane != 0 || i >= n) return;
   const float best = t.pen;
   const float wsel = 1.0f / fmaxf((float)t.count, 1.0f);
@@ -318,8 +324,7 @@ __global__ void __launch_bounds__(BLOCK) substep_kernel(
 }  // namespace
 
 // `tab` is the compact field-major [CF_USED][m4] cobj table and `gstart`
-// its [8] group starts (narrow_kernel.kernel_tables), m4 a multiple of 4 no
-// larger than MAX_ROWS (384).
+// its [8] group starts (narrow_kernel.kernel_tables), m4 a multiple of 4.
 extern "C" int w3d_substep(const float* env, const float* maps, int my,
                            int mx, const float* tab, const int* gstart,
                            int m4, const float* px, const float* py,
@@ -331,10 +336,11 @@ extern "C" int w3d_substep(const float* env, const float* maps, int my,
                            const float* tv, float* opx, float* opy,
                            float* opz, float* ovx, float* ovy, float* ovz,
                            int* ost, int* ofl, int n, void* stream) {
-  if (m4 < 0 || m4 % 4 != 0 || m4 > MAX_ROWS) return (int)cudaErrorInvalidValue;
+  if (m4 < 0 || m4 % 4 != 0) return (int)cudaErrorInvalidValue;
   if (n > 0) {
     const int grid = (int)(((long long)n * LANES + BLOCK - 1) / BLOCK);
-    substep_kernel<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
+    auto* kernel = m4 > CHUNK_ROWS ? substep_kernel<true> : substep_kernel<false>;
+    kernel<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
         env, maps, my, mx, tab, m4, gstart, px, py, pz, vx, vy, vz, st, fl,
         rad, air, fric, grav, elas, dens, tv, opx, opy, opz, ovx, ovy, ovz,
         ost, ofl, n);

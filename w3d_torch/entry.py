@@ -37,10 +37,12 @@ def entry(device: torch.device | str, generator: torch.Generator,
           num_tiles: int = 8, num_objects: int = 2048):
     """(fn, args) at the JAX `entry()`'s shapes: 8 tiles of 128^2 with 512
     droplets in batches of 128 for 64 steps, and 2048 balls for a 4-substep
-    frame; `fn(*args)` runs `combined_step`."""
+    frame; `fn(*args)` runs `combined_step`.  The tiles erode without the
+    roam ring (`use_pallas_erosion=True`, the JAX TPU path's walk)."""
     world = WorldConst()
     mcfg = TMOD.TileModelConfig(tile_size=128, erosion_iters_tt=512,
-                                erosion_batch=128, erosion_steps=64)
+                                erosion_batch=128, erosion_steps=64,
+                                use_pallas_erosion=True)
     pos, vel = PM.spawn(num_objects, generator, device=device)
     sw = PM.build_spheres_world(pos, vel, world=world, device=device)
     targs = TMOD.example_inputs(mcfg, world, generator, num_tiles=num_tiles,

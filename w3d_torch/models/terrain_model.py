@@ -7,10 +7,12 @@ This is the re-expression of the tiled-terrain hot path
 batch of tiles at once — noise as a (T, n, 90) x (90, n) einsum, erosion as
 lockstep droplet batches walked by the erosion kernel, one CTA per tile.
 
-Only the kernel erosion path is ported: the JAX package's
-`use_pallas_erosion=True` path, which walks the tile maps without a pad
-ring (border droplets die at the edge).  The sharded variant is not
-ported yet.
+Both of the JAX package's erosion paths are ported, and both walk through
+the erosion kernel on the card: `use_pallas_erosion=False` (the default,
+the JAX XLA path) gives each tile a roam ring of `ops/erosion.PAD` cells,
+and `use_pallas_erosion=True` (the JAX TPU kernel path) walks the tile
+maps without one (border droplets die at the edge).  The sharded variant
+is not ported yet.
 """
 
 from __future__ import annotations
@@ -33,6 +35,9 @@ class TileModelConfig(NamedTuple):
     erosion_iters_tt: int = 0     # per-tile droplets (erosion_iters_tt config)
     erosion_batch: int = 256
     erosion_steps: int = 128
+    # True: erode without the roam ring, as the JAX package's Pallas TPU
+    # path does; False: the padded walk of its XLA path (`erode(pad=PAD)`)
+    use_pallas_erosion: bool = False
 
 
 def _tile_heights(table: N.SineTable, x0, y0, mcfg: TileModelConfig,
@@ -74,7 +79,8 @@ def tile_batch_step(table: N.SineTable, x0, y0, zmax_est, wpz,
         )
         z = E.erode(z, mcfg.erosion_iters_tt, eparams, angles,
                     min_zval=-1.0e9, batch_size=mcfg.erosion_batch,
-                    max_steps=mcfg.erosion_steps)
+                    max_steps=mcfg.erosion_steps,
+                    pad=0 if mcfg.use_pallas_erosion else E.PAD)
     return z
 
 

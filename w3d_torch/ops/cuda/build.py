@@ -13,7 +13,8 @@ The build happens at first use (never at import), into `w3d_torch/_build/`
 (git-ignored), and the file name carries a hash of the sources and flags,
 so an edited source rebuilds and an unchanged one loads the cached library.
 `build(defines=...)` makes a variant library the same way
-(`utils/kernel_probe` builds it with the erosion kernel's phase counters).
+(`utils/kernel_probe` builds it with the erosion kernel's phase counters;
+`Kernel.variant` binds an entry point of one).
 
 `-fmad=false` stops `nvcc` from contracting `a*b+c` into one fused
 multiply-add.  Every kernel then rounds each product and sum on its own,
@@ -46,7 +47,7 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMPILE_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-fmad=false",
                               "-Xcompiler", "-fPIC"]
 
-_lib: ctypes.CDLL | None = None
+_libs: dict[tuple[str, ...], ctypes.CDLL] = {}   # defines -> loaded library
 build_seconds: float | None = None   # wall time of this process's build, if it built
 
 
@@ -118,29 +119,35 @@ def build(verbose: bool = False, defines: tuple[str, ...] = ()) -> str:
     return out
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
-    global _lib
-    if _lib is None:
-        _lib = ctypes.CDLL(build())
-    return _lib
+def library(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The loaded kernel library, or its variant built with `defines`
+    (built on first call)."""
+    if defines not in _libs:
+        _libs[defines] = ctypes.CDLL(build(defines=defines))
+    return _libs[defines]
 
 
 class Kernel:
     """One C entry point of the library: binds its argument types, checks
     the returned CUDA error, and counts launches."""
 
-    def __init__(self, symbol: str, argtypes: list):
+    def __init__(self, symbol: str, argtypes: list, defines: tuple[str, ...] = ()):
         self.symbol = symbol
         # every entry point ends with the stream and returns cudaError_t
-        self.argtypes = list(argtypes) + [ctypes.c_void_p]
+        self.argtypes = list(argtypes)
+        self.defines = defines
         self.launches = 0
         self._fn = None
 
+    def variant(self, *defines: str) -> "Kernel":
+        """The same entry point in the library built with `defines`, with
+        its own launch count."""
+        return Kernel(self.symbol, self.argtypes, defines)
+
     def launch(self, *args) -> None:
         if self._fn is None:
-            fn = getattr(library(), self.symbol)
-            fn.argtypes = self.argtypes
+            fn = getattr(library(self.defines), self.symbol)
+            fn.argtypes = self.argtypes + [ctypes.c_void_p]   # the stream
             fn.restype = ctypes.c_int
             self._fn = fn
         err = self._fn(*args, torch.cuda.current_stream().cuda_stream)

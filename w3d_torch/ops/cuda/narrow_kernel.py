@@ -3,10 +3,10 @@
 `3dworld_tpu/ops/pallas/narrow_kernel.py:83`).
 
 A team of 8 threads per object splits its cobj rows, group by group,
-over a field-major copy of the packed cobj table in shared memory; the
-team merges its lanes' deepest hits, first index on ties.  Takes any N;
-raises when the table does not fit the kernel's shared memory.  The plain
-version is `physics/cobjs.deepest_hits_grouped`.
+over a field-major copy of the packed cobj table in shared memory, which
+streams through in chunks of CHUNK_ROWS rows; the team merges its lanes'
+deepest hits, first index on ties.  Takes any N and any number of cobj
+slots.  The plain version is `physics/cobjs.deepest_hits_grouped`.
 """
 
 from __future__ import annotations
@@ -24,8 +24,9 @@ KERNEL = build.Kernel("w3d_narrow",
                       [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
                       + [ctypes.c_void_p] * 11 + [ctypes.c_int])
 
-MAX_ROWS = 48 * 1024 // (CF_PAD * 4)   # the table in 48 KB of shared memory
-# GroupedCobjs -> kernel_tables(g), built once per scene
+# rows of the table a CTA holds in shared memory at once (one chunk in 48 KB)
+CHUNK_ROWS = 48 * 1024 // (CF_PAD * 4)
+# GroupedCobjs -> (its cobjs, their tensors' versions, kernel_tables(g))
 _TABLES: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
 
 
@@ -46,36 +47,38 @@ def pack_cobj_fields(c: CobjSet | GroupedCobjs) -> torch.Tensor:
     return torch.nn.functional.pad(m, (0, CF_PAD - m.shape[1])).contiguous()
 
 
-def field_major(cf: torch.Tensor) -> torch.Tensor | None:
+def field_major(cf: torch.Tensor) -> torch.Tensor:
     """[M, 32] field table -> [27, m4] f32: column k of the used columns as
-    row k, zero-padded to m4 = M rounded up to 4 (the narrow kernel stages
-    it as float4s); None when M exceeds the kernel's MAX_ROWS."""
-    M = cf.shape[0]
-    if M > MAX_ROWS:
-        return None
+    row k, zero-padded to m4 = M rounded up to 4 (the kernels stage it as
+    float4s)."""
     t = cf[:, :len(CF_COLUMNS)].t()
-    return torch.nn.functional.pad(t, (0, -M % 4)).contiguous()
+    return torch.nn.functional.pad(t, (0, -cf.shape[0] % 4)).contiguous()
 
 
 def kernel_tables(g: GroupedCobjs) -> tuple:
     """(packed [M, 32] field table, [8] int32 padded group starts, its
     field-major [27, m4] copy) on the scene's device: the kernels' inputs
-    (the kernels C and G read the other two, G's plain version the first),
-    packed at the first call for `g` and reused while `g` lives."""
-    tabs = _TABLES.get(g)
-    if tabs is None:
-        dev = g.cobjs.shape.device
-        cf = pack_cobj_fields(g)
-        tabs = (cf, torch.tensor(g.padded_starts, dtype=torch.int32, device=dev),
-                field_major(cf))
-        _TABLES[g] = tabs
+    (the kernels C and G read the other two, G's plain version the first).
+    Packed at the first call for `g` and reused until `g.cobjs` is another
+    object or one of its tensors has been edited in place (torch bumps a
+    tensor's `_version` on every in-place write)."""
+    c = g.cobjs
+    versions = tuple(t._version for t in c)
+    hit = _TABLES.get(g)
+    if hit is not None and hit[0] is c and hit[1] == versions:
+        return hit[2]
+    cf = pack_cobj_fields(c)
+    tabs = (cf, torch.tensor(g.padded_starts, dtype=torch.int32,
+                             device=c.shape.device), field_major(cf))
+    _TABLES[g] = (c, versions, tabs)
     return tabs
 
 
-def deepest_hits(px, py, pz, radius, g: GroupedCobjs):
+def deepest_hits(px, py, pz, radius, g: GroupedCobjs,
+                 kernel: build.Kernel = KERNEL):
     """(hit, pen, nx, ny, nz, elas, fric), each [N]: each object's deepest
     penetrating cobj.  CPU tensors take the plain version; CUDA tensors
-    take the kernel."""
+    take the kernel (`kernel`: a variant build, `KERNEL.variant`)."""
     if px.device.type == "cpu":
         return deepest_hits_grouped(px, py, pz, radius, g)
     if px.device.type != "cuda":
@@ -85,15 +88,11 @@ def deepest_hits(px, py, pz, radius, g: GroupedCobjs):
     for name, t in (("px", px), ("py", py), ("pz", pz), ("radius", radius)):
         build.check(name, t, torch.float32, (n,), dev)
     cf, starts, tab = kernel_tables(g)
-    M = cf.shape[0]
-    if tab is None:
-        raise ValueError(f"deepest_hits: {M} cobj slots exceed the kernel's "
-                         f"{MAX_ROWS}-row shared-memory table")
     build.check("fields", tab, torch.float32, (len(CF_COLUMNS), tab.shape[1]), dev)
     build.check("starts", starts, torch.int32, (8,), dev)
     outs = [torch.empty(n, dtype=torch.bool, device=dev)]
     outs += [torch.empty_like(px) for _ in range(6)]
-    KERNEL.launch(tab.data_ptr(), starts.data_ptr(), tab.shape[1],
+    kernel.launch(tab.data_ptr(), starts.data_ptr(), tab.shape[1],
                   px.data_ptr(), py.data_ptr(), pz.data_ptr(),
                   radius.data_ptr(), *(o.data_ptr() for o in outs), n)
     return tuple(outs)

@@ -6,9 +6,9 @@ A team of 8 threads per object runs a whole substep with its state in
 registers: every lane the per-object preamble, each lane a share of the
 cobj rows, group by group, against the field-major table in shared memory
 (the narrow kernel's walk), lane 0 the rest after the team merges its
-lanes' tie sums.  The mesh maps are read from global memory.  Takes any N;
-raises when the table does not fit the kernel's shared memory.  The plain
-version is `physics/fused.substep_plain`.
+lanes' tie sums.  The mesh maps are read from global memory.  Takes any N
+and any number of cobj slots (the table streams through shared memory in
+chunks).  The plain version is `physics/fused.substep_plain`.
 """
 
 from __future__ import annotations
@@ -18,7 +18,6 @@ import ctypes
 import torch
 
 from . import build
-from .narrow_kernel import MAX_ROWS
 from ...physics.cobj_table import CF_COLUMNS, CF_PAD
 from ...physics.fused import substep_plain
 from ...utils.constants import WorldConst
@@ -41,13 +40,15 @@ def mesh_maps(mesh: torch.Tensor, world: WorldConst) -> torch.Tensor:
 
 def substep(px, py, pz, vx, vy, vz, status, flags,
             rad, air, fric, grav, elas, dens, tv,
-            maps3: torch.Tensor, tables: tuple, env: torch.Tensor):
+            maps3: torch.Tensor, tables: tuple, env: torch.Tensor,
+            kernel: build.Kernel = KERNEL):
     """One fused substep: (px, py, pz, vx, vy, vz, status, flags), each [N].
     `tables` is `narrow_kernel.kernel_tables(g)` of the scene's grouped
     cobjs: the packed [M, 32] table, which the plain version reads, its [8]
     group starts and its field-major copy, which the kernel reads.  Other
     arguments as `physics/fused.substep_plain`.  CPU tensors take the plain
-    version; CUDA tensors take the kernel."""
+    version; CUDA tensors take the kernel (`kernel`: a variant build,
+    `KERNEL.variant`)."""
     cf, starts, tab = tables
     args = (px, py, pz, vx, vy, vz, status, flags, rad, air, fric, grav,
             elas, dens, tv, maps3, cf, env)
@@ -70,14 +71,11 @@ def substep(px, py, pz, vx, vy, vz, status, flags,
     if my3 % 3 or my3 < 6 or mx < 2:
         raise ValueError(f"substep: maps3 {tuple(maps3.shape)} is not a "
                          f"[3*my, mx] stack with my, mx >= 2")
-    if M > MAX_ROWS or tab is None:
-        raise ValueError(f"substep: {M} cobj slots exceed the kernel's "
-                         f"{MAX_ROWS}-row shared-memory table")
-    build.check("fields", tab, torch.float32, (len(CF_COLUMNS), tab.shape[1]), dev)
+    build.check("fields", tab, torch.float32, (len(CF_COLUMNS), M + -M % 4), dev)
     build.check("starts", starts, torch.int32, (8,), dev)
     outs = [torch.empty_like(px) for _ in range(6)] \
         + [torch.empty_like(status) for _ in range(2)]
-    KERNEL.launch(env.data_ptr(), maps3.data_ptr(), my3 // 3, mx,
+    kernel.launch(env.data_ptr(), maps3.data_ptr(), my3 // 3, mx,
                   tab.data_ptr(), starts.data_ptr(), tab.shape[1],
                   *(t.data_ptr() for t in args[:15]),
                   *(o.data_ptr() for o in outs), n)

@@ -21,8 +21,11 @@ deterministic, and the kernel's atomics reproduce it bit for bit.  (The
 JAX package sums in float32 in matmul order; the two agree to rounding.)  It is the CPU path of
 `ops/cuda/erosion_kernel.erosion_walk`, whose CUDA kernel runs the same
 walk per tile in shared memory.  `erode` is the batch driver, the
-counterpart of the JAX `erode_tiles_pallas`: droplets start on the map and
-die at its border (the JAX kernel path's pad=0).
+counterpart of the JAX `erode`: with `pad` (PAD = 4 by default) the maps
+get a roam ring of edge-replicated cells, which droplets may walk into
+before they die (the reference's mh_padded), and are cropped back after
+the walk; with pad=0 droplets die at the map's border, as in the JAX
+kernel path `erode_tiles_pallas`.
 
 The flat-spot random directions are inputs (`angles`): the JAX package
 draws them with threefry, which torch cannot reproduce, so parity tests
@@ -56,6 +59,7 @@ KI = 0.1
 MIN_SLOPE = 0.05
 GRAV = 20.0
 KG = 2.0 * GRAV
+PAD = 4   # roam ring beyond the map's border, in cells (the JAX package's PAD)
 ERODE_STENCIL_NORM = 0.1591549430918953  # 1/(2*pi), erosion.cpp:141
 FLT_EPSILON = float(np.float32(1.1920929e-07))
 # Each step's deposits and erosion are summed in 64-bit fixed point with
@@ -95,7 +99,7 @@ def droplet_starts(num_iters: int, xsize: int, ysize: int, pad: int = 0,
                    device: torch.device | str = "cuda"):
     """Reference seeding (erosion.cpp:68-71):
     rgen.set_state(iter+11, 79*iter+121); xi=rand()%xs, zi=rand()%ys,
-    offset by `pad` (the JAX package's roam ring; `erode` uses none)."""
+    offset by `pad` (the roam ring around the map)."""
     it = torch.arange(num_iters, dtype=torch.int32, device=device)
     state = w3d_rng.lcg_init(it + 11, 79 * it + 121)
     state, r1 = w3d_rng.lcg_next(state)
@@ -283,23 +287,29 @@ def erode(
     min_zval: float | torch.Tensor = -1.0e9,
     batch_size: int = 1024,
     max_steps: int = 256,
+    pad: int = PAD,
 ) -> torch.Tensor:
     """apply_erosion for a batch of tiles (erosion.cpp:14-165).
 
     heightmaps [T, ys, xs]; angles [num_batches, max_steps, batch_size]
     (`draw_angles`).  Every tile walks the same droplet starts.  Returns
     the eroded [T, ys, xs] maps, clamped below by `min_zval`
-    (erosion.cpp:158-162).  Droplets die where they leave the map: there
-    is no roam ring beyond the border (the reference's mh_padded), as in
-    the JAX kernel path.  Each batch walks through
+    (erosion.cpp:158-162).  `pad` is the roam ring beyond the border (the
+    reference's mh_padded, the JAX `erode`'s `pad`): the maps are padded by
+    `pad` cells with their edge values, the droplets start `pad` cells in,
+    and the walk's result is cropped back to [ys, xs]; pad=0 kills droplets
+    at the border, as the JAX kernel path does.  Each batch walks through
     `erosion_kernel.erosion_walk`: the plain version on the CPU, the CUDA
     kernel on the GPU.
     """
     T, ys, xs = heightmaps.shape
     dev = heightmaps.device
-    hm = heightmaps.to(torch.float32).contiguous()
+    hm = heightmaps.to(torch.float32)
+    if pad:
+        hm = torch.nn.functional.pad(hm[:, None], (pad,) * 4, mode="replicate")[:, 0]
+    hm = hm.contiguous()
 
-    xi_all, zi_all = droplet_starts(num_iters, xs, ys, device=dev)
+    xi_all, zi_all = droplet_starts(num_iters, xs, ys, pad=pad, device=dev)
     num_batches = -(-num_iters // batch_size)
     if tuple(angles.shape) != (num_batches, max_steps, batch_size):
         raise ValueError(f"angles: shape {tuple(angles.shape)}, expected "
@@ -317,5 +327,5 @@ def erode(
         xi = xi_all[b].expand(T, batch_size).contiguous()
         zi = zi_all[b].expand(T, batch_size).contiguous()
         hm = hm + EK.erosion_walk(hm, xi, zi, angles[b].contiguous(), p6)
-    return torch.clamp(hm, min=torch.as_tensor(min_zval, dtype=torch.float32,
-                                                device=dev))
+    return torch.clamp(hm[:, pad:pad + ys, pad:pad + xs],
+                       min=torch.as_tensor(min_zval, dtype=torch.float32, device=dev))

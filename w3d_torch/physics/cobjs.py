@@ -18,7 +18,6 @@ object's deepest penetrating cobj (first index on ties).
 
 from __future__ import annotations
 
-from functools import cached_property
 from typing import NamedTuple
 
 import numpy as np
@@ -94,7 +93,7 @@ class GroupedCobjs:
     def size(self) -> int:
         return self.cobjs.size
 
-    @cached_property
+    @property
     def padded_starts(self) -> tuple:
         """Start of each group's padded slice, plus M: group g covers rows
         [starts[g], starts[g+1]) including its dead padding slots."""

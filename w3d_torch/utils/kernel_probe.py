@@ -16,9 +16,12 @@ and on those of `chip_smoke.py`'s rate loop, shifted by RATE_SHIFT):
    `sinf`'s slow path for arguments above 105,615) in the noise kernel's
    (`cuobjdump`);
 2. each kernel's device-only time: one replay of a CUDA graph of 20
-   launches between CUDA events, divided by 20; and the floors of B, C and
-   G (the same timer at N = 128, one CTA's worth of objects) and of E (one
-   tile): launch plus fixed set-up;
+   launches between CUDA events, divided by 20; the floors, the same timer
+   on one CTA's worth of work (B, C and G at N = 128, D at 32 ranks, A and
+   E at one tile) or F on a (2, 8, 8) grid: launch plus fixed set-up; F on
+   the light grid (32, 128, 128) by z block; A on the padded path's 136^2
+   maps; C and G on `wide_scene` tables of M = 536 and 1,616 slots (two
+   and five shared-memory chunks);
 3. the phase splits of two variant libraries: `W3D_EROSION_PHASES`, whose
    thread 0 in each CTA sums the SM cycles between the step's barriers
    (read phase, write phase, combine), and `W3D_NOISE_PHASES` (table
@@ -28,11 +31,13 @@ and on those of `chip_smoke.py`'s rate loop, shifted by RATE_SHIFT):
    kernel shorter than its wrapper's host work they time the host), beside
    their bounds.
 
-With `--times` it prints only step 2's graph times and a digest of E's
-heights, through wrappers that older checkouts of the port have too, so
-two versions can be timed, and E's heights compared bit for bit, in one
-call on one card (`cd <checkout> && PYTHONPATH=. python3 <this file>
---times`).  `--phases` prints only step 3.
+With `--times` it prints only step 2's graph times and digests of E's
+heights, of C's and G's outputs at M = 112 and 80 and of F's, through
+wrappers that older checkouts of the port have too (what a checkout lacks,
+the padded walk, wide tables, F's z block, it skips), so two versions can
+be timed, and their outputs compared bit for bit, in one call on one card
+(`cd <checkout> && PYTHONPATH=. python3 <this file> --times`).
+`--phases` prints only step 3.
 
 Needs a CUDA device and nvcc.
 """
@@ -41,6 +46,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import dataclasses
 import hashlib
 import inspect
 import os
@@ -58,6 +64,7 @@ FP32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 # 128 for g < 5; E is also checked and timed at the last of those origins
 RATE_SHIFT = 11 * 256 * 128
 SINF_FAST_MAX = 105615.0     # |x| above which CUDA's sinf reduces slowly
+LIGHT_GRID = (32, 128, 128)  # the smoke grid (mesh_z, mesh_y, mesh_x), lighting/lmap.py
 
 
 def bound_ms(nbytes: float, nops: float) -> tuple[float, str]:
@@ -136,6 +143,31 @@ def erosion_case(dev, gen: torch.Generator, num_tiles: int = 256):
         erode_amount=1.0, water_plane_z=wpz, half_dxy=world.half_dxy,
         zmin=-ze, zmax=ze, rock_thresh=TM.clip_hd1(mcfg.cfg)), dev)
     return hm, xi, zi, ang[0].contiguous(), p6
+
+
+def padded_erosion_case(case):
+    """`erosion_case`'s batch as the padded path walks it: the maps with a
+    roam ring of `ops/erosion.PAD` edge-replicated cells (136^2 for 128^2
+    tiles) and the droplets started PAD cells in."""
+    from w3d_torch.ops import erosion as E
+    hm, xi, zi, ang, p6 = case
+    hp = torch.nn.functional.pad(hm[:, None], (E.PAD,) * 4, mode="replicate")[:, 0]
+    return hp.contiguous(), (xi + E.PAD).contiguous(), (zi + E.PAD).contiguous(), ang, p6
+
+
+def wide_cobjs(copies: int, dev):
+    """The grouped `wide_scene(copies)` on `dev`."""
+    from w3d_torch.physics import cobjs as PC
+    from w3d_torch.scene import cobj as SC
+    return PC.group_cobjs(SC.pack_cobjs(wide_scene(copies), device=dev))
+
+
+def digest(*ts) -> str:
+    """The first 16 hex digits of the sha256 of the tensors' bytes."""
+    h = hashlib.sha256()
+    for t in ts:
+        h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def dense_pile(state, table, seed: int = 7):
@@ -253,6 +285,33 @@ def seven_shape_scene(SC=None):
     return sp
 
 
+def wide_scene(copies: int, SC=None, seed: int = 5):
+    """A table of many cobj slots: the seven-shape scene with its positive
+    cobjs copied `copies` more times, each copy shifted by up to 0.6 on
+    every axis, and its first four spheres duplicated exactly under another
+    layer (elasticity 0.3, friction 0.2), so objects inside them tie on two
+    rows that lie far apart in the packed sphere group.  Built with `SC`'s
+    classes, as `seven_shape_scene`.  8 copies pack to M = 536 slots (two
+    chunks of the kernels' 384 rows), 27 to M = 1,616 (five)."""
+    sp = seven_shape_scene(SC)
+    if SC is None:
+        from w3d_torch.scene import cobj as SC
+    rg = np.random.default_rng(seed)
+    base = [c for c in sp.cobjs if not c.negative]
+    for _ in range(copies):
+        d = rg.uniform(-0.6, 0.6, 3)
+        for c in base:
+            sp.cobjs.append(dataclasses.replace(
+                c, p1=tuple(np.asarray(c.p1) + d),
+                # a torus's p2 is its axis, not a point
+                p2=c.p2 if c.shape == SC.COLL_TORUS else tuple(np.asarray(c.p2) + d),
+                pts=tuple(tuple(np.asarray(q) + d) for q in c.pts)))
+    dup = SC.CobjLayer(elasticity=0.3, friction=0.2)
+    for s in [c for c in base if c.shape == SC.COLL_SPHERE][:4]:
+        sp.cobjs.append(SC.RawCobj(SC.COLL_SPHERE, s.p1, r1=s.r1, layer=dup))
+    return sp
+
+
 def pair_work(px, py, pz, radius, active, window: int,
               i_limit: int | None = None) -> tuple[int, int]:
     """(valid pairs in the band, overlapping pairs): the pair tests and
@@ -341,7 +400,7 @@ def _sass_loops(sass: str) -> None:
 def _phases_library():
     """The library built with the erosion phase counters, and its walk."""
     from w3d_torch.ops.cuda import build
-    lib = ctypes.CDLL(build.build(defines=("W3D_EROSION_PHASES",)))
+    lib = build.library(("W3D_EROSION_PHASES",))
     fn = lib.w3d_erosion_walk
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -409,9 +468,9 @@ def _noise_phase_split(cases: dict) -> None:
     by phase, per CTA, for each named argument tuple."""
     from w3d_torch.ops.cuda import build
     from w3d_torch.ops.cuda import noise_kernel as NZK
-    lib = ctypes.CDLL(build.build(defines=("W3D_NOISE_PHASES",)))
+    lib = build.library(("W3D_NOISE_PHASES",))
     fn = lib.w3d_tile_noise
-    fn.argtypes = NZK.KERNEL.argtypes
+    fn.argtypes = NZK.KERNEL.argtypes + [ctypes.c_void_p]   # the stream
     fn.restype = ctypes.c_int
     read = lib.w3d_noise_phase_cycles
     read.argtypes = [ctypes.c_void_p]
@@ -459,9 +518,9 @@ def _graph_ms(fn) -> list[float]:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--times", action="store_true",
-                    help="only the kernels' device-only times, the floors of B, "
-                         "C, G and E (CUDA graphs of 20 launches) and a digest of "
-                         "E's heights, through their public wrappers; runs against "
+                    help="only the kernels' device-only times and floors (CUDA "
+                         "graphs of 20 launches) and digests of E's, C's, G's and "
+                         "F's outputs, through their public wrappers; runs against "
                          "another checkout too: cd <checkout> && PYTHONPATH=. "
                          "python3 <this file> --times")
     ap.add_argument("--phases", action="store_true",
@@ -479,6 +538,9 @@ def main() -> None:
     from w3d_torch.ops.cuda import pairs_kernel as PK
     from w3d_torch.ops.cuda import physics_kernel as GK
     from w3d_torch.ops.cuda import sample_kernel as SK
+    from w3d_torch.ops.cuda import stencil_kernel as FK
+    from w3d_torch.physics import cobjs as PC
+    from w3d_torch.scene import cobj as SC
     from w3d_torch.utils.constants import WorldConst
     dev = torch.device("cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,"
@@ -527,14 +589,45 @@ def main() -> None:
         lambda: SK.sample_mesh(mesh, *sxy128, world))
     times["substep floor (N = 128)"] = _graph_ms(lambda: GK.substep(*gin128))
     times["tile_noise floor (1 tile)"] = _graph_ms(lambda: NZK.tile_noise(*na1))
+    # A's floor at one tile (one CTA), D's at 32 ranks (one CTA)
+    case1 = tuple(t[:1].contiguous() for t in case[:3]) + case[3:]
+    times["erosion floor (1 tile)"] = _graph_ms(lambda: EK.erosion_walk(*case1))
+    pin32 = tuple(t[:32].contiguous() for t in pin)
+    times["pairs floor (N = 32)"] = _graph_ms(lambda: PK.banded_pairs(*pin32, window=288))
+    # F on the light grid (by z block, where the wrapper takes one) and
+    # its floor on a (2, 8, 8) grid
+    smoke = torch.rand(LIGHT_GRID, generator=gen, device=dev) * 5
+    times["diffuse_smoke"] = _graph_ms(lambda: FK.diffuse_smoke_open(smoke))
+    if "zb" in inspect.signature(FK.diffuse_smoke_open).parameters:
+        for zb in (1, 2, 4, 8, 32):
+            times[f"diffuse_smoke zb={zb}"] = _graph_ms(
+                lambda zb=zb: FK.diffuse_smoke_open(smoke, zb=zb))
+    tiny = torch.rand((2, 8, 8), generator=gen, device=dev) * 5
+    times["diffuse_smoke floor (2, 8, 8)"] = _graph_ms(lambda: FK.diffuse_smoke_open(tiny))
+    # this checkout's padded erosion walk and wide cobj tables
+    if hasattr(E, "PAD"):
+        pcase = padded_erosion_case(case)
+        times["erosion padded 136^2"] = _graph_ms(lambda: EK.erosion_walk(*pcase))
+    g7 = PC.group_cobjs(SC.pack_cobjs(seven_shape_scene(), device=dev))
+    gin7 = gin[:16] + (substep_tables(g7), gin[17])
+    if hasattr(NK, "CHUNK_ROWS"):
+        for copies in (8, 27):
+            gw = wide_cobjs(copies, dev)
+            ginw = gin[:16] + (substep_tables(gw), gin[17])
+            times[f"narrow M = {gw.size}"] = _graph_ms(lambda gw=gw: NK.deepest_hits(*nin, gw))
+            times[f"substep M = {gw.size}"] = _graph_ms(lambda a=ginw: GK.substep(*a))
     print(f"device-only ms (CUDA graph of 20 launches, 5 replays; 10K objects, "
-          f"M = {gc.size}; 256 tiles of 128^2): " + "; ".join(
+          f"M = {gc.size}; 256 tiles of 128^2; smoke {LIGHT_GRID}): " + "; ".join(
               f"{k} median {statistics.median(v):.4f} {[round(t, 4) for t in v]}"
               for k, v in times.items()))
     for label, na in nargs.items():
-        h = NZK.tile_noise(*na).cpu().numpy()
-        print(f"tile_noise heights at {label}: sha256 "
-              f"{hashlib.sha256(h.tobytes()).hexdigest()[:16]}")
+        print(f"tile_noise heights at {label}: sha256 {digest(NZK.tile_noise(*na))}")
+    print(f"narrow outputs, dense pile: M = {gc.size} sha256 "
+          f"{digest(*NK.deepest_hits(*nin, gc))}, M = {g7.size} sha256 "
+          f"{digest(*NK.deepest_hits(*nin, g7))}; substep outputs: M = {gc.size} "
+          f"sha256 {digest(*GK.substep(*gin))}, M = {g7.size} sha256 "
+          f"{digest(*GK.substep(*gin7))}; smoke sha256 "
+          f"{digest(FK.diffuse_smoke_open(smoke))}")
     if args.times:
         return
 

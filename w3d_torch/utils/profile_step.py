@@ -86,7 +86,8 @@ def main() -> None:
     tables: list[str] = []
 
     mcfg = TMOD.TileModelConfig(tile_size=128, erosion_iters_tt=512,
-                                erosion_batch=512, erosion_steps=64)
+                                erosion_batch=512, erosion_steps=64,
+                                use_pallas_erosion=True)
     targs = TMOD.example_inputs(mcfg, world, gen, num_tiles=256, device=dev)
     trace("terrain 256 tiles",
           lambda: TMOD.tile_batch_step(*targs, mcfg, world), 3, tables)
