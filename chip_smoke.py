@@ -25,6 +25,20 @@ Phases, each fatal on failure (no phase hides an error):
       128^2), held against the terrain path's own noise, and 10 steps of
       the smoke stencil on the default light grid (32, 128, 128), held
       against the gated smoke path.
+   d. ground mode: `gen_terrain` on the default 128^2 mesh in three
+      configurations (sine; simplex with 512 droplets through A and the
+      water raised by `water_h_off_rel` 0.09; domain warp), ms per call
+      and the heights' range; then two runs of 2 x 32 chained ground
+      frames (`models/world.ground_frames_chained`, 4 substeps) with 2,000
+      balls: the grouped spheres world with a smoke source (B, C, D; B and
+      C for the player at N = 1), and the eroded simplex terrain with the
+      scene loader's env and spawn and the plain CobjSet of
+      `kernel_probe.wide_scene(8)` (B, D and the ungrouped narrow phase);
+      ms per frame, kernel launches per frame, live balls and the
+      player's z; the ungrouped narrow phase's device-only time at those
+      shapes; A in `gen_terrain` bitwise against its plain walk; and on a
+      32^2 world, 4 chained frames (grouped and plain scenes) and 60
+      player ticks on the card against the same calls on the CPU.
    Prints time to first result, tiles/s and frames/s, and fails if a
    kernel was never launched or a value is not finite.
 4. Each kernel against its plain PyTorch version on the card, at its
@@ -77,6 +91,10 @@ FLOOR_N = 128            # objects in B's, C's and G's floor runs: one CTA's wor
 PAIRS_FLOOR_N = 32       # ranks in D's floor run: one CTA's worth
 SMOKE_FLOOR = (2, 8, 8)  # F's floor grid
 WIDE_COPIES = (8, 27)    # kernel_probe.wide_scene copies: M = 536 and 1,616
+GROUND_OBJS = 2000       # app.py's --objects default for the ground loop
+GROUND_CHAIN = 32        # app.py run_ground's frames per chained call
+GROUND_DROPLETS = 512    # the tile path's droplet count, for gen_terrain
+GROUND_WATER_REL = 0.09  # "water_h_off 0.09 0": a third of the map under water
 # ops per unit of work for the bounds, counted from the kernel sources
 # (adds, multiplies, divides, square roots, min/max, compares: one each);
 # the erosion and pair counts are in w3d_torch/utils/kernel_probe.py
@@ -113,6 +131,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    from w3d_torch import convert
     from w3d_torch import entry as EN
     from w3d_torch.models import terrain_model as TMOD
     from w3d_torch.models import physics_model as PM
@@ -129,9 +148,14 @@ def main() -> int:
     from w3d_torch.physics import cobjs as PC
     from w3d_torch.physics import fused as PF
     from w3d_torch.physics import step as PS
+    from w3d_torch.physics import types as PT
+    from w3d_torch.gameplay import player as PL
+    from w3d_torch.models import world as WM
     from w3d_torch.scene import cobj as SC
+    from w3d_torch.terrain import mesh as TM
     from w3d_torch.utils import kernel_probe as KP
     from w3d_torch.utils.constants import WorldConst
+    from w3d_torch.water import ripples as WR
     from w3d_torch.water import smoke as WS
 
     # ---- 1. device --------------------------------------------------------
@@ -326,6 +350,203 @@ def main() -> int:
          "one tile-noise launch, 10 stencil launches")
     launches["tile_noise"] = ec["tile_noise"]
     launches["diffuse_smoke"] = ec["diffuse_smoke"]
+
+    # ---- 3d. ground mode: generated terrain, chained ground frames --------
+    # gen_terrain in three configurations (the simplex one erodes 512
+    # droplets through A and raises its water as the config keyword
+    # "water_h_off 0.09 0" does, so part of the map is under water), then
+    # two runs of 2 x 32 chained frames at the ground loop's settings
+    # (2,000 balls, 4 substeps): the grouped spheres world with smoke (B,
+    # C, D; B and C for the player) and the eroded simplex terrain with the
+    # plain CobjSet of wide_scene(8) (B, D, the ungrouped narrow phase)
+    reset_counts()
+    gcfgs = {"sine": TM.TerrainConfig(),
+             "simplex, 512 droplets": TM.TerrainConfig(
+                 mode=N.MGEN_SIMPLEX, erosion_iters=GROUND_DROPLETS,
+                 water_h_off_rel=GROUND_WATER_REL),
+             "domain warp": TM.TerrainConfig(mode=N.MGEN_DWARP_GPU)}
+    gen_ms, terrains = {}, {}
+    for label, cfg in gcfgs.items():
+        ang = (E.draw_angles(cfg.erosion_iters, 1024, 256, gen, device=dev)
+               if cfg.erosion_iters else None)
+        ter = TM.gen_terrain(cfg, world, angles=ang, device=dev)
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            ter = TM.gen_terrain(cfg, world, angles=ang, device=dev)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        gen_ms[label] = 1e3 * statistics.median(times)
+        terrains[label] = (cfg, ang, ter)
+        zb, zt, wz = (float(v) for v in (ter.zbottom, ter.ztop, ter.water_plane_z))
+        wet = float((ter.water_plane_z > ter.mesh_height).float().mean())
+        log(f"gen_terrain {label}: {gen_ms[label]:.3f} ms per call (median of 3), "
+            f"zbottom {zb:.4f}, ztop {zt:.4f}, water_plane_z {wz:.4f}, "
+            f"under water {100 * wet:.1f}%")
+        need(all(np.isfinite(v) for v in (zb, zt, wz)) and zt > zb
+             and bool(torch.isfinite(ter.mesh_height).all()),
+             f"gen_terrain {label}: finite heights and scalars")
+
+    def ground_run(label, state, env, cobjs, table, smoke, rip):
+        """2 chunks of GROUND_CHAIN chained frames; the second is timed and
+        its launches counted."""
+        ply = PL.make_player(0.0, 0.0, 1.0, device=dev)
+        per = {}
+        for c in range(2):
+            k = torch.arange(c * GROUND_CHAIN, (c + 1) * GROUND_CHAIN, device=dev)
+            mv = torch.stack([torch.cos(0.2 * k), torch.sin(0.2 * k)], -1)
+            before = {n: kk.launches for n, kk in kernels.items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = WM.ground_frames_chained(state, env, cobjs, table, rip, ply, mv,
+                                           world, GROUND_CHAIN, substeps=4,
+                                           smoke=smoke)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            state, rip, ply, live = out[:4]
+            if smoke is not None:
+                smoke = out[4]
+            per = {n: (kk.launches - before[n]) / GROUND_CHAIN
+                   for n, kk in kernels.items() if kk.launches > before[n]}
+        ms = 1e3 * dt / GROUND_CHAIN
+        nlive, pz = int(live[-1]), float(ply.z[0])
+        log(f"ground {label}: {ms:.3f} ms per frame (second chunk of "
+            f"{GROUND_CHAIN}), kernel launches per frame {per}, live {nlive} of "
+            f"{state.px.shape[0]}, player z {pz:.4f}, ripples max "
+            f"{float(rip.rval.abs().max()):.3g}")
+        for name in ("px", "py", "pz", "vx", "vy", "vz"):
+            need(bool(torch.isfinite(getattr(state, name)).all()),
+                 f"ground {label}: {name} finite")
+        need(np.isfinite(pz) and nlive > 0.5 * state.px.shape[0]
+             and int(state.time.min()) == 2 * GROUND_CHAIN,
+             f"ground {label}: player finite, half the balls alive, all aged")
+        if smoke is not None:
+            need(bool(torch.isfinite(smoke).all()) and float(smoke.max()) > 0.0,
+                 f"ground {label}: smoke finite")
+        return dict(ms_per_frame=ms, launches_per_frame=per, live=nlive,
+                    player_z=pz)
+
+    gpos, gvel = PM.spawn(GROUND_OBJS, gen, device=dev)
+    gsw = PM.build_spheres_world(gpos, gvel, world=world, device=dev)
+    gsmoke = torch.zeros(LIGHT_GRID, device=dev)
+    gsmoke[4, 64, 64] = 50.0                      # one source
+    still = WR.make_ripples(world.mesh_y, world.mesh_x, device=dev)
+    ground = {"spheres": ground_run("spheres (grouped, M = 112, smoke)", gsw.state,
+                                    gsw.env, gsw.cobjs, gsw.table, gsmoke, still)}
+    # the fbm run: the eroded simplex terrain with the env and the spawn the
+    # scene loader builds (scene/loader.py:238-264), the plain wide scene
+    ter = terrains["simplex, 512 droplets"][2]
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)
+    fenv = PS.PhysicsEnv(mesh_height=ter.mesh_height, water_plane_z=ter.water_plane_z,
+                         wind=f32([0.4, 0.2, 0.0]), temperature=f32(20.0),
+                         base_gravity=f32(1.0), zmin=ter.zmin)
+    lrng = np.random.default_rng(1)
+    lpos = np.stack([lrng.uniform(-0.8 * world.x_scene, 0.8 * world.x_scene, GROUND_OBJS),
+                     lrng.uniform(-0.8 * world.y_scene, 0.8 * world.y_scene, GROUND_OBJS),
+                     lrng.uniform(0.3 * world.z_scene, 0.9 * world.z_scene, GROUND_OBJS)], 1)
+    fstate = PS.make_state(lpos, np.zeros((GROUND_OBJS, 3), np.float32),
+                           np.full(GROUND_OBJS, PT.type_id("BALL")), gsw.table)
+    # 514 live cobjs: 640 slots as a plain CobjSet, 536 grouped
+    wide_plain = SC.pack_cobjs(KP.wide_scene(8), device=dev)
+    deep = int(torch.argmin(ter.mesh_height))      # a splash in the deepest water
+    splash = WR.add_splash(still, deep % world.mesh_x, deep // world.mesh_x, 4, 0.5,
+                           world.mesh_x, world.mesh_y)
+    ground["fbm"] = ground_run(f"fbm (simplex terrain, plain CobjSet of "
+                               f"{wide_plain.size} slots)", fstate, fenv,
+                               wide_plain, gsw.table, None, splash)
+    gc3 = read_counts("ground path", ("erosion", "sample", "narrow", "pairs"))
+    for n in ("erosion", "sample", "narrow", "pairs"):
+        launches[n] += gc3[n]
+    need(ground["fbm"]["launches_per_frame"].get("narrow", 0) == 0,
+         "ground fbm: the plain CobjSet takes no narrow-kernel launch")
+
+    # the ungrouped narrow phase at the fbm run's shapes, device-only
+    nin_g = (fstate.px, fstate.py, fstate.pz,
+             torch.full_like(fstate.px, float(gsw.table.radius[PT.type_id("BALL")])))
+    plain_narrow = dict(graph_ms=statistics.median(
+        KP.GraphTimer(lambda: PC.deepest_hits(*nin_g, wide_plain)).time()
+        for _ in range(5)), eager_ms=KP.events_ms(
+        lambda: PC.deepest_hits(*nin_g, wide_plain), launches=5))
+    log(f"ungrouped deepest_hits, N = {GROUND_OBJS}, M = {wide_plain.size} slots "
+        f"({int((wide_plain.shape != 0).sum())} live): "
+        f"device-only {plain_narrow['graph_ms']:.4f} ms (CUDA graph of 20), "
+        f"eager {plain_narrow['eager_ms']:.4f} ms (CUDA events)")
+
+    # A in gen_terrain against its plain version, the same call
+    cfg, ang, ter = terrains["simplex, 512 droplets"]
+    walk = EK.erosion_walk
+    EK.erosion_walk = E._walk_batch
+    try:
+        tref = TM.gen_terrain(cfg, world, angles=ang, device=dev)
+    finally:
+        EK.erosion_walk = walk
+    flat = TM.gen_terrain(cfg._replace(erosion_iters=0), world, device=dev)
+    deroded = float((ter.mesh_height - flat.mesh_height).abs().max())
+    log(f"gen_terrain erosion: kernel vs plain walk bitwise "
+        f"{all(torch.equal(a, b) for a, b in zip(ter, tref))}, max |eroded - "
+        f"uneroded| {deroded:.3g}")
+    need(all(torch.equal(a, b) for a, b in zip(ter, tref)) and deroded > 1e-3,
+         "gen_terrain erosion: " + TOLS["erosion"])
+
+    # 3d on a small world: the card against the CPU
+    sw32 = WorldConst(mesh_x=32, mesh_y=32, mesh_z=8)
+    rg32 = np.random.default_rng(21)
+    mesh32 = rg32.standard_normal((32, 32)).astype(np.float32) * 0.3 - 0.5
+    for group in (True, False):
+        cpos = np.stack([rg32.uniform(-2.5, 2.5, 64), rg32.uniform(-2.5, 2.5, 64),
+                         rg32.uniform(0.2, 1.5, 64)], 1).astype(np.float32)
+        cvel = rg32.normal(0, 0.5, (64, 3)).astype(np.float32)
+        csw = PM.build_spheres_world(torch.as_tensor(cpos), torch.as_tensor(cvel),
+                                     world=sw32, device="cpu", group_shapes=group,
+                                     mesh_height=torch.as_tensor(mesh32))
+        csw = csw._replace(env=csw.env._replace(water_plane_z=torch.tensor(0.1)))
+        cin = (csw.state, csw.env, csw.cobjs, csw.table,
+               WR.add_splash(WR.make_ripples(32, 32, device="cpu"), 10, 12, 3,
+                             0.5, 32, 32),
+               PL.make_player(0.3, -0.2, 1.0, device="cpu"),
+               torch.stack([torch.cos(0.2 * torch.arange(4.0)),
+                            torch.sin(0.2 * torch.arange(4.0))], -1))
+        csmoke = torch.zeros((8, 32, 32))
+        csmoke[2, 16, 16] = 10.0
+        cpu_out = WM.ground_frames_chained(*cin, sw32, 4, smoke=csmoke)
+        gin = (*convert.spheres_world(convert.to_numpy(csw), dev),
+               convert.ripple_state(convert.to_numpy(cin[4]), dev),
+               convert.player_state(convert.to_numpy(cin[5]), dev), cin[6].to(dev))
+        gpu_out = WM.ground_frames_chained(*gin, sw32, 4, smoke=csmoke.to(dev))
+
+        def leaves(out):     # state, ripples, player and smoke as numpy arrays
+            return [a for part in convert.to_numpy(out[:3] + out[4:])
+                    for a in (part if isinstance(part, tuple) else (part,))]
+
+        pairs = list(zip(leaves(cpu_out), leaves(gpu_out)))
+        worst = max(float(np.abs(a - b).max()) for a, b in pairs if a.dtype.kind == "f")
+        exact = all(np.array_equal(a, b) for a, b in pairs if a.dtype.kind != "f")
+        same_live = bool(torch.equal(cpu_out[3], gpu_out[3].cpu()))
+        log(f"ground 3d, 32^2 world, 64 balls, 4 frames, "
+            f"{'grouped' if group else 'plain'} scene, card vs CPU: max diff "
+            f"{worst:.3g}, status/flags/on_ground equal {exact}, live equal "
+            f"{same_live} ({cpu_out[3].tolist()})")
+        need(worst <= 1e-4 and exact and same_live,
+             "ground 3d, card vs CPU: 1e-4, integer fields and live equal")
+
+        # the player alone, 60 ticks, card vs CPU
+        pc, pg = cin[5], convert.player_state(convert.to_numpy(cin[5]), dev)
+        gmesh = csw.env.mesh_height.to(dev)
+        gcobjs = gin[2]
+        pw = 0.0
+        for i in range(60):
+            mvx, mvy = float(np.cos(0.05 * i)), float(np.sin(0.05 * i))
+            pc = PL.step_player(pc, csw.env.mesh_height, csw.cobjs, mvx, mvy,
+                                i == 40, world=sw32)
+            pg = PL.step_player(pg, gmesh, gcobjs, mvx, mvy, i == 40, world=sw32)
+            a, b = convert.to_numpy(pc), convert.to_numpy(pg)
+            pw = max(pw, max(float(np.abs(getattr(a, f) - getattr(b, f)).max())
+                             for f in ("x", "y", "z", "vz")))
+            need(np.array_equal(a.on_ground, b.on_ground), "player: on_ground equal")
+        log(f"player, 60 ticks, {'grouped' if group else 'plain'} scene, card vs "
+            f"CPU: max diff {pw:.3g}, final z {float(pc.z[0]):.4f}")
+        need(pw <= 1e-5, "player, card vs CPU: 1e-5")
 
     # ---- 4. kernels vs plain versions, main-path shapes ------------------
     # Each kernel device-only (a CUDA graph of 20 launches replayed between
@@ -653,7 +874,6 @@ def main() -> int:
         floor=lambda: FK.diffuse_smoke_open(tiny), floor_at=f"a {SMOKE_FLOOR} grid")
 
     # ---- 5. small combined step: card vs CPU ------------------------------
-    from w3d_torch import convert
     sworld = WorldConst(mesh_x=32, mesh_y=32)
     scfg = TMOD.TileModelConfig(tile_size=32, erosion_iters_tt=128,
                                 erosion_batch=128, erosion_steps=8)
@@ -723,7 +943,11 @@ def main() -> int:
                     "physics_fused_frames_per_sec_10k": fps["fused"],
                     "terrain_tiles_per_sec_padded": padded_tiles_per_s,
                     "time_to_first_tiles_s": ttfr_tiles,
-                    "time_to_first_fused_frame_s": ttfr_fused},
+                    "time_to_first_fused_frame_s": ttfr_fused,
+                    "ground_ms_per_frame_spheres": ground["spheres"]["ms_per_frame"],
+                    "ground_ms_per_frame_fbm": ground["fbm"]["ms_per_frame"],
+                    "gen_terrain_ms": gen_ms,
+                    "ungrouped_narrow_ms_2000x640": plain_narrow["graph_ms"]},
         "card": smi}))
     log(json.dumps({"kernels": [
         {"name": srcs[n][0], "route": "cuda", "source": srcs[n][1],

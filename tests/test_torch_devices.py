@@ -12,10 +12,13 @@ from w3d_torch.models import physics_model as PM
 from w3d_torch.models import terrain_model as TMOD
 from w3d_torch.ops import erosion as E
 from w3d_torch.ops import noise as N
+from w3d_torch.gameplay import player as PL
+from w3d_torch.physics import cobjs as PC
 from w3d_torch.physics import types as PT
 from w3d_torch.scene import cobj as SC
 from w3d_torch.terrain import mesh as TM
 from w3d_torch.utils.constants import WorldConst
+from w3d_torch.water import ripples as WR
 
 
 def _generator():
@@ -41,6 +44,12 @@ MAKERS = {
     "gen_table_for": lambda: TM.gen_table_for(TM.TerrainConfig(), WorldConst()).mag,
     "droplet_starts": lambda: E.droplet_starts(8, 16, 16)[0],
     "draw_angles": lambda: E.draw_angles(8, 8, 2, _generator()),
+    "make_ripples": lambda: WR.make_ripples(4, 4).rval,
+    "make_player": lambda: PL.make_player().x,
+    "empty_cobjs": lambda: PC.empty_cobjs(4).r1,
+    "gen_terrain": lambda: TM.gen_terrain(
+        TM.TerrainConfig(mode=N.MGEN_SIMPLEX),
+        WorldConst(mesh_x=8, mesh_y=8)).mesh_height,
 }
 
 

@@ -122,7 +122,9 @@ def test_convert_round_trip():
 
 
 def test_import_leaves_jax_out():
-    code = ("import sys, w3d_torch, w3d_torch.entry, w3d_torch.convert; "
+    code = ("import sys, w3d_torch, w3d_torch.entry, w3d_torch.convert, "
+            "w3d_torch.models.world, w3d_torch.gameplay.player, "
+            "w3d_torch.water.ripples, w3d_torch.terrain.mesh; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'w3d' or m.startswith('w3d.')); "
             "print(bad); sys.exit(1 if bad else 0)")

@@ -443,3 +443,91 @@ def test_wrappers_reject_bad_input(cuda_device):
     args[-2] = (wide, args[-2][1], NK.field_major(wide)[:, :-4])   # short copy
     with pytest.raises(ValueError):
         GK.substep(*args)
+
+
+@pytest.mark.parametrize("kind", ["grouped", "plain"])
+def test_player_kernels_match_plain(cuda_device, monkeypatch, kind):
+    """step_player on the card takes kernel B (and C for a grouped scene)
+    at N = 1; 60 ticks of falling, landing on the spheres scene's cobjs,
+    walking and a jump, against the same ticks through the plain versions
+    on the card (heights from B bitwise, C's pen 1e-5: 1e-5 on the
+    state, on_ground equal), and against the CPU."""
+    from w3d_torch.gameplay import player as PL
+    from w3d_torch.ops.cuda import narrow_kernel as NK
+    from w3d_torch.ops.cuda import sample_kernel as SK
+    def scene(device):
+        sc = SC.pack_cobjs(PM.spheres_scene(), device=device)
+        return PC.group_cobjs(sc) if kind == "grouped" else sc
+
+    cobjs = scene(cuda_device)
+    rng = np.random.default_rng(8)
+    mesh = torch.as_tensor(rng.standard_normal((128, 128)).astype(np.float32)
+                           * 0.02 - 0.3, device=cuda_device)
+
+    def run(cobjs, mesh, device):
+        p = PL.make_player(0.4, -0.3, 1.0, device=device)
+        out = []
+        for i in range(60):
+            p = PL.step_player(p, mesh, cobjs, np.cos(0.05 * i), np.sin(0.05 * i),
+                               i == 45)
+            out.append(torch.cat([p.x, p.y, p.z, p.vz, p.on_ground.float()]))
+        return torch.stack(out).cpu()
+
+    before = (SK.KERNEL.launches, NK.KERNEL.launches)
+    kern = run(cobjs, mesh, cuda_device)
+    assert SK.KERNEL.launches - before[0] == 60
+    assert NK.KERNEL.launches - before[1] == (60 if kind == "grouped" else 0)
+    cpu = run(scene("cpu"), mesh.cpu(), "cpu")
+    monkeypatch.setattr(SK, "sample_mesh", PS.sample_mesh)
+    monkeypatch.setattr(NK, "deepest_hits", lambda *a: PC.deepest_hits_grouped(*a))
+    plain = run(cobjs, mesh, cuda_device)
+    for ref in (plain, cpu):
+        assert (kern[:, :4] - ref[:, :4]).abs().max().item() < 1e-5
+        assert torch.equal(kern[:, 4], ref[:, 4])
+    assert kern[:, 4].any()                                   # it stood
+
+
+def test_gen_terrain_erosion_kernel_matches_plain(cuda_device, monkeypatch):
+    """gen_terrain (simplex, 512 droplets) on the card erodes its padded
+    136^2 map through kernel A: bitwise equal to the same call through
+    A's plain version on the card."""
+    from w3d_torch.ops.cuda import erosion_kernel as EK
+    from w3d_torch.ops import noise as N
+    from w3d_torch.terrain import mesh as TM
+    cfg = TM.TerrainConfig(mode=N.MGEN_SIMPLEX, erosion_iters=512)
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    ang = E.draw_angles(512, 1024, 256, g, device=cuda_device)
+    before = EK.KERNEL.launches
+    out = TM.gen_terrain(cfg, angles=ang, device=cuda_device)
+    assert EK.KERNEL.launches - before == 1
+    flat = TM.gen_terrain(cfg._replace(erosion_iters=0), device=cuda_device)
+    assert (out.mesh_height - flat.mesh_height).abs().max().item() > 1e-3
+    monkeypatch.setattr(EK, "erosion_walk", E._walk_batch)
+    ref = TM.gen_terrain(cfg, angles=ang, device=cuda_device)
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
+
+
+def test_ground_frames_run_through_their_kernels(cuda_device):
+    """ground_frames_chained on the card: sample, narrow and pairs run on
+    a grouped scene (narrow also for the player), sample and pairs on a
+    plain CobjSet; `live` stays a device tensor."""
+    from w3d_torch.gameplay import player as PL
+    from w3d_torch.models import world as WM
+    from w3d_torch.ops.cuda import narrow_kernel, pairs_kernel, sample_kernel
+    from w3d_torch.water import ripples as WR
+    ks = (sample_kernel.KERNEL, narrow_kernel.KERNEL, pairs_kernel.KERNEL)
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    pos, vel = PM.spawn(512, g, device=cuda_device)
+    for group in (True, False):
+        sw = PM.build_spheres_world(pos, vel, device=cuda_device, group_shapes=group)
+        before = [k.launches for k in ks]
+        st, rip, ply, live = WM.ground_frames_chained(
+            sw.state, sw.env, sw.cobjs, sw.table,
+            WR.make_ripples(128, 128, device=cuda_device),
+            PL.make_player(device=cuda_device),
+            torch.zeros((3, 2), device=cuda_device), WorldConst(), 3, substeps=2)
+        got = [k.launches - b for k, b in zip(ks, before)]
+        assert got == ([3 * 2 + 3, 3 * 2 + 3, 3 * 2] if group else [3 * 2 + 3, 0, 3 * 2])
+        assert live.device.type == "cuda" and live.shape == (3,)
+        assert torch.isfinite(st.px).all() and int(live[-1]) > 450

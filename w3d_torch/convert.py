@@ -20,6 +20,9 @@ from .physics.cobjs import CobjSet, GroupedCobjs
 from .physics.step import ObjectState, PhysicsEnv
 from .physics.types import ObjTypeTable
 from .models.physics_model import SpheresWorld
+from .water.ripples import RippleState
+from .gameplay.player import PlayerState
+from .terrain.mesh import TerrainState
 
 _INT32_FIELDS = ("flags",)   # uint32 bit masks in JAX
 
@@ -76,12 +79,31 @@ def type_table(src, device) -> ObjTypeTable:
     return _named(ObjTypeTable, src, device)
 
 
+def cobjs(src, device) -> CobjSet | GroupedCobjs:
+    """A GroupedCobjs (it has `bounds`) or a plain CobjSet."""
+    if hasattr(src, "bounds"):
+        return grouped_cobjs(src, device)
+    return cobj_set(src, device)
+
+
 def spheres_world(src, device) -> SpheresWorld:
-    """A grouped-cobj SpheresWorld."""
+    """A SpheresWorld, its cobjs grouped or plain as `src`'s."""
     return SpheresWorld(state=object_state(src.state, device),
                         env=physics_env(src.env, device),
-                        cobjs=grouped_cobjs(src.cobjs, device),
+                        cobjs=cobjs(src.cobjs, device),
                         table=type_table(src.table, device))
+
+
+def ripple_state(src, device) -> RippleState:
+    return _named(RippleState, src, device)
+
+
+def player_state(src, device) -> PlayerState:
+    return _named(PlayerState, src, device)
+
+
+def terrain_state(src, device) -> TerrainState:
+    return _named(TerrainState, src, device)
 
 
 def to_numpy(value):

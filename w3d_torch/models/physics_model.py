@@ -24,7 +24,7 @@ from ..scene import cobj as SC
 class SpheresWorld(NamedTuple):
     state: PS.ObjectState
     env: PS.PhysicsEnv
-    cobjs: PC.GroupedCobjs
+    cobjs: PC.GroupedCobjs | PC.CobjSet
     table: PT.ObjTypeTable
 
 
@@ -64,12 +64,16 @@ def build_spheres_world(
     obj_type: str = "BALL",
     mesh_height: torch.Tensor | None = None,
     device: torch.device | str = "cuda",
+    group_shapes: bool = True,
 ) -> SpheresWorld:
     """Assemble the scenario: a flat mesh at -0.7 (config_spheres disables
-    the drawn mesh and uses a ground-plane cube), the grouped spheres scene,
-    and balls at pos/vel [N, 3]."""
+    the drawn mesh and uses a ground-plane cube), the spheres scene (shape
+    grouped, or a plain CobjSet with `group_shapes=False`), and balls at
+    pos/vel [N, 3]."""
     table = PT.make_type_table(z_scene=world.z_scene, device=device)
-    cobjs = PC.group_cobjs(SC.pack_cobjs(spheres_scene(), device=device))
+    cobjs = SC.pack_cobjs(spheres_scene(), device=device)
+    if group_shapes:
+        cobjs = PC.group_cobjs(cobjs)
     if mesh_height is None:
         mesh_height = torch.full((world.mesh_y, world.mesh_x), -0.7,
                                  dtype=torch.float32, device=device)

@@ -4,8 +4,9 @@
 
 This is the re-expression of the tiled-terrain hot path
 (`tile_t::create_zvals` + `apply_erosion`, tiled_mesh.cpp:467-546): a whole
-batch of tiles at once — noise as a (T, n, 90) x (90, n) einsum, erosion as
-lockstep droplet batches walked by the erosion kernel, one CTA per tile.
+batch of tiles at once — sine-mode noise as a (T, n, 90) x (90, n) einsum
+(the fBm modes elementwise over the [T, n, n] grid), erosion as lockstep
+droplet batches walked by the erosion kernel, one CTA per tile.
 
 Both of the JAX package's erosion paths are ported, and both walk through
 the erosion kernel on the card: `use_pallas_erosion=False` (the default,
@@ -40,23 +41,32 @@ class TileModelConfig(NamedTuple):
     use_pallas_erosion: bool = False
 
 
-def _tile_heights(table: N.SineTable, x0, y0, mcfg: TileModelConfig,
+def _tile_heights(table: N.SineTable | None, x0, y0, mcfg: TileModelConfig,
                   world: WorldConst, zmax_est) -> torch.Tensor:
     """Raw+glaciated heights for a batch of tiles. x0,y0: [T] tile origins
-    in grid units."""
+    in grid units; `table` is read in sine mode only."""
     cfg = mcfg.cfg
-    if cfg.mode != N.MGEN_SINE:
-        raise NotImplementedError("only the sine-table generator is ported")
     n = mcfg.tile_size
-    start = N.start_eval_sin(cfg.mesh_scale, cfg.mesh_freq_filter)
-    xt, yt = N.sine_term_tables(
-        table, x0, y0, world.dx, world.dy, n, n,
-        world=world, mesh_scale=cfg.mesh_scale,
-        mesh_scale_z_inv=1.0 / cfg.mesh_scale_z, start_sin=start,
-    )
-    z = N.eval_sine_grid(xt, yt)                      # [T, n, n]
-    z = N.apply_noise_shape_final(z, cfg.shape)
-    z = TM.postproc_noise_zval(z, cfg.hmap)
+    if cfg.mode == N.MGEN_SINE:
+        start = N.start_eval_sin(cfg.mesh_scale, cfg.mesh_freq_filter)
+        xt, yt = N.sine_term_tables(
+            table, x0, y0, world.dx, world.dy, n, n,
+            world=world, mesh_scale=cfg.mesh_scale,
+            mesh_scale_z_inv=1.0 / cfg.mesh_scale_z, start_sin=start,
+        )
+        z = N.eval_sine_grid(xt, yt)                      # [T, n, n]
+        z = N.apply_noise_shape_final(z, cfg.shape)
+        z = TM.postproc_noise_zval(z, cfg.hmap)
+    else:
+        ar = torch.arange(n, dtype=torch.float32, device=x0.device)
+        xi = ar[None, None, :] + x0[:, None, None]
+        yi = ar[None, :, None] + y0[:, None, None]
+        xv = torch.broadcast_to(xi, (x0.shape[0], n, n))
+        yv = torch.broadcast_to(yi, (x0.shape[0], n, n))
+        z = N.noise_zval_grid(xv, yv, cfg.mode, shape=cfg.shape,
+                              mesh_scale=cfg.mesh_scale, mesh_seed=cfg.mesh_seed,
+                              world=world,
+                              postproc=lambda v: TM.postproc_noise_zval(v, cfg.hmap))
     return TM.apply_glaciate(z, zmax_est, cfg)
 
 

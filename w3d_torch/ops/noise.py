@@ -1,5 +1,4 @@
-"""Sine-table terrain noise (port of the sine-mode half of
-`3dworld_tpu/ops/noise.py`).
+"""Terrain noise (port of the 2-D generators of `3dworld_tpu/ops/noise.py`).
 
 The reference's default heightmap generator (MGEN_SINE, mesh_gen.cpp:219-254)
 sums 9 frequency octaves x 10 random 2D sine products.  The evaluation is
@@ -11,7 +10,14 @@ product per tile, batched over tiles as one einsum.
 E, `ops/cuda/noise_kernel.tile_noise`): the same heights computed by the
 Pallas `_tile_noise_kernel`'s formula, tile by tile.
 
-The fBm simplex/perlin modes are not ported yet.
+The fBm modes (simplex, perlin, domain warp; mesh_gen.cpp:706-760):
+9 octaves, lacunarity 1.92, gain 0.5, per-octave offset drift x1.5,
+shapes linear/billowy/ridged.  Gradients are picked by the JAX package's
+own integer hash of the lattice point (the port's `xxhash_u32`, uint32
+carried in int64), from a table of the 8 float32 (cos, sin) pairs that
+its `jnp.cos`/`jnp.sin` give.  Every constant and operation order is the
+JAX package's, so the values agree to float32 rounding.  The 3-D
+generators (`simplex3d`, `fbm3d`) belong to the voxel port.
 """
 
 from __future__ import annotations
@@ -21,7 +27,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..utils.rng import RandGen
+from ..utils.rng import RandGen, xxhash_u32, _mul_u32, _U32
 from ..utils.constants import WorldConst, DEFAULT_WORLD
 
 # mesh_gen.cpp:14-34
@@ -30,6 +36,7 @@ N_RAND_SIN2 = 10
 F_TABLE_SIZE = NUM_FREQ_COMP * N_RAND_SIN2
 FREQ_FILTER = 2
 MIN_FREQS = 3
+MESH_SCALE_FACTOR = 0.0007
 TWO_PI = 2.0 * np.pi
 
 # Generator modes (3DWorld.h:1399)
@@ -204,3 +211,187 @@ def apply_noise_shape_final(z: torch.Tensor, shape: int) -> torch.Tensor:
     if shape == SHAPE_RIDGED:
         return 3.5 - torch.abs(z)
     return z
+
+
+# ---------------------------------------------------------------------------
+# fBm generators (simplex / perlin / domain warp)
+# ---------------------------------------------------------------------------
+
+_F2 = float(0.5 * (np.sqrt(3.0) - 1.0))
+_G2 = float((3.0 - np.sqrt(3.0)) / 6.0)
+
+# gradient k of 8: angle k * (2 pi / 8) in float32, its cosine and sine
+# rounded to float32 (the values jnp.cos and jnp.sin give for those angles)
+_GRAD_ANGLES = np.arange(8, dtype=np.float32) * np.float32(TWO_PI / 8.0)
+_GRAD_CS = np.stack([np.cos(_GRAD_ANGLES.astype(np.float64)),
+                     np.sin(_GRAD_ANGLES.astype(np.float64))]).astype(np.float32)
+_GRAD_TABLES: dict = {}
+
+
+def _grad_table(device) -> torch.Tensor:
+    """[2, 8] (cos, sin) table on `device`, made once per device."""
+    key = str(device)
+    if key not in _GRAD_TABLES:
+        _GRAD_TABLES[key] = torch.as_tensor(_GRAD_CS, device=device)
+    return _GRAD_TABLES[key]
+
+
+def _grad_hash(ix: torch.Tensor, iy: torch.Tensor, seed: int) -> torch.Tensor:
+    """Hash integer lattice point -> uint32 in int64 (xxHash chain,
+    rand_gen.h:127); negative indices wrap as an int32 -> uint32 cast."""
+    ux = ix.to(torch.int64) & _U32
+    uy = iy.to(torch.int64) & _U32
+    return xxhash_u32(ux ^ _mul_u32(uy, 2654435761), seed)
+
+
+def _grad_dot(h: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Dot with one of 8 unit gradients selected by hash bits."""
+    cs = _grad_table(x.device)
+    k = h & 7
+    return cs[0][k] * x + cs[1][k] * y
+
+
+def simplex2d(x: torch.Tensor, y: torch.Tensor, seed: int = 0) -> torch.Tensor:
+    """2D simplex noise in approx [-1, 1] (Gustavson's construction)."""
+    s = (x + y) * _F2
+    i = torch.floor(x + s)
+    j = torch.floor(y + s)
+    t = (i + j) * _G2
+    x0 = x - (i - t)
+    y0 = y - (j - t)
+    gt = x0 > y0
+    i1 = torch.where(gt, 1.0, 0.0)
+    j1 = torch.where(gt, 0.0, 1.0)
+    x1 = x0 - i1 + _G2
+    y1 = y0 - j1 + _G2
+    x2 = x0 - 1.0 + 2.0 * _G2
+    y2 = y0 - 1.0 + 2.0 * _G2
+    ii = i.to(torch.int64)
+    jj = j.to(torch.int64)
+
+    def corner(cx, cy, ci, cj):
+        t_ = 0.5 - cx * cx - cy * cy
+        t_ = torch.clamp(t_, min=0.0)
+        t2 = t_ * t_
+        g = _grad_dot(_grad_hash(ci, cj, seed), cx, cy)
+        return t2 * t2 * g
+
+    n = (
+        corner(x0, y0, ii, jj)
+        + corner(x1, y1, ii + gt.to(torch.int64), jj + (~gt).to(torch.int64))
+        + corner(x2, y2, ii + 1, jj + 1)
+    )
+    return 70.0 * n
+
+
+def _fade(t: torch.Tensor) -> torch.Tensor:
+    return t * t * t * (t * (t * 6.0 - 15.0) + 10.0)
+
+
+def perlin2d(x: torch.Tensor, y: torch.Tensor, seed: int = 0) -> torch.Tensor:
+    """Classic 2D Perlin noise in approx [-1, 1]."""
+    xi = torch.floor(x)
+    yi = torch.floor(y)
+    xf = x - xi
+    yf = y - yi
+    ii = xi.to(torch.int64)
+    jj = yi.to(torch.int64)
+    u = _fade(xf)
+    v = _fade(yf)
+
+    def g(di, dj, dx_, dy_):
+        return _grad_dot(_grad_hash(ii + di, jj + dj, seed), dx_, dy_)
+
+    n00 = g(0, 0, xf, yf)
+    n10 = g(1, 0, xf - 1.0, yf)
+    n01 = g(0, 1, xf, yf - 1.0)
+    n11 = g(1, 1, xf - 1.0, yf - 1.0)
+    nx0 = n00 + u * (n10 - n00)
+    nx1 = n01 + u * (n11 - n01)
+    return (nx0 + v * (nx1 - nx0)) * 1.4142135
+
+
+def fbm2d(x: torch.Tensor, y: torch.Tensor, rx: float, ry: float,
+          mode: int = MGEN_SIMPLEX, shape: int = SHAPE_LINEAR,
+          octaves: int = NUM_FREQ_COMP, seed: int = 0) -> torch.Tensor:
+    """fBm over simplex/perlin (gen_noise, mesh_gen.cpp:706-728):
+    lacunarity 1.92, gain 0.5, per-octave offset drift x1.5.  The octave
+    constants are Python floats, rounded to float32 where they meet a
+    tensor, as in the JAX package."""
+    lacunarity, gain = 1.92, 0.5
+    zval = torch.zeros_like(x)
+    mag, freq = 1.0, 1.0
+    crx, cry = rx, ry
+    use_simplex = mode in (MGEN_SIMPLEX, MGEN_SIMPLEX_GPU, MGEN_DWARP_GPU)
+    for _ in range(octaves):
+        px = freq * x + crx
+        py = freq * y + cry
+        n = simplex2d(px, py, seed) if use_simplex else perlin2d(px, py, seed)
+        if shape == SHAPE_BILLOWY:
+            n = torch.abs(n) - 0.40
+        elif shape == SHAPE_RIDGED:
+            n = 0.45 - torch.abs(n)
+        zval = zval + mag * n
+        mag *= gain
+        freq *= lacunarity
+        crx *= 1.5
+        cry *= 1.5
+    return zval
+
+
+def domain_warp2d(x: torch.Tensor, y: torch.Tensor, rx: float, ry: float,
+                  shape: int = SHAPE_LINEAR, octaves: int = NUM_FREQ_COMP,
+                  seed: int = 0):
+    """2-level domain warp (get_noise_zval, mesh_gen.cpp:736-747): scale
+    0.2, fixed offsets (5.2,1.3), (1.7,9.2), (8.3,2.8)."""
+    scale = 0.2
+    kw = dict(mode=MGEN_SIMPLEX, shape=shape, octaves=octaves, seed=seed)
+    dx1 = fbm2d(x, y, rx, ry, **kw)
+    dy1 = fbm2d(x + 5.2, y + 1.3, rx, ry, **kw)
+    dx2 = fbm2d(x + scale * dx1 + 1.7, y + scale * dy1 + 9.2, rx, ry, **kw)
+    dy2 = fbm2d(x + scale * dx1 + 8.3, y + scale * dy1 + 2.8, rx, ry, **kw)
+    return x + scale * dx2, y + scale * dy2
+
+
+def gen_rx_ry(mesh_seed: int = 0, mesh_rgen_index: int = 0,
+              mode: int = MGEN_SIMPLEX):
+    """Random fBm offsets in [1, 2) (gen_rx_ry, mesh_gen.cpp:581-587)."""
+    rgen = RandGen()
+    if mesh_seed != 0:
+        rgen.set_state(mesh_seed, 12345)
+    elif mode != MGEN_SINE:
+        rgen.set_state(mesh_rgen_index + 1, 12345)
+    return rgen.rand_float() + 1.0, rgen.rand_float() + 1.0
+
+
+def get_hmap_scale(mode: int, mesh_height: float, mesh_height_scale: float = 1.0,
+                   mesh_scale_z_inv: float = 1.0) -> float:
+    """mesh_gen.cpp:550-553: simplex 16x vs perlin 32x height scale."""
+    scale = 16.0 if mode in (MGEN_SIMPLEX, MGEN_SIMPLEX_GPU, MGEN_DWARP_GPU) else 32.0
+    return scale * mesh_height * mesh_height_scale * mesh_scale_z_inv
+
+
+def noise_zval_grid(xval: torch.Tensor, yval: torch.Tensor, mode: int,
+                    shape: int = SHAPE_LINEAR, mesh_scale: float = 1.0,
+                    mesh_seed: int = 0, mesh_rgen_index: int = 0,
+                    world: WorldConst = DEFAULT_WORLD,
+                    octaves: int | None = None, seed: int = 0,
+                    postproc=None) -> torch.Tensor:
+    """get_noise_zval (mesh_gen.cpp:733-751) on a whole grid of mesh coords.
+
+    `xval`/`yval` are in mesh-index units (world-x / DX_VAL); any shape.
+    `postproc`, if given, is applied to the raw fBm value *before* the
+    height scale (matching mesh_gen.cpp:749-750).
+    """
+    if octaves is None:
+        octaves = NUM_FREQ_COMP - start_eval_sin(mesh_scale) // N_RAND_SIN2
+    xy_scale = MESH_SCALE_FACTOR * mesh_scale
+    xv = xy_scale * xval
+    yv = xy_scale * yval
+    rx, ry = gen_rx_ry(mesh_seed, mesh_rgen_index, mode)
+    if mode == MGEN_DWARP_GPU:
+        xv, yv = domain_warp2d(xv, yv, rx, ry, shape=shape, octaves=octaves, seed=seed)
+    z = fbm2d(xv, yv, rx, ry, mode=mode, shape=shape, octaves=octaves, seed=seed)
+    if postproc is not None:
+        z = postproc(z)
+    return z * get_hmap_scale(mode, world.mesh_height)

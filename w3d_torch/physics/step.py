@@ -10,9 +10,12 @@ substep.
 
 Three hot pieces run as hand-written CUDA kernels behind the wrappers in
 `ops/cuda/`: mesh sampling (`sample_kernel`), the static-cobj narrow phase
-(`narrow_kernel`) and the banded pair pass (`pairs_kernel`).  Their plain
-PyTorch versions are `sample_mesh` and `banded_pair_collisions` here and
-`cobjs.deepest_hits_grouped`; the wrappers take those for CPU tensors.
+over a `GroupedCobjs` scene (`narrow_kernel`) and the banded pair pass
+(`pairs_kernel`).  Their plain PyTorch versions are `sample_mesh` and
+`banded_pair_collisions` here and `cobjs.deepest_hits_grouped`; the
+wrappers take those for CPU tensors.  A plain `CobjSet` scene takes the
+ungrouped `cobjs.deepest_hits` on every device, as the JAX package takes
+its XLA version.
 
 Reference quirk preserved: `advance_object`'s static-friction branch is
 dead code — its condition is `!(flags | IN_WATER)` (always false,
@@ -35,7 +38,7 @@ import torch
 
 from ..utils.constants import WorldConst, DEFAULT_WORLD
 from . import types as T
-from .cobjs import GroupedCobjs
+from .cobjs import CobjSet, GroupedCobjs, deepest_hits
 from ..ops.cuda import narrow_kernel as NK
 from ..ops.cuda import pairs_kernel as PK
 from ..ops.cuda import physics_kernel as GK
@@ -223,6 +226,20 @@ def banded_pair_collisions(px, py, pz, vx, vy, vz, radius, mass, elas, active,
 
 
 # ---------------------------------------------------------------------------
+# static-cobj narrow phase
+# ---------------------------------------------------------------------------
+
+def cobj_hits(px, py, pz, radius, cobjs: CobjSet | GroupedCobjs):
+    """(hit, pen, nx, ny, nz, elas, fric), each [N]: every sphere's deepest
+    cobj hit.  A shape-grouped scene takes the narrow-phase kernel on the
+    card; a plain CobjSet the all-shapes select on every device (the JAX
+    package's XLA path)."""
+    if isinstance(cobjs, GroupedCobjs):
+        return NK.deepest_hits(px, py, pz, radius, cobjs)
+    return deepest_hits(px, py, pz, radius, cobjs)
+
+
+# ---------------------------------------------------------------------------
 # per-type parameter fetch
 # ---------------------------------------------------------------------------
 
@@ -240,7 +257,8 @@ def _type_params(otype, table: T.ObjTypeTable):
 # one substep
 # ---------------------------------------------------------------------------
 
-def _substep(state: ObjectState, env: PhysicsEnv, cobjs: GroupedCobjs | None,
+def _substep(state: ObjectState, env: PhysicsEnv,
+             cobjs: CobjSet | GroupedCobjs | None,
              table: T.ObjTypeTable, tstep: float, world: WorldConst,
              run_pairs: bool, pair_window: int = PAIR_WINDOW,
              water: bool = True) -> ObjectState:
@@ -420,7 +438,7 @@ def _substep(state: ObjectState, env: PhysicsEnv, cobjs: GroupedCobjs | None,
     # --- static cobj collisions ---
     cobj_hit = torch.zeros_like(alive)
     if cobjs is not None and cobjs.size > 0:
-        hit, pen, cnx, cny, cnz, celas, cfric = NK.deepest_hits(px, py, pz, rad, cobjs)
+        hit, pen, cnx, cny, cnz, celas, cfric = cobj_hits(px, py, pz, rad, cobjs)
         hit = hit & alive & ~wcoll
         px = px + torch.where(hit, pen * cnx, 0.0)
         py = py + torch.where(hit, pen * cny, 0.0)
@@ -519,7 +537,7 @@ def _substep(state: ObjectState, env: PhysicsEnv, cobjs: GroupedCobjs | None,
 def step_objects(
     state: ObjectState,
     env: PhysicsEnv,
-    cobjs: GroupedCobjs | None,
+    cobjs: CobjSet | GroupedCobjs | None,
     table: T.ObjTypeTable,
     tstep: float = T.DEF_TIMESTEP,
     substeps: int = 4,

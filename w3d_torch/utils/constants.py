@@ -15,6 +15,7 @@ from functools import cached_property
 # Defaults: matrix_ops.cpp:9-16
 DEF_MESH_X_SIZE = 128
 DEF_MESH_Y_SIZE = 128
+DEF_MESH_Z_SIZE = 32
 DEF_X_SCENE_SIZE = 4.0
 DEF_Y_SCENE_SIZE = 4.0
 DEF_Z_SCENE_SIZE = 4.0
@@ -30,6 +31,7 @@ class WorldConst:
 
     mesh_x: int = DEF_MESH_X_SIZE
     mesh_y: int = DEF_MESH_Y_SIZE
+    mesh_z: int = DEF_MESH_Z_SIZE
     x_scene: float = DEF_X_SCENE_SIZE
     y_scene: float = DEF_Y_SCENE_SIZE
     z_scene: float = DEF_Z_SCENE_SIZE
@@ -38,6 +40,10 @@ class WorldConst:
     @cached_property
     def mesh_height(self) -> float:
         return 0.10 * self.z_scene
+
+    @cached_property
+    def xy_scene(self) -> float:
+        return 0.5 * (self.x_scene + self.y_scene)
 
     @cached_property
     def dx(self) -> float:

@@ -1,12 +1,16 @@
-"""Where the time goes on the GPU: trace the main path's two halves and the
-fused frame.
+"""Where the time goes on the GPU: trace the main path's two halves, the
+fused frame and the chained ground frame.
 
     python3 -m w3d_torch.utils.profile_step [--table PATH]
 
 Runs one 256-tile terrain call, 10K-ball physics frames (10 substeps,
-pair pass every 5th and every substep, no water) and 10K-ball fused frames
-(`step_objects_fused`, pair pass every 5th) at the main path's shapes under
-`torch.profiler`, after two warm-up calls each.  For each it
+pair pass every 5th and every substep, no water), 10K-ball fused frames
+(`step_objects_fused`, pair pass every 5th) at the main path's shapes, and
+8 chained ground frames (`ground_frames_chained`, 2,000 balls, 4
+substeps) on the grouped spheres world with smoke and on the eroded
+simplex terrain with the plain CobjSet of `kernel_probe.wide_scene(8)`
+(the ungrouped narrow phase), under `torch.profiler`, after two warm-up
+calls each.  For each it
 prints the host wall time per call, the device-busy time per call (the
 union of the CUDA kernel intervals in the trace) and its share of the
 wall, the kernels launched per call, and the kernels that take the most
@@ -22,11 +26,19 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from ..gameplay import player as PL
 from ..models import physics_model as PM
 from ..models import terrain_model as TMOD
+from ..models import world as WM
+from ..ops import erosion as E
+from ..ops import noise as N
 from ..ops.cuda import build
 from ..physics import step as PS
+from ..scene import cobj as SC
+from ..terrain import mesh as TM
+from ..water import ripples as WR
 from .constants import WorldConst
+from .kernel_probe import LIGHT_GRID, wide_scene
 
 
 def device_busy(prof) -> tuple[float, int, list]:
@@ -109,6 +121,32 @@ def main() -> None:
         box[0] = PS.step_objects_fused(box[0], sw0.env, sw0.cobjs, sw0.table,
                                        substeps=10, world=world, pair_every=5)
     trace("physics 10K fused, pair_every=5", fused, 8, tables)
+
+    gpos, gvel = PM.spawn(2000, gen, device=dev)
+    gsw = PM.build_spheres_world(gpos, gvel, world=world, device=dev)
+    smoke = torch.zeros(LIGHT_GRID, device=dev)
+    smoke[4, 64, 64] = 50.0
+    ter = TM.gen_terrain(TM.TerrainConfig(mode=N.MGEN_SIMPLEX, erosion_iters=512,
+                                          water_h_off_rel=0.09), world,
+                         angles=E.draw_angles(512, 1024, 256, gen, device=dev),
+                         device=dev)
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)
+    fenv = PS.PhysicsEnv(mesh_height=ter.mesh_height, water_plane_z=ter.water_plane_z,
+                         wind=f32([0.4, 0.2, 0.0]), temperature=f32(20.0),
+                         base_gravity=f32(1.0), zmin=ter.zmin)
+    mv = torch.zeros((8, 2), device=dev)
+    for label, env, cobjs, smk in (
+            ("grouped spheres world, smoke", gsw.env, gsw.cobjs, smoke),
+            ("simplex terrain, plain CobjSet wide_scene(8)", fenv,
+             SC.pack_cobjs(wide_scene(8), device=dev), None)):
+        box = [gsw.state]
+
+        def chunk(env=env, cobjs=cobjs, smk=smk):
+            box[0] = WM.ground_frames_chained(
+                box[0], env, cobjs, gsw.table,
+                WR.make_ripples(world.mesh_y, world.mesh_x, device=dev),
+                PL.make_player(device=dev), mv, world, 8, smoke=smk)[0]
+        trace(f"ground 2,000 balls x 8 chained frames, {label}", chunk, 2, tables)
     if args.table:
         with open(args.table, "w") as f:
             f.write("\n\n".join(tables) + "\n")
