@@ -39,6 +39,22 @@ Phases, each fatal on failure (no phase hides an error):
       shapes; A in `gen_terrain` bitwise against its plain walk; and on a
       32^2 world, 4 chained frames (grouped and plain scenes) and 60
       player ticks on the card against the same calls on the CPU.
+   e. scene loading and the ground app loop (`w3d_torch.app.run_ground`)
+      at its defaults (2,000 objects, 32 frames a chained call, the 128^2
+      x 32 mesh), from config and scene files written to a temporary
+      directory: scene P, a DSL scene of ~350 cobjs (a carved plate,
+      crates, pillars, spheres, ramps, a hollow cylinder, 200 random
+      spheres, a continuous and a K-triggered platform) with 40 trees,
+      scenery, two sphere materials and the water raised into the map
+      ("water_h_off 0.09 0"): `load_scene`'s time, then 64 frames of the
+      per-frame path (ms per frame, the median of the second 32; launches
+      per frame; live; the platforms' travel); scene C, the same without
+      the platforms, 2 x 32 chained frames; scene H, a seeded 16-bit PNG
+      heightmap with a three-brush journal eroded by 2,000 droplets
+      (`load_scene`'s time, A bitwise against its plain walk); and scene
+      P at 32^2 with 64 balls loaded on the card and on the CPU (every
+      tensor bitwise), then 4 `ground_frame`s on each (1e-5, status and
+      flags equal).
    Prints time to first result, tiles/s and frames/s, and fails if a
    kernel was never launched or a value is not finite.
 4. Each kernel against its plain PyTorch version on the card, at its
@@ -70,11 +86,14 @@ last line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -113,6 +132,9 @@ TOLS = {"erosion": "bitwise equal to the plain version and across two runs",
         "diffuse_smoke": "bitwise equal to the plain version"}
 
 
+SCENE_FRAMES = 64
+
+
 def log(*a):
     print(*a, flush=True)
 
@@ -121,6 +143,182 @@ def need(cond, what: str) -> None:
     """Fail the run unless `cond` holds."""
     if not cond:
         raise RuntimeError(f"chip_smoke check failed: {what}")
+
+
+def run_scene_phase(tmp: str, dev, kernels: dict, reset_counts, read_counts) -> dict:
+    """Phase 3e in the directory `tmp`: scenes P, C and H and the card
+    against the CPU.  Returns the metrics and the kernel launches."""
+    from w3d_torch import app as APP
+    from w3d_torch.export import heightmap_io as HIO
+    from w3d_torch.models import world as WM
+    from w3d_torch.ops import erosion as E
+    from w3d_torch.ops.cuda import erosion_kernel as EK
+    from w3d_torch.physics import cobjs as PC
+    from w3d_torch.scene import loader as SL
+    from w3d_torch.terrain import mesh as TM
+    from w3d_torch.utils import kernel_probe as KP
+    from w3d_torch.utils.checkpoint import ModmapJournal
+
+    def write(name, text):
+        path = os.path.join(tmp, name)
+        with open(path, "w") as f:
+            f.write(text)
+        return path
+
+    cfg_p = KP.write_ground_scene(tmp, "p", objects=GROUND_OBJS)
+    cfg_c = KP.write_ground_scene(tmp, "c", platforms=False, objects=GROUND_OBJS)
+    out = {"launches": {n: 0 for n in kernels}}
+
+    def counted(label, required, fn):
+        reset_counts()
+        result = fn()
+        torch.cuda.synchronize()
+        c = read_counts(label, required)
+        for n in c:
+            out["launches"][n] += c[n]
+        return result, c
+
+    def app_rows(cfg, chain):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            scene = APP.run_ground(cfg, SCENE_FRAMES, GROUND_OBJS, chain=chain,
+                                   device=dev)
+        return scene, [json.loads(line) for line in buf.getvalue().splitlines()]
+
+    def check_objects(label, st):
+        for name in ("px", "py", "pz", "vx", "vy", "vz"):
+            need(bool(torch.isfinite(getattr(st, name)).all()), f"{label}: {name} finite")
+        live = int((st.status > 0).sum())
+        need(live > GROUND_OBJS // 2 and int(st.time.min()) == SCENE_FRAMES,
+             f"{label}: half the objects alive, every one aged {SCENE_FRAMES} frames")
+        return live
+
+    # scene P: the load (host work, the time to the first frame), then 64
+    # frames of the per-frame path through the app
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sp = SL.load_scene(cfg_p, device=dev)
+    torch.cuda.synchronize()
+    load_p = time.perf_counter() - t0
+    slots, live_c = sp.cobjs.size, int((sp.cobjs.shape != 0).sum())
+    log(f"scene P: load_scene {load_p:.3f} s; {live_c} cobjs in {slots} slots, "
+        f"{sp.platforms.size} platforms, {sp.triggers.x.shape[0]} triggers, "
+        f"{len(sp.trees[0])} trees, {int(sp.scenery.valid.sum())} scenery objects, "
+        f"material types {sp.mat_first}..{sp.table.radius.shape[0] - 1} "
+        f"({[m.name for m in sp.sphere_mats.materials]}), parse skipped "
+        f"{sp.parse.skipped}")
+    need(sp.platforms.size == 2 and sp.triggers.x.shape[0] == 1 and 250 < live_c <= slots
+         and not sp.parse.skipped and sp.mat_first > 0,
+         "scene P: two platforms, one trigger, a few hundred cobjs, materials")
+    (scene, rows), cp = counted("scene P app path", ("sample", "pairs"),
+                                lambda: app_rows(cfg_p, GROUND_CHAIN))
+    need(len(rows) == SCENE_FRAMES and "chained" not in rows[0],
+         "scene P: the platform scene runs frame by frame")
+    ms_p = statistics.median(r["ms"] for r in rows[SCENE_FRAMES // 2:])
+    live_p = check_objects("scene P", scene.objects)
+    travel = [round(float(v), 4) for v in scene.platforms.dist.cpu()]
+    states = scene.platforms.state.tolist()
+    log(f"scene P: {ms_p:.3f} ms per frame (median of frames 32-63, per-frame "
+        f"path), kernel launches per frame "
+        f"{ {n: c / SCENE_FRAMES for n, c in cp.items() if c} }, live {live_p} of "
+        f"{GROUND_OBJS} (rows: {rows[-1]['live']}), player z {rows[-1]['player_z']}, "
+        f"platform travel {travel}, states {states}")
+    need(rows[-1]["live"] == live_p and travel[1] > 0.0,
+         "scene P: the printed live count, the continuous platform moved")
+    # the plain narrow phase at scene P's shapes, device-only
+    st = scene.objects
+    nin = (st.px, st.py, st.pz, scene.table.radius[st.otype.long()])
+    narrow_ms = statistics.median(
+        KP.GraphTimer(lambda: PC.deepest_hits(*nin, scene.cobjs)).time() for _ in range(5))
+    log(f"scene P: ungrouped deepest_hits, N = {GROUND_OBJS}, M = {scene.cobjs.size} "
+        f"slots: device-only {narrow_ms:.4f} ms (CUDA graph of 20), 4 a frame: "
+        f"{100 * 4 * narrow_ms / ms_p:.1f}% of the frame's wall")
+
+    # scene C: the chained path, 2 x 32 frames
+    (scene, rows), cc = counted("scene C app path", ("sample", "pairs"),
+                                lambda: app_rows(cfg_c, GROUND_CHAIN))
+    need([r.get("chained") for r in rows] == [GROUND_CHAIN] * 2,
+         "scene C: two chained calls of 32 frames")
+    live_cc = check_objects("scene C", scene.objects)
+    ms_c = rows[1]["ms"]
+    log(f"scene C: {ms_c:.3f} ms per frame (second chained call of "
+        f"{GROUND_CHAIN}), kernel launches per frame "
+        f"{ {n: c / SCENE_FRAMES for n, c in cc.items() if c} }, live {live_cc} "
+        f"(rows: {[r['live'] for r in rows]}), {scene.cobjs.size} slots")
+    need(rows[-1]["live"] == live_cc, "scene C: the printed live count")
+
+    # scene H: a seeded 128^2 16-bit PNG and a journal of three brushes,
+    # eroded by 2,000 droplets (two batches through A)
+    rg = np.random.default_rng(7)
+    yy, xx = np.mgrid[0:128, 0:128] / 16.0
+    f = sum(rg.uniform(0.5, 1.0) * np.sin(rg.uniform(0.5, 1.5) * xx + rg.uniform(0, 6))
+            * np.cos(rg.uniform(0.5, 1.5) * yy + rg.uniform(0, 6)) for _ in range(5))
+    img = ((f - f.min()) / (f.max() - f.min()) * 60000 + 2000).astype(np.uint16)
+    HIO.write_png_gray(os.path.join(tmp, "hm.png"), img, bit_depth=16)
+    journal = ModmapJournal()
+    for brush in ((40, 50, 12, 0.3, 0), (90, 30, 20, -0.4, 1), (64, 100, 16, 0.25, 2)):
+        journal.add(*brush)
+    journal.save(os.path.join(tmp, "hm.modmap"))
+    cfg_h = write("cfg_h.txt", "mesh_size 128 128 32\nrand_seed 1\n"
+                  f"num_dodgeballs {GROUND_OBJS}\nread_heightmap 1\n"
+                  "mesh_height_image hm.png\nread_hmap_modmap_filename hm.modmap\n"
+                  "erosion_iters 2000\nwater_h_off -0.1 0\n")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sh, ch = counted("scene H load", ("erosion",), lambda: SL.load_scene(cfg_h, device=dev))
+    load_h = time.perf_counter() - t0
+    walk = EK.erosion_walk
+    EK.erosion_walk = E._walk_batch
+    try:
+        href = SL.load_scene(cfg_h, device=dev)
+    finally:
+        EK.erosion_walk = walk
+    flat = TM.terrain_from_heightmap(os.path.join(tmp, "hm.png"),
+                                     sh.cfg.terrain_config()._replace(erosion_iters=0),
+                                     sh.world, modmap=journal, device=dev)
+    same = all(torch.equal(a, b) for a, b in zip(sh.terrain, href.terrain))
+    deroded = float((sh.terrain.mesh_height - flat.mesh_height).abs().max())
+    log(f"scene H: load_scene {load_h:.3f} s (PNG read, journal, 2,000 droplets "
+        f"through A: {ch['erosion']} launches); A's map vs its plain walk "
+        f"bitwise {same}, max |eroded - uneroded| {deroded:.3g}")
+    need(same and deroded > 1e-3 and ch["erosion"] == 2,
+         "scene H: " + TOLS["erosion"].split(" and ")[0] + ", two batches")
+
+    # scene P at 32^2 with 64 balls, the card against the CPU: the fBm
+    # generator (elementwise, bitwise on both devices; the sine generator's
+    # einsum sums in another order on the card) with the water raised into
+    # the map
+    cfg_s = KP.write_ground_scene(tmp, "s", objects=64, small=True)
+    on = {d: SL.load_scene(cfg_s, device=d) for d in ("cpu", dev)}
+
+    def tensors(s):
+        return [(f"{part}.{name}", v) for part in ("terrain", "cobjs", "table", "objects",
+                                                   "env", "ripples", "light_grid",
+                                                   "platforms", "triggers", "scenery")
+                for name, v in getattr(s, part)._asdict().items() if v is not None]
+
+    unequal = [k for (k, a), (_, b) in zip(tensors(on["cpu"]), tensors(on[dev]))
+               if not torch.equal(a, b.cpu())]
+    for _ in range(4):
+        for d in on:
+            on[d] = WM.ground_frame(on[d])
+    a, b = on["cpu"].objects, on[dev].objects
+    worst = max(float((getattr(a, n) - getattr(b, n).cpu()).abs().max())
+                for n in ("px", "py", "pz", "vx", "vy", "vz"))
+    exact = all(torch.equal(getattr(a, n), getattr(b, n).cpu()) for n in ("status", "flags"))
+    plat = max(float((x.double() - y.cpu().double()).abs().max())
+               for x, y in zip(on["cpu"].platforms, on[dev].platforms))
+    live_s = (int((a.status > 0).sum()), int((b.status > 0).sum()))
+    log(f"scene P at 32^2, 64 balls, card vs CPU: load bitwise {not unequal} "
+        f"(unequal: {unequal}); 4 ground_frames: max diff {worst:.3g}, platforms "
+        f"{plat:.3g}, status and flags equal {exact}, live {live_s}")
+    need(not unequal and worst <= 1e-5 and plat <= 1e-5 and exact
+         and live_s[0] == live_s[1], "scene P at 32^2, card vs CPU: load bitwise, "
+         "frames 1e-5, status and flags equal")
+    out.update(scene_load_s=load_p, scene_load_s_heightmap=load_h,
+               ground_ms_per_frame_scene=ms_p, ungrouped_narrow_ms_scene=narrow_ms,
+               ground_ms_per_frame_scene_chained=ms_c)
+    return out
 
 
 def main() -> int:
@@ -548,6 +746,19 @@ def main() -> int:
             f"CPU: max diff {pw:.3g}, final z {float(pc.z[0]):.4f}")
         need(pw <= 1e-5, "player, card vs CPU: 1e-5")
 
+    # ---- 3e. scene loading and the ground app loop ------------------------
+    # at app.py's defaults (2,000 objects, 32 frames a chained call, the
+    # 128^2 x 32 mesh): scene P (a DSL scene with a continuous and a
+    # triggered platform: the per-frame path) and scene C (the same without
+    # the platforms: the chained path) through w3d_torch.app.run_ground;
+    # scene H (a 16-bit PNG heightmap with a brush journal, eroded by
+    # 2,000 droplets through A); and scene P at 32^2 on the card against
+    # the CPU
+    with tempfile.TemporaryDirectory() as tmp:
+        scene3e = run_scene_phase(tmp, dev, kernels, reset_counts, read_counts)
+    for n, c in scene3e["launches"].items():
+        launches[n] += c
+
     # ---- 4. kernels vs plain versions, main-path shapes ------------------
     # Each kernel device-only (a CUDA graph of 20 launches replayed between
     # CUDA events), in turns with its plain version (CUDA events around
@@ -947,7 +1158,8 @@ def main() -> int:
                     "ground_ms_per_frame_spheres": ground["spheres"]["ms_per_frame"],
                     "ground_ms_per_frame_fbm": ground["fbm"]["ms_per_frame"],
                     "gen_terrain_ms": gen_ms,
-                    "ungrouped_narrow_ms_2000x640": plain_narrow["graph_ms"]},
+                    "ungrouped_narrow_ms_2000x640": plain_narrow["graph_ms"],
+                    **{k: v for k, v in scene3e.items() if k != "launches"}},
         "card": smi}))
     log(json.dumps({"kernels": [
         {"name": srcs[n][0], "route": "cuda", "source": srcs[n][1],

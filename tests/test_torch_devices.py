@@ -5,6 +5,10 @@ raises for a CUDA tensor.
 
 Whether a card exists is decided inside the test, never at import."""
 
+import os
+import tempfile
+
+import numpy as np
 import pytest
 import torch
 
@@ -13,10 +17,14 @@ from w3d_torch.models import terrain_model as TMOD
 from w3d_torch.ops import erosion as E
 from w3d_torch.ops import noise as N
 from w3d_torch.gameplay import player as PL
+from w3d_torch.lighting import lmap as LM
+from w3d_torch.physics import platforms as PP
 from w3d_torch.physics import cobjs as PC
 from w3d_torch.physics import types as PT
 from w3d_torch.scene import cobj as SC
+from w3d_torch.scene import loader as SL
 from w3d_torch.terrain import mesh as TM
+from w3d_torch.utils.checkpoint import ModmapJournal
 from w3d_torch.utils.constants import WorldConst
 from w3d_torch.water import ripples as WR
 
@@ -29,6 +37,20 @@ def _spheres_world():
     pos = torch.zeros((4, 3))
     vel = torch.zeros((4, 3))
     return PM.build_spheres_world(pos, vel).state.px
+
+
+def _load_scene():
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "cfg.txt")
+        with open(path, "w") as f:
+            f.write("mesh_size 8 8 4\nnum_dodgeballs 2\ndisable_scenery 1\n")
+        return SL.load_scene(path).objects.px
+
+
+def _modmap():
+    j = ModmapJournal()
+    j.add(1, 1, 1, 0.5)
+    return j.apply(np.zeros((4, 4), np.float32))
 
 
 MAKERS = {
@@ -47,6 +69,12 @@ MAKERS = {
     "make_ripples": lambda: WR.make_ripples(4, 4).rval,
     "make_player": lambda: PL.make_player().x,
     "empty_cobjs": lambda: PC.empty_cobjs(4).r1,
+    "load_scene": _load_scene,
+    "make_light_grid": lambda: LM.make_light_grid(WorldConst(mesh_x=4, mesh_y=4,
+                                                             mesh_z=2)).smoke,
+    "build_platforms": lambda: PP.build_platforms([SC.PlatformSpec()]).fspeed,
+    "make_triggers": lambda: PP.make_triggers([0.0], [0.0], [0.0], [1.0], [0]).x,
+    "ModmapJournal.apply": _modmap,
     "gen_terrain": lambda: TM.gen_terrain(
         TM.TerrainConfig(mode=N.MGEN_SIMPLEX),
         WorldConst(mesh_x=8, mesh_y=8)).mesh_height,

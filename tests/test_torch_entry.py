@@ -122,11 +122,23 @@ def test_convert_round_trip():
 
 
 def test_import_leaves_jax_out():
-    code = ("import sys, w3d_torch, w3d_torch.entry, w3d_torch.convert, "
+    """Importing the port, its entry points and every module of scene
+    loading loads no jax, no module of the JAX package and nothing from
+    its directory (its compiled `native/` parser included)."""
+    code = ("import os, sys, w3d_torch, w3d_torch.entry, w3d_torch.convert, "
+            "w3d_torch.app, w3d_torch.scene.loader, w3d_torch.scene.cobj, "
+            "w3d_torch.scene.csg, w3d_torch.scene.model3d, "
+            "w3d_torch.scene.sphere_materials, w3d_torch.physics.platforms, "
+            "w3d_torch.veg.scenery, w3d_torch.lighting.lmap, "
+            "w3d_torch.export.heightmap_io, w3d_torch.utils.config, "
+            "w3d_torch.utils.checkpoint, "
             "w3d_torch.models.world, w3d_torch.gameplay.player, "
             "w3d_torch.water.ripples, w3d_torch.terrain.mesh; "
-            "bad = sorted(m for m in sys.modules if m == 'jax' "
-            "or m.startswith('jax.') or m == 'w3d' or m.startswith('w3d.')); "
+            "jaxdir = os.path.join(os.getcwd(), '3dworld_tpu'); "
+            "bad = sorted(m for m, v in sys.modules.items() if m == 'jax' "
+            "or m.startswith('jax.') or m == 'w3d' or m.startswith('w3d.') "
+            "or 'w3dnative' in m "
+            "or (getattr(v, '__file__', None) or '').startswith(jaxdir)); "
             "print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=REPO)
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

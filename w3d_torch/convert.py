@@ -4,13 +4,17 @@ The functions here take the JAX package's values after the caller has
 turned their arrays into numpy (e.g. `jax.tree.map(np.asarray, value)`),
 read them by field name, and build the port's tensors on a device, so both
 packages can compute on the same inputs.  Nothing here imports jax.
-`to_numpy` goes the other way, for comparisons and round trips.
+`ground_scene` carries a whole loaded scene: its host specs (config,
+scene parse, sphere materials) become the port's dataclasses of the same
+names.  `to_numpy` goes the other way, for comparisons and round trips.
 
 JAX keeps per-object and per-type flags as uint32; the port keeps them as
 int32 bit masks (every flag bit fits).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -23,6 +27,13 @@ from .models.physics_model import SpheresWorld
 from .water.ripples import RippleState
 from .gameplay.player import PlayerState
 from .terrain.mesh import TerrainState
+from .physics.platforms import PlatformSet, TriggerSet
+from .veg.scenery import ScenerySet
+from .lighting.lmap import LightGrid
+from .scene import cobj as SC, sphere_materials as SM
+from .scene.loader import GroundScene
+from .utils import config as CFG
+from .utils.constants import WorldConst
 
 _INT32_FIELDS = ("flags",)   # uint32 bit masks in JAX
 
@@ -104,6 +115,68 @@ def player_state(src, device) -> PlayerState:
 
 def terrain_state(src, device) -> TerrainState:
     return _named(TerrainState, src, device)
+
+
+def light_grid(src, device) -> LightGrid:
+    return _named(LightGrid, src, device)
+
+
+def platform_set(src, device) -> PlatformSet:
+    return _named(PlatformSet, src, device)
+
+
+def trigger_set(src, device) -> TriggerSet:
+    return _named(TriggerSet, src, device)
+
+
+def scenery_set(src, device) -> ScenerySet:
+    return _named(ScenerySet, src, device)
+
+
+_SPEC_MODULES = (SC, SM, CFG)   # where the host dataclasses' port twins live
+
+
+def host_spec(src):
+    """A host-side spec value (a dataclass of the scene parser, the sphere
+    materials or the config, nested in lists, tuples and dicts) -> the
+    same value built from the port's dataclasses of the same names."""
+    if dataclasses.is_dataclass(src) and not isinstance(src, type):
+        name = type(src).__name__
+        cls = next(getattr(m, name) for m in _SPEC_MODULES if hasattr(m, name))
+        return cls(**{f.name: host_spec(getattr(src, f.name))
+                      for f in dataclasses.fields(src)})
+    if isinstance(src, (list, tuple)):
+        return type(src)(host_spec(v) for v in src)
+    if isinstance(src, dict):
+        return {k: host_spec(v) for k, v in src.items()}
+    return src
+
+
+def ground_scene(src, device) -> GroundScene:
+    """A loaded GroundScene, its arrays as numpy: tensors on `device`,
+    host specs as the port's dataclasses, the trees as numpy."""
+    if src.voxel is not None:
+        raise NotImplementedError("voxel landscapes are not ported "
+                                  "(ROADMAP Queue 1, item 9)")
+    opt = lambda f, v: None if v is None else f(v, device)
+    w = src.world
+    return GroundScene(
+        cfg=host_spec(src.cfg),
+        world=WorldConst(mesh_x=w.mesh_x, mesh_y=w.mesh_y, mesh_z=w.mesh_z,
+                         x_scene=w.x_scene, y_scene=w.y_scene, z_scene=w.z_scene),
+        terrain=terrain_state(src.terrain, device),
+        cobjs=cobj_set(src.cobjs, device), table=type_table(src.table, device),
+        objects=object_state(src.objects, device),
+        env=physics_env(src.env, device),
+        ripples=ripple_state(src.ripples, device),
+        light_grid=opt(light_grid, src.light_grid),
+        sphere_mats=host_spec(src.sphere_mats), mat_first=src.mat_first,
+        parse=host_spec(src.parse),
+        platforms=opt(platform_set, src.platforms),
+        triggers=opt(trigger_set, src.triggers),
+        smoke_active=src.smoke_active,
+        trees=None if src.trees is None else tuple(np.asarray(a) for a in src.trees),
+        scenery=opt(scenery_set, src.scenery))
 
 
 def to_numpy(value):

@@ -8,8 +8,10 @@ call: the JAX package scans them on the device; here they are a Python
 loop of eager launches that never reads a device value back, so the host
 queues all K frames without waiting.
 
-Not ported yet: `ground_frame` (it reads a loaded `GroundScene`, with
-platforms), `with_valley_water`, and the tiled and universe modes.
+`ground_frame` steps a loaded `GroundScene` (scene/loader.py) by one
+frame: the platform and trigger pass, riders, physics, ripples and gated
+smoke.  Not ported yet: `with_valley_water`, and the tiled and universe
+modes.
 """
 
 from __future__ import annotations
@@ -20,6 +22,46 @@ from ..utils.constants import WorldConst
 from ..physics import step as PS
 from ..water import ripples as WR, smoke as WSM
 from ..gameplay import player as PL
+from ..physics import platforms as PP
+from ..scene.loader import GroundScene
+
+
+def ground_frame(scene: GroundScene, substeps: int = 4,
+                 obj_collisions: bool = True) -> GroundScene:
+    """One WMODE_GROUND frame: platforms + process_groups + ripples
+    (display() loop; platform/trigger pass = display_world.cpp:889).
+    Edits `scene` in place (objects, cobjs, platforms, ripples, the smoke
+    grid) and returns it; nothing reads a device value back."""
+    if scene.platforms is not None and scene.platforms.size > 0:
+        st0 = scene.objects
+        trig = None
+        if scene.triggers is not None and scene.triggers.x.shape[0] > 0:
+            trig = PP.eval_triggers(scene.triggers, st0.px, st0.py, st0.pz,
+                                    scene.platforms)
+        plats, mx, my, mz = PP.advance_platforms(scene.platforms, trig)
+        rad = scene.table.radius[st0.otype.long()]
+        dx, dy, dz = PP.rider_deltas(st0.px, st0.py, st0.pz, st0.status,
+                                     scene.cobjs, plats, mx, my, mz, rad)
+        scene.cobjs = PP.apply_platform_motion(scene.cobjs, plats, mx, my, mz)
+        scene.objects = st0._replace(px=st0.px + dx, py=st0.py + dy,
+                                     pz=st0.pz + dz)
+        scene.platforms = plats
+    st = PS.step_objects(scene.objects, scene.env, scene.cobjs, scene.table,
+                         substeps=substeps, world=scene.world,
+                         obj_collisions=obj_collisions)
+    wpz = scene.env.water_plane_z
+    inside = wpz > scene.terrain.mesh_height
+    depth = torch.clamp(wpz - scene.terrain.mesh_height, min=0.0)
+    ripples, _ = WR.step_ripples(scene.ripples, inside, depth)
+    # smoke diffusion over the lmcell grid every frame (distribute_smoke,
+    # smoke.cpp:184), gated by the HOST flag (set by whoever injects
+    # smoke), so no device value is read to decide
+    if scene.smoke_active and scene.light_grid is not None:
+        scene.light_grid = scene.light_grid._replace(
+            smoke=WSM.diffuse_smoke(scene.light_grid.smoke))
+    scene.objects = st
+    scene.ripples = ripples
+    return scene
 
 
 def ground_frames_chained(objects: PS.ObjectState, env: PS.PhysicsEnv, cobjs,

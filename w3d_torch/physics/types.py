@@ -257,3 +257,44 @@ def make_type_table(z_scene: float = 4.0, timestep: float = DEF_TIMESTEP,
 
 def type_id(name: str) -> int:
     return _TYPE_NAMES.index(name)
+
+
+def extend_table_with_materials(table: ObjTypeTable, mats,
+                                timestep: float = DEF_TIMESTEP):
+    """Append one type row per sphere material so thrown MAT_SPHEREs get
+    per-material physics through the regular type gather: density from
+    the material (`get_mat_sphere_density` sphere_materials.cpp:400),
+    elasticity from hardness (`cp.elastic = mat.hardness` :280), radius
+    scaled by radius_scale.  Returns (extended_table, first_type_id) —
+    material i spawns with otype = first_type_id + i.  The new rows are
+    built on the host and land on the table's device."""
+    base = type_id("MAT_SPHERE")
+    first = int(table.radius.shape[0])
+    m = len(mats)
+
+    def ext(col, vals=None):
+        a = col.cpu().numpy()
+        add = np.full(m, a[base], a.dtype) if vals is None \
+            else np.asarray(vals, a.dtype)
+        return torch.cat([col, torch.as_tensor(add, device=col.device)])
+
+    rad = np.array([table.radius.cpu().numpy()[base] * mt.radius_scale
+                    for mt in mats], np.float32)
+    dens = np.array([mt.density for mt in mats], np.float32)
+    elas = np.array([mt.hardness for mt in mats], np.float32)
+    mass = (150000.0 * dens * (4.0 / 3.0) * np.pi * rad ** 3)
+    return table._replace(
+        radius=ext(table.radius, rad),
+        air_factor=ext(table.air_factor),
+        friction=ext(table.friction),
+        gravity=ext(table.gravity),
+        elasticity=ext(table.elasticity, elas),
+        density=ext(table.density, dens),
+        terminal_vel=ext(table.terminal_vel),
+        mass=ext(table.mass, mass.astype(np.float32)),
+        lifetime=ext(table.lifetime),
+        health=ext(table.health),
+        damage=ext(table.damage),
+        flags=ext(table.flags),
+        min_t=ext(table.min_t),
+        max_t=ext(table.max_t)), first

@@ -6,7 +6,8 @@ the glaciation power curve (`apply_glaciate`), the sine-table builder
 (`gen_table_for`), and ground-mode `gen_terrain` in every generator mode:
 raw heights, the far-grid height-range estimate, glaciation, the overlay
 sine, and droplet erosion through `ops/erosion.erode` (kernel A on the
-card).  The heightmap loader (`terrain_from_heightmap`) is not ported yet.
+card); and the image-driven mesh (`terrain_from_heightmap`), which erodes
+the same way.
 """
 
 from __future__ import annotations
@@ -284,6 +285,81 @@ def gen_terrain(cfg: TerrainConfig = TerrainConfig(),
         zbottom = torch.min(zg)
         ztop = torch.max(zg)
 
+    return TerrainState(
+        mesh_height=zg, zmin=-zmax_est, zmax=zmax_est, zmax_est=zmax_est,
+        zbottom=zbottom, ztop=ztop, water_plane_z=wpz, height_histogram=hist,
+    )
+
+
+def _bilinear_resize_np(img, ny: int, nx: int):
+    """heightmap_t::resize equivalent (host-side, load-time only)."""
+    img = np.asarray(img, np.float32)
+    oy, ox = img.shape
+    if (oy, ox) == (ny, nx):
+        return img
+    ys = np.linspace(0.0, oy - 1.0, ny)
+    xs = np.linspace(0.0, ox - 1.0, nx)
+    y0 = np.clip(np.floor(ys).astype(int), 0, oy - 2)
+    x0 = np.clip(np.floor(xs).astype(int), 0, ox - 2)
+    fy = (ys - y0)[:, None]
+    fx = (xs - x0)[None, :]
+    a = img[y0][:, x0]
+    b = img[y0][:, x0 + 1]
+    c = img[y0 + 1][:, x0]
+    d = img[y0 + 1][:, x0 + 1]
+    return (a * (1 - fy) * (1 - fx) + b * (1 - fy) * fx
+            + c * fy * (1 - fx) + d * fy * fx)
+
+
+def terrain_from_heightmap(path: str, cfg: TerrainConfig = TerrainConfig(),
+                           world: WorldConst = DEFAULT_WORLD,
+                           modmap=None, invert: bool = False,
+                           angles: torch.Tensor | None = None,
+                           device: torch.device | str = "cuda") -> TerrainState:
+    """Image-driven mesh: `mesh_height_image` config -> pixels ->
+    scale_mh_texture_val heights -> resize to the mesh dims (host) ->
+    optional brush-journal replay (`utils/checkpoint.ModmapJournal`) ->
+    zmax_est / water plane / erosion (read_mesh_height_image,
+    mesh_gen.cpp:135-160; no glaciation, which belongs to the generated
+    path only).  With `cfg.erosion_iters > 0` the map erodes through
+    `ops/erosion.erode` (kernel A on the card) as `gen_terrain`'s does, so
+    `angles` [ceil(erosion_iters / 1024), 256, 1024] must be given.  The
+    histogram is a sorted, edge-padded strided sample of 1,024 heights."""
+    from ..export import heightmap_io as HIO
+    z = HIO.read_heightmap(path, mesh_height_scale=cfg.mesh_height_scale,
+                           invert=invert)
+    z = _bilinear_resize_np(z, world.mesh_y, world.mesh_x)
+    zg = torch.as_tensor(np.asarray(z, np.float32), device=device)
+    if modmap is not None:
+        zg = modmap.apply(zg)
+    zmin = torch.min(zg)
+    zmax = torch.max(zg)
+    # estimate_zminmax (mesh_gen.cpp:447-464)
+    zmax_est = torch.clamp(torch.maximum(zmax, -zmin), min=1e-6)
+    wpz = water_z_height(zmax_est, cfg)
+    zbottom = zmin
+    ztop = zmax
+    if cfg.erosion_iters > 0:
+        if angles is None:
+            raise ValueError("terrain_from_heightmap: erosion_iters > 0 needs "
+                             "the erosion angles (ops/erosion.draw_angles)")
+        eparams = E.ErosionParams(
+            erode_amount=cfg.erode_amount,
+            water_plane_z=wpz,
+            half_dxy=world.half_dxy,
+            zmin=-zmax_est, zmax=zmax_est,
+            rock_thresh=clip_hd1(cfg),
+            relh_adj_tex=cfg.relh_adj_tex,
+        )
+        zg = E.erode(zg[None], cfg.erosion_iters, eparams, angles,
+                     min_zval=zbottom, pad=E.PAD)[0]
+        zbottom = torch.min(zg)
+        ztop = torch.max(zg)
+    # histogram: sorted sample of the image heights (the generated path
+    # samples raw noise; here the image IS the raw height field)
+    samp = zg.reshape(-1)[:: max(1, zg.numel() // 1024)][:1024]
+    samp = torch.cat([samp, samp[-1:].expand(1024 - samp.shape[0])])
+    hist = torch.sort(samp).values
     return TerrainState(
         mesh_height=zg, zmin=-zmax_est, zmax=zmax_est, zmax_est=zmax_est,
         zbottom=zbottom, ztop=ztop, water_plane_z=wpz, height_histogram=hist,

@@ -312,6 +312,81 @@ def wide_scene(copies: int, SC=None, seed: int = 5):
     return sp
 
 
+# The ground scene of chip_smoke.py's phase 3e (scene P): a ground plate with a carved hole, stepped rows of
+# crates, pillars, posts, spheres, a capsule, a torus, ramps, a hollow
+# cylinder, a lift under the hole triggered by K and a continuous slider,
+# and 200 random spheres; scene C leaves out the platform block
+SCENE_HEAD = """
+l 0.7 0.55 0.5 0.45 1.0 -1
+B -3.0 3.0 -3.0 3.0 -0.3 0.0
+n 1
+B -0.6 0.6 -0.6 0.6 -0.3 0.0
+n 0
+l 0.5 0.6 0.4 0.2 1.0 -1
+B -2.8 -2.6 2.0 2.2 0.0 0.2
+D 0.3 0 0 15
+B -2.8 -2.6 -2.4 -2.2 0.0 0.2
+D 0.3 0 0 15  0 0 0.02
+l 0.9 0.8 0.8 0.8 1.0 -1
+C 1.5 1.5 0.0  1.5 1.5 0.8  0.15 0.15
+D 0 -0.6 0 5
+C -1.5 -1.0 0.0  -1.0 -1.5 0.4  0.08 0.08
+D 0 0.5 0 5
+S 2.2 -2.2 0.3 0.3
+D -0.6 0 0 6
+k -2.0 0.5 0.1  -1.2 0.9 0.3  0.1 0.1
+z 0.0 -2.0 0.2  0 0 1  0.35 0.06
+P 4  -2.5 -0.5 0.0  -1.5 -0.5 0.6  -1.5 0.5 0.6  -2.5 0.5 0.0  0.05
+P 3  2.0 0.0 0.0  2.8 0.0 0.0  2.4 0.6 0.5  0.05
+c 0.0 2.6 0.0  0.0 2.6 0.6  0.4 0.35  12
+"""
+SCENE_PLATFORMS = """
+K 0.0 0.0 0.3  1.5 0 0  0 0
+Q 1  0.5 0.5 0.5 0.5  0.6 0.0  0 0 0  0 0 1  0
+B -0.5 0.5 -0.5 0.5 -0.35 -0.3
+K
+Q 1  1.0 1.0 0.0 0.2  0.8 0.0  0 0 0  1 0 0  1
+B 1.0 1.6 -0.4 0.2 0.0 0.1
+Q 0
+"""
+SCENE_TAIL = "rand_spheres 200  0 0 0  2.8 0.03 0.08\n"
+SPHERE_MATS = """hardness 0.6
+density 2.0
+radius_scale 1.2
+diffuse_color 0.9 0.2 0.1
+add_material rubber
+hardness 0.9
+density 0.5
+radius_scale 0.8
+metalness 1
+add_material steel
+"""
+
+
+def write_ground_scene(dirname: str, name: str, platforms: bool = True,
+                       objects: int = 2000, small: bool = False) -> str:
+    """Write the ground scene (with or without its platforms), its two
+    sphere materials and a config that loads them into `dirname`; return
+    the config's path.  The config: the default 128^2 x 32 sine mesh with
+    40 trees, scenery and the water raised by "water_h_off 0.09 0"; or,
+    `small`, a 32^2 fBm mesh (bitwise on the card and the CPU) with the
+    water raised into its height range."""
+    def write(fn, text):
+        path = os.path.join(dirname, fn)
+        with open(path, "w") as f:
+            f.write(text)
+        return path
+
+    write(f"scene_{name}.txt", SCENE_HEAD + (SCENE_PLATFORMS if platforms else "")
+          + SCENE_TAIL)
+    write("mats.txt", SPHERE_MATS)
+    mesh = ("mesh_size 32 32 8\nmesh_gen_mode 2\nwater_h_off 0.053 0\n" if small
+            else "mesh_size 128 128 32\nwater_h_off 0.09 0\n")
+    return write(f"cfg_{name}.txt", mesh + "rand_seed 1\nmesh_seed 1\nntrees 40\n"
+                 f"num_dodgeballs {objects}\nsphere_materials_fn mats.txt\n"
+                 f"load_coll_objs 1\ncoll_obj_file scene_{name}.txt\n")
+
+
 def pair_work(px, py, pz, radius, active, window: int,
               i_limit: int | None = None) -> tuple[int, int]:
     """(valid pairs in the band, overlapping pairs): the pair tests and

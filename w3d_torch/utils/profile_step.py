@@ -9,8 +9,11 @@ pair pass every 5th and every substep, no water), 10K-ball fused frames
 8 chained ground frames (`ground_frames_chained`, 2,000 balls, 4
 substeps) on the grouped spheres world with smoke and on the eroded
 simplex terrain with the plain CobjSet of `kernel_probe.wide_scene(8)`
-(the ungrouped narrow phase), under `torch.profiler`, after two warm-up
-calls each.  For each it
+(the ungrouped narrow phase), and 4 frames of `ground_frame` on the
+loaded ground scene of `chip_smoke.py`'s phase 3e (scene P:
+`kernel_probe.write_ground_scene`, 2,000 material spheres, 384 cobj slots,
+two moving platforms), under `torch.profiler`, after two warm-up calls
+each.  For each it
 prints the host wall time per call, the device-busy time per call (the
 union of the CUDA kernel intervals in the trace) and its share of the
 wall, the kernels launched per call, and the kernels that take the most
@@ -21,6 +24,7 @@ Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
+import tempfile
 import time
 
 import torch
@@ -35,10 +39,11 @@ from ..ops import noise as N
 from ..ops.cuda import build
 from ..physics import step as PS
 from ..scene import cobj as SC
+from ..scene import loader as SL
 from ..terrain import mesh as TM
 from ..water import ripples as WR
 from .constants import WorldConst
-from .kernel_probe import LIGHT_GRID, wide_scene
+from .kernel_probe import LIGHT_GRID, wide_scene, write_ground_scene
 
 
 def device_busy(prof) -> tuple[float, int, list]:
@@ -147,6 +152,13 @@ def main() -> None:
                 WR.make_ripples(world.mesh_y, world.mesh_x, device=dev),
                 PL.make_player(device=dev), mv, world, 8, smoke=smk)[0]
         trace(f"ground 2,000 balls x 8 chained frames, {label}", chunk, 2, tables)
+    with tempfile.TemporaryDirectory() as tmp:
+        box = [SL.load_scene(write_ground_scene(tmp, "p"), device=dev)]
+
+        def frame():
+            box[0] = WM.ground_frame(box[0])
+        trace("ground_frame, loaded scene P (2,000 material spheres, "
+              f"{box[0].cobjs.size} slots, two platforms)", frame, 4, tables)
     if args.table:
         with open(args.table, "w") as f:
             f.write("\n\n".join(tables) + "\n")
