@@ -55,6 +55,26 @@ Phases, each fatal on failure (no phase hides an error):
       P at 32^2 with 64 balls loaded on the card and on the CPU (every
       tensor bitwise), then 4 `ground_frame`s on each (1e-5, status and
       flags equal).
+   f. FPS game mode and valley water: `app.run_ground(game=True)` at the
+      app's defaults (2,000 objects, 8 smileys, 64 frames) on scene P
+      eroded at load by 1,024 droplets (A at load; B and D every frame):
+      ms per frame (the median of frames 32-63), launches per frame,
+      shots (projectiles spawned, hitscan shots), explosions, smileys
+      alive and live objects; if those draws fired no projectile, no
+      hitscan shot or no explosion, a scripted match (a rocket, a bat and
+      an m16 on the floor plate) that makes them happen, reported apart;
+      `fill_valleys` on scene P's mesh with rain collected into its
+      basins (its time and the labels' apart, the wet share) and 8
+      `ground_frame`s over that water; and at 32^2, the card against the
+      CPU: 8 game frames with 64 objects and 4 smileys on the same draws,
+      from the config and on an armed scene (free slots, a grenade about
+      to go off, smileys with m16s and rockets in range) that must fire
+      projectiles and hitscan shots and explode (objects 1e-5, status,
+      flags, types, ages and the rows' shots, explosions, smileys and live
+      equal), the valley fill bitwise, and the local wind, movable push
+      and settle, one step of each particle pool, a group spawn, a blast,
+      cobj destruction, fragments and stepped heightfield rays within
+      1e-6.
    Prints time to first result, tiles/s and frames/s, and fails if a
    kernel was never launched or a value is not finite.
 4. Each kernel against its plain PyTorch version on the card, at its
@@ -318,6 +338,353 @@ def run_scene_phase(tmp: str, dev, kernels: dict, reset_counts, read_counts) -> 
     out.update(scene_load_s=load_p, scene_load_s_heightmap=load_h,
                ground_ms_per_frame_scene=ms_p, ungrouped_narrow_ms_scene=narrow_ms,
                ground_ms_per_frame_scene_chained=ms_c)
+    return out
+
+
+GAME_FRAMES = 64         # game mode at the app's defaults: 64 frames,
+GAME_SMILEYS = 8         # app.py's --smileys default
+GAME_EROSION = 1024      # droplets eroding scene P at load (one batch through A)
+FORCED_FRAMES = 48       # the scripted match of two smileys, if needed
+VALLEY_FRAMES = 8        # ground frames over the valley water
+VALLEY_RAIN = 0.05       # rain per cell collected into the basins (scene units)
+SMALL_GAME = (64, 4, 8)  # objects, smileys and frames of the card-vs-CPU game
+
+
+def run_game_phase(tmp: str, dev, kernels: dict, reset_counts, read_counts) -> dict:
+    """Phase 3f in the directory `tmp`: FPS game mode at the app's defaults
+    on scene P (eroded at load through A), a scripted match if the default
+    draws fire no projectile, no hitscan shot or no explosion, valley water
+    with ground frames over it, and the card against the CPU at 32^2.
+    Returns the metrics and the kernel launches."""
+    from w3d_torch import app as APP
+    from w3d_torch.gameplay import ai as AI
+    from w3d_torch.gameplay import game as GG
+    from w3d_torch.models import world as WM
+    from w3d_torch.ops import ray as RAY
+    from w3d_torch.physics import destroy as PD
+    from w3d_torch.physics import groups as PG
+    from w3d_torch.physics import movable as MV
+    from w3d_torch.physics import particles as PPT
+    from w3d_torch.physics import step as PS
+    from w3d_torch.physics import types as PT
+    from w3d_torch.physics.cobjs import empty_cobjs, COLL_CUBE
+    from w3d_torch.scene import loader as SL
+    from w3d_torch.utils import kernel_probe as KP
+    from w3d_torch.utils.constants import WorldConst
+    from w3d_torch.water import valleys as WV
+
+    out = {"launches": {n: 0 for n in kernels}}
+    fired = {"projectile": 0, "hitscan": 0}
+    fire_weapon, fire_hitscan = GG.fire_weapon, GG.fire_hitscan
+
+    def counted_weapon(state, free_slots, *a, **k):
+        fired["projectile"] += min(GG.WEAPONS[a[0]][5], len(free_slots))
+        return fire_weapon(state, free_slots, *a, **k)
+
+    def counted_hitscan(*a, **k):
+        fired["hitscan"] += 1
+        return fire_hitscan(*a, **k)
+
+    def rows_of(fn, *a, **k):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            result = fn(*a, **k)
+        return result, [json.loads(line) for line in buf.getvalue().splitlines()]
+
+    def add_counts(c):
+        for n in c:
+            out["launches"][n] += c[n]
+
+    cfg_g = KP.write_ground_scene(tmp, "g", objects=GROUND_OBJS, erosion_iters=GAME_EROSION)
+    GG.fire_weapon, GG.fire_hitscan = counted_weapon, counted_hitscan
+    try:
+        # game mode at the app's defaults: load (A) and 64 frames
+        GG.reset_fire_stream(0)
+        reset_counts()
+        scene, rows = rows_of(APP.run_ground, cfg_g, GAME_FRAMES, GROUND_OBJS, game=True,
+                              num_smileys=GAME_SMILEYS, device=dev)
+        torch.cuda.synchronize()
+        cg = read_counts("game path (load and 64 frames)", ("erosion", "sample", "pairs"))
+        add_counts(cg)
+        need(len(rows) == GAME_FRAMES and rows[0]["mode"] == "ground-game",
+             "game mode: one row a frame")
+        ms_game = statistics.median(r["ms"] for r in rows[GAME_FRAMES // 2:])
+        per_frame = {n: c / GAME_FRAMES for n, c in cg.items() if c and n != "erosion"}
+        booms = sum(r["explosions"] for r in rows)
+        live = int((scene.objects.status > 0).sum())
+        for name in ("px", "py", "pz", "vx", "vy", "vz"):
+            need(bool(torch.isfinite(getattr(scene.objects, name)).all()),
+                 f"game mode: {name} finite")
+        log(f"game mode, scene P eroded by {GAME_EROSION} droplets, {GROUND_OBJS} "
+            f"objects, {GAME_SMILEYS} smileys: {ms_game:.3f} ms per frame (median of "
+            f"frames 32-63), kernel launches per frame {per_frame}, A at load "
+            f"{cg['erosion']}; shots {rows[-1]['shots']} (projectiles spawned "
+            f"{fired['projectile']}, hitscan {fired['hitscan']}), explosions {booms}, "
+            f"smileys alive {rows[-1]['smileys']}, live objects {rows[-1]['live']}")
+        need(cg["erosion"] >= 1 and per_frame.get("sample", 0) > 0
+             and per_frame.get("pairs", 0) > 0 and rows[-1]["live"] == live,
+             "game mode: A at load, B and D every frame, the printed live count")
+        # the AI step alone on the scene's cobjs (every shape family of
+        # 72 line-of-sight rays over the slots): host clock around
+        # synchronised calls, and device-only (it syncs nothing, so a CUDA
+        # graph holds it)
+        sm0 = APP.GameDraws().smileys(GAME_SMILEYS, dev)
+        d0 = APP.GameDraws().ai(0, GAME_SMILEYS, dev)
+        ai_host = []
+        for _ in range(11):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            AI.step_smileys_ai(sm0, d0, scene.cobjs)
+            torch.cuda.synchronize()
+            ai_host.append((time.perf_counter() - t0) * 1e3)
+        ai_ms = statistics.median(ai_host[1:])
+        ai_dev = statistics.median(KP.GraphTimer(
+            lambda: AI.step_smileys_ai(sm0, d0, scene.cobjs)).time() for _ in range(3))
+        log(f"game mode: the AI step ({GAME_SMILEYS} smileys, {scene.cobjs.size} slots) "
+            f"{ai_ms:.3f} ms host clock, {ai_dev:.4f} ms device-only (CUDA graph of 20): "
+            f"{100 * ai_ms / ms_game:.1f}% of the game frame's wall")
+        out.update(ground_ms_per_frame_game=ms_game, game_shots=rows[-1]["shots"],
+                   game_explosions=booms, game_ai_ms=ai_ms, game_ai_device_ms=ai_dev)
+
+        if not (fired["projectile"] and fired["hitscan"] and booms):
+            # a scripted match over the scene's floor plate (top z = 0), at
+            # the first spots of a grid that see each other: smiley A (team
+            # 0) fires rockets at B (team 1, a bat, out of its reach) 0.5
+            # away, aimed down at B's feet so they strike the plate (a cobj
+            # collision); C (team 0) fires an m16 at B from the side (a
+            # hitscan ray at A would pass A's muzzle and shoot its rockets
+            # down); a tenth of the objects dead (free slots)
+            sc = SL.load_scene(cfg_g, num_objects=GROUND_OBJS, device=dev)
+            st = sc.objects
+            sc.objects = st._replace(status=torch.where(
+                torch.arange(GROUND_OBJS, device=dev) >= GROUND_OBJS * 9 // 10, 0, st.status))
+            gy, gx = torch.meshgrid(torch.arange(-2.5, 1.51, 0.25, device=dev),
+                                    torch.arange(-2.5, 1.91, 0.25, device=dev), indexing="ij")
+            ax, ay = gx.reshape(-1), gy.reshape(-1)
+            by, cx = ay + 0.5, ax + 0.6
+            za, zb = torch.full_like(ax, 0.35), torch.full_like(ax, 0.07)
+            seen = (AI.los_visible(sc.cobjs, ax, ay, za, ax, by, zb)
+                    & AI.los_visible(sc.cobjs, ax, by, zb, ax, ay, za)
+                    & AI.los_visible(sc.cobjs, cx, by, za, ax, by, zb)
+                    & ((ax.abs() > 0.8) | ((by - 0.25).abs() > 1.2)))   # off the hole
+            need(bool(seen.any()), "scripted match: three spots in sight of each other")
+            k = int(torch.nonzero(seen)[0])
+            spots = torch.stack([torch.stack([ax[k], ay[k]]), torch.stack([ax[k], by[k]]),
+                                 torch.stack([cx[k], by[k]])])
+
+            class Scripted(APP.GameDraws):
+                def smileys(self, n, device):
+                    sm = AI.make_ai_smileys(spots[:, 0], spots[:, 1], [0, 1, 0], device=device)
+                    return sm._replace(
+                        z=torch.tensor([0.3, 0.02, 0.3], device=device),
+                        weapon=torch.tensor([GG.WEAPON_INDEX[w] for w in ("rocket", "bbbat", "m16")],
+                                            dtype=torch.int32, device=device))
+
+                def ai(self, frame, n, device):
+                    d = super().ai(frame, n, device)
+                    return d._replace(cadence=torch.ones_like(d.cadence))  # keep weapons
+
+            before = dict(fired)
+            reset_counts()
+            _, frows = rows_of(APP._run_ground_game, sc, None, FORCED_FRAMES, 3,
+                               draws=Scripted(5))
+            torch.cuda.synchronize()
+            add_counts(read_counts("scripted match", ("sample", "pairs")))
+            fbooms = sum(r["explosions"] for r in frows)
+            log(f"scripted match (rocket, bat, m16 at {spots.tolist()}, {FORCED_FRAMES} "
+                f"frames): shots "
+                f"{frows[-1]['shots']} (projectiles spawned "
+                f"{fired['projectile'] - before['projectile']}, hitscan "
+                f"{fired['hitscan'] - before['hitscan']}), explosions {fbooms}, smileys "
+                f"alive {frows[-1]['smileys']}, live objects {frows[-1]['live']}")
+            booms += fbooms
+        need(fired["projectile"] > 0 and fired["hitscan"] > 0 and booms > 0,
+             "game mode: a projectile, a hitscan shot and an explosion")
+    finally:
+        GG.fire_weapon, GG.fire_hitscan = fire_weapon, fire_hitscan
+
+    # valley water on scene P's mesh: rain collected into the basins; the
+    # labels and `fill_valleys` (which labels the mesh itself, as
+    # `with_valley_water` does) timed apart
+    mesh = scene.env.mesh_height
+    my, mx = mesh.shape
+
+    def timed_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, (time.perf_counter() - t0) * 1e3
+
+    labels, label_ms = timed_ms(lambda: WV.watershed_labels(mesh))
+    vols = WV.add_rain_volume(torch.zeros(my * mx, device=dev), labels, my, mx,
+                              VALLEY_RAIN, scene.world)
+    (lab, zval, water, wet), fill_ms = timed_ms(lambda: WV.fill_valleys(mesh, vols, scene.world))
+    wet_share = float(wet.float().mean())
+    nbasins = int(torch.unique(lab).numel())
+    scene = WM.with_valley_water(scene, vols)
+    reset_counts()
+    t0 = time.perf_counter()
+    for _ in range(VALLEY_FRAMES):
+        scene = WM.ground_frame(scene)
+    live = int((scene.objects.status > 0).sum())
+    valley_ms = (time.perf_counter() - t0) * 1e3 / VALLEY_FRAMES
+    cv = read_counts("valley-water frames", ("sample", "pairs"))
+    add_counts(cv)
+    in_water = int(((scene.objects.flags & PT.FL_IN_WATER) != 0).sum())
+    log(f"valley water on scene P's mesh ({nbasins} basins, rain {VALLEY_RAIN} a cell): "
+        f"watershed_labels {label_ms:.3f} ms, fill_valleys {fill_ms:.3f} ms, wet share "
+        f"{100 * wet_share:.1f}%; {VALLEY_FRAMES} ground frames over it {valley_ms:.3f} ms "
+        f"a frame, launches per frame "
+        f"{ {n: c / VALLEY_FRAMES for n, c in cv.items() if c} }, live {live}, in water "
+        f"{in_water}")
+    need(0.0 < wet_share < 1.0 and bool(torch.isfinite(scene.objects.pz).all()),
+         "valley water: part of the map wet, objects finite")
+    out.update(fill_valleys_ms=fill_ms, watershed_labels_ms=label_ms, valley_wet_share=wet_share)
+
+    # the card against the CPU at 32^2: game mode with the same draws, the
+    # valley fill, and the small modules on small inputs
+    nobj, nsm, nfr = SMALL_GAME
+    cfg_s = KP.write_ground_scene(tmp, "gs", objects=nobj, small=True)
+
+    class Armed(APP.GameDraws):
+        """Smileys within 0.6 of the middle, m16 and rocket in turns, their
+        weapons kept: hitscan shots and projectiles in the first frames."""
+        def smileys(self, n, device):
+            x, y, team = AI.draw_spawn(n, self._gen(0), spread=0.6)
+            sm = AI.make_ai_smileys(x, y, team, device=device)
+            return sm._replace(weapon=torch.tensor(
+                [GG.WEAPON_INDEX[("m16", "rocket")[k % 2]] for k in range(n)],
+                dtype=torch.int32, device=device))
+
+        def ai(self, frame, n, device):
+            d = super().ai(frame, n, device)
+            return d._replace(cadence=torch.ones_like(d.cadence))
+
+    def armed(d):
+        """The loaded 32^2 scene with a third of its objects dead (free
+        slots) and a grenade at slot 0 whose timer runs out in the first
+        frame (an explosion among the smileys), then the game loop."""
+        sc = SL.load_scene(cfg_s, num_objects=nobj, device=d)
+        st, i = sc.objects, torch.arange(nobj, device=d)
+        gren, first = PT.type_id("GRENADE"), i == 0
+        sc.objects = st._replace(
+            status=torch.where((i >= nobj // 3) & (i < 2 * nobj // 3), 0, st.status),
+            otype=torch.where(first, gren, st.otype),
+            time=torch.where(first, int(sc.table.lifetime[gren]) - 2, st.time),
+            px=torch.where(first, 0.2, st.px), py=torch.where(first, 0.0, st.py))
+        return APP._run_ground_game(sc, None, nfr, nsm, draws=Armed(5))
+
+    # the app from the config (the default draws), then the armed scene
+    res, armed_fired = {}, {}
+    GG.fire_weapon, GG.fire_hitscan = counted_weapon, counted_hitscan
+    try:
+        for d in ("cpu", dev):
+            GG.reset_fire_stream(0)
+            res[d] = rows_of(APP.run_ground, cfg_s, nfr, nobj, game=True, num_smileys=nsm,
+                             device=d)
+            GG.reset_fire_stream(0)
+            before = dict(fired)
+            res["armed", d] = rows_of(armed, d)
+            armed_fired[d] = {k: fired[k] - before[k] for k in fired}
+    finally:
+        GG.fire_weapon, GG.fire_hitscan = fire_weapon, fire_hitscan
+    keys = ("shots", "explosions", "smileys", "live")
+    worst, exact, same_rows = 0.0, True, True
+    for ka, kb in (("cpu", dev), (("armed", "cpu"), ("armed", dev))):
+        (a, ra), (b, rb) = res[ka], res[kb]
+        a, b = a.objects, b.objects
+        worst = max([worst] + [float((getattr(a, n) - getattr(b, n).cpu()).abs().max())
+                               for n in ("px", "py", "pz", "vx", "vy", "vz", "health")])
+        exact &= all(torch.equal(getattr(a, n), getattr(b, n).cpu())
+                     for n in ("status", "flags", "otype", "time"))
+        same_rows &= [[r[k] for k in keys] for r in ra] == [[r[k] for k in keys] for r in rb]
+    ra, rarm = res["cpu"][1], res["armed", dev][1]
+    armed_booms = sum(r["explosions"] for r in rarm)
+    need(rarm[-1]["shots"] > 0 and armed_booms > 0 and armed_fired[dev]["projectile"] > 0
+         and armed_fired[dev]["hitscan"] > 0 and armed_fired[dev] == armed_fired["cpu"],
+         "game mode at 32^2, armed: projectiles, hitscan shots and an explosion on both devices")
+    vout = {d: WV.fill_valleys(res[d][0].env.mesh_height,
+                               WV.add_rain_volume(torch.zeros(32 * 32, device=d),
+                                                  WV.watershed_labels(res[d][0].env.mesh_height),
+                                                  32, 32, VALLEY_RAIN, res[d][0].world),
+                               res[d][0].world) for d in ("cpu", dev)}
+    valley_bitwise = all(torch.equal(x, y.cpu()) for x, y in zip(vout["cpu"][:3], vout[dev][:3]))
+
+    def small_modules(d):
+        """local wind, movable push and settle, one step of each particle
+        pool and one group spawn on seeded inputs, on device `d`."""
+        rg = np.random.default_rng(12)
+        t = lambda v: torch.as_tensor(np.asarray(v, np.float32), device=d)
+        w = WorldConst(mesh_x=32, mesh_y=32)
+        mesh32 = t(0.2 * rg.standard_normal((32, 32)))
+        p3 = [t(rg.uniform(-3.5, 3.5, 256)) for _ in range(2)] + [t(rg.uniform(-0.5, 1.5, 256))]
+        o = list(PS.local_wind_field(*p3, t([0.4, -0.2, 0.1]), mesh32, w, -1.0, 2.0,
+                                     t_offset=1.3, seed=3))
+        c = empty_cobjs(8, device=d)
+        lo = np.array([[0, 0, 0], [1.005, 0, 0], [0, 0, 1.2], [3, 3, 0.5]], np.float32)
+        hi = lo + np.array([[1, 1, 1], [1, 1, 1], [1, 1, 0.5], [0.5, 0.5, 0.5]], np.float32)
+        p1, p2 = c.p1.clone(), c.p2.clone()
+        p1[:4], p2[:4] = t(lo), t(hi)
+        c = c._replace(shape=torch.where(torch.arange(8, device=d) < 4, COLL_CUBE, 0)
+                       .to(torch.int32), p1=p1, p2=p2,
+                       is_movable=torch.arange(8, device=d) < 4)
+        c = MV.push_movable_cobjs(c, t([0.04, 0.0, 0.03, -0.05] + [0] * 4),
+                                  t([0.01, 0.0, 0.0, 0.02] + [0] * 4))
+        c = MV.settle_movable_cobjs(c, 0.0)
+        o += [c.p1, c.p2]
+        g = torch.Generator().manual_seed(4)
+        n = 32
+        b8 = PPT.spawn_bubbles(PPT.make_bubbles(n, device=d), *(t(rg.uniform(-1, 1, 24))
+                                                                 for _ in range(5)))
+        o += list(PPT.step_bubbles(b8, t(0.025), t(0.2), t(10.0), 4.0)[0])
+        cl = PPT.spawn_clouds(PPT.make_clouds(n, device=d),
+                              *(t(rg.uniform(0, 0.2, 24)) for _ in range(10)))
+        o += list(PPT.step_clouds(cl, t(0.025), t([0.1, 0.0, 0.05]), t(-10.0), 1.0))
+        fi = PPT.spawn_fires(PPT.make_fires(n, device=d),
+                             *(t(rg.uniform(0, 0.2, 24)) for _ in range(4)))
+        fo, sd, sm = PPT.step_fires(fi, PPT.draw_fires(n, g, device=d), t(0.025),
+                                    t([0.1, 0.0, 0.0]), t(-10.0),
+                                    torch.zeros((32, 32), device=d), w)
+        o += list(fo) + [sd, sm]
+        de = PPT.spawn_decals(PPT.make_decals(n, device=d),
+                              *(t(rg.uniform(0, 1, 24)) for _ in range(8)),
+                              torch.zeros(24, dtype=torch.int32, device=d),
+                              torch.full((24,), 3, dtype=torch.int32, device=d))
+        o += list(PPT.step_decals(de))
+        table = PT.make_type_table(device=d)
+        st = PS.make_state(rg.uniform(-1, 1, (96, 3)), rg.normal(0, 1, (96, 3)),
+                           np.full(96, PT.type_id("BALL")), table)
+        st = st._replace(status=t(rg.uniform(size=96) > 0.5).to(torch.int32),
+                         time=t(rg.integers(0, 50, 96)).to(torch.int32))
+        o += list(PG.spawn_into_group(st, table, PG.draw_group(96, g, device=d),
+                                      PT.type_id("SAND"), 16))
+        # a blast over the four cubes, all destroyable, and their fragments
+        st = GG.apply_blast(st, 0.5, 0.5, 0.5, 1.6, 40.0)
+        c, hit = PD.destroy_coll_objs(c, PD.make_destroy_state(c, [PD.DESTROYABLE] * 8),
+                                      0.5, 0.5, 0.5, 1.6)
+        centers = 0.5 * (c.p1 + c.p2)[hit.cpu().numpy().nonzero()[0]].cpu().numpy()
+        o += [c.shape, hit.int()] + list(PD.spawn_fragments(st, table, centers, seed=77))
+        # stepped heightfield rays (the mesh sampler over [N, S] points)
+        rays = [t(rg.uniform(-3, 3, 256)), t(rg.uniform(-3, 3, 256)), t(rg.uniform(0.5, 2, 256))]
+        dirs = [t(rg.uniform(-1, 1, 256)), t(rg.uniform(-1, 1, 256)), t(rg.uniform(-1, -0.2, 256))]
+        hit_h, t_h = RAY.ray_heightfield(*rays, *dirs, t(np.full(256, 8.0)), mesh32, w)
+        return o + [hit_h.int(), t_h]
+
+    smods = [small_modules(d) for d in ("cpu", dev)]
+    mod_err = max(float((x.double() - y.cpu().double()).abs().max())
+                  for x, y in zip(*smods))
+    log(f"game mode at 32^2, {nobj} objects, {nsm} smileys, {nfr} frames, card vs CPU, "
+        f"from the config and armed: objects max diff {worst:.3g}, status, flags, types "
+        f"and ages equal {exact}, rows (shots, explosions, smileys, live) equal {same_rows} "
+        f"(shots {[r['shots'] for r in ra]}; armed {[r['shots'] for r in rarm]}, projectiles "
+        f"{armed_fired[dev]['projectile']}, hitscan {armed_fired[dev]['hitscan']}, "
+        f"explosions {armed_booms}); fill_valleys labels, levels and water bitwise "
+        f"{valley_bitwise}; wind, movable, particle pools, group spawn, blast, destroy, "
+        f"fragments and heightfield rays max diff {mod_err:.3g}")
+    need(worst <= 1e-5 and exact and same_rows and valley_bitwise and mod_err <= 1e-6,
+         "game mode at 32^2, card vs CPU: objects 1e-5, status, flags, types, ages and "
+         "rows equal, valleys bitwise, small modules 1e-6")
     return out
 
 
@@ -759,6 +1126,18 @@ def main() -> int:
     for n, c in scene3e["launches"].items():
         launches[n] += c
 
+    # ---- 3f. game mode and valley water -----------------------------------
+    # FPS game mode at the app's defaults (2,000 objects, 8 smileys, 64
+    # frames) on scene P eroded at load (A); a scripted rocket-against-m16
+    # match if the default draws fired no projectile, no hitscan shot or no
+    # explosion; valley water on scene P's mesh and 8 ground frames over
+    # it; and game mode, the valley fill and the small modules at 32^2 on
+    # the card against the CPU
+    with tempfile.TemporaryDirectory() as tmp:
+        game3f = run_game_phase(tmp, dev, kernels, reset_counts, read_counts)
+    for n, c in game3f["launches"].items():
+        launches[n] += c
+
     # ---- 4. kernels vs plain versions, main-path shapes ------------------
     # Each kernel device-only (a CUDA graph of 20 launches replayed between
     # CUDA events), in turns with its plain version (CUDA events around
@@ -1159,7 +1538,8 @@ def main() -> int:
                     "ground_ms_per_frame_fbm": ground["fbm"]["ms_per_frame"],
                     "gen_terrain_ms": gen_ms,
                     "ungrouped_narrow_ms_2000x640": plain_narrow["graph_ms"],
-                    **{k: v for k, v in scene3e.items() if k != "launches"}},
+                    **{k: v for k, v in scene3e.items() if k != "launches"},
+                    **{k: v for k, v in game3f.items() if k != "launches"}},
         "card": smi}))
     log(json.dumps({"kernels": [
         {"name": srcs[n][0], "route": "cuda", "source": srcs[n][1],

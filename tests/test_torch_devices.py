@@ -27,6 +27,9 @@ from w3d_torch.terrain import mesh as TM
 from w3d_torch.utils.checkpoint import ModmapJournal
 from w3d_torch.utils.constants import WorldConst
 from w3d_torch.water import ripples as WR
+from w3d_torch import app as APP
+from w3d_torch.gameplay import ai as AI, game as GG, spray as SP, teleport as TP
+from w3d_torch.physics import destroy as PD, particles as PPT
 
 
 def _generator():
@@ -45,6 +48,14 @@ def _load_scene():
         with open(path, "w") as f:
             f.write("mesh_size 8 8 4\nnum_dodgeballs 2\ndisable_scenery 1\n")
         return SL.load_scene(path).objects.px
+
+
+def _run_game():
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "cfg.txt")
+        with open(path, "w") as f:
+            f.write("mesh_size 8 8 4\nnum_dodgeballs 2\ndisable_scenery 1\n")
+        return APP.run_ground(path, 1, 2, game=True, num_smileys=2).objects.px
 
 
 def _modmap():
@@ -75,6 +86,19 @@ MAKERS = {
     "build_platforms": lambda: PP.build_platforms([SC.PlatformSpec()]).fspeed,
     "make_triggers": lambda: PP.make_triggers([0.0], [0.0], [0.0], [1.0], [0]).x,
     "ModmapJournal.apply": _modmap,
+    "make_ai_smileys": lambda: AI.make_ai_smileys([0.0], [0.0], [0]).x,
+    "make_smileys": lambda: GG.make_smileys([0.0], [0.0], [0]).x,
+    "make_weapon_states": lambda: GG.make_weapon_states(2).ammo,
+    "make_scores": lambda: GG.make_scores(2).score,
+    "make_destroy_state": lambda: PD.make_destroy_state(PC.empty_cobjs(4)).levels,
+    "make_surface_damage": lambda: PD.make_surface_damage(4, 4).damage,
+    "make_bubbles": lambda: PPT.make_bubbles(4).px,
+    "make_clouds": lambda: PPT.make_clouds(4).px,
+    "make_fires": lambda: PPT.make_fires(4).px,
+    "make_decals": lambda: PPT.make_decals(4).px,
+    "make_teleporters": lambda: TP.make_teleporters([[0, 0, 0, 1, 1, 1, 1, 0]]).sx,
+    "make_paint_grid": lambda: SP.make_paint_grid(WorldConst(mesh_x=4, mesh_y=4)),
+    "run_ground(game=True)": _run_game,
     "gen_terrain": lambda: TM.gen_terrain(
         TM.TerrainConfig(mode=N.MGEN_SIMPLEX),
         WorldConst(mesh_x=8, mesh_y=8)).mesh_height,

@@ -122,9 +122,10 @@ def test_convert_round_trip():
 
 
 def test_import_leaves_jax_out():
-    """Importing the port, its entry points and every module of scene
-    loading loads no jax, no module of the JAX package and nothing from
-    its directory (its compiled `native/` parser included)."""
+    """Importing the port, its entry points, every module of scene loading
+    and every module of ground physics and game mode loads no jax, no
+    module of the JAX package and nothing from its directory (its compiled
+    `native/` parser included)."""
     code = ("import os, sys, w3d_torch, w3d_torch.entry, w3d_torch.convert, "
             "w3d_torch.app, w3d_torch.scene.loader, w3d_torch.scene.cobj, "
             "w3d_torch.scene.csg, w3d_torch.scene.model3d, "
@@ -133,7 +134,12 @@ def test_import_leaves_jax_out():
             "w3d_torch.export.heightmap_io, w3d_torch.utils.config, "
             "w3d_torch.utils.checkpoint, "
             "w3d_torch.models.world, w3d_torch.gameplay.player, "
-            "w3d_torch.water.ripples, w3d_torch.terrain.mesh; "
+            "w3d_torch.water.ripples, w3d_torch.terrain.mesh, "
+            "w3d_torch.ops.ray, w3d_torch.physics.destroy, w3d_torch.physics.groups, "
+            "w3d_torch.physics.particles, w3d_torch.physics.movable, "
+            "w3d_torch.water.valleys, w3d_torch.gameplay.game, w3d_torch.gameplay.ai, "
+            "w3d_torch.gameplay.frame, w3d_torch.gameplay.waypoints, "
+            "w3d_torch.gameplay.teleport, w3d_torch.gameplay.spray; "
             "jaxdir = os.path.join(os.getcwd(), '3dworld_tpu'); "
             "bad = sorted(m for m, v in sys.modules.items() if m == 'jax' "
             "or m.startswith('jax.') or m == 'w3d' or m.startswith('w3d.') "

@@ -29,6 +29,7 @@ import jax.numpy as jnp
 import torch
 
 import w3d  # noqa: F401
+from w3d import app as JAPP
 from w3d.export import heightmap_io as JH
 from w3d.models import world as JWM
 from w3d.physics import platforms as JP
@@ -242,7 +243,9 @@ def _jax_frame_banded(s, substeps=4):
     """The JAX ground_frame, with the banded pair pass the port takes."""
     s = copy.copy(s)
     st0 = s.objects
-    trig = JP.eval_triggers(s.triggers, st0.px, st0.py, st0.pz, s.platforms)
+    trig = None
+    if s.triggers is not None and s.triggers.x.shape[0] > 0:
+        trig = JP.eval_triggers(s.triggers, st0.px, st0.py, st0.pz, s.platforms)
     plats, mx, my, mz = JP.advance_platforms(s.platforms, trig)
     rad = s.table.radius[st0.otype]
     dx, dy, dz = JP.rider_deltas(st0.px, st0.py, st0.pz, st0.status, s.cobjs,
@@ -322,7 +325,65 @@ def test_run_ground_matches_jax(tmp_path, name, chunk):
 
 
 @pytest.mark.parametrize("argv", [["--mode", "tiled"], ["--mode", "universe"],
-                                  ["--game"], ["--record", "x.json"], ["--spectate"]])
+                                  ["--record", "x.json"], ["--spectate"]])
 def test_main_refuses_unported_modes(argv):
     with pytest.raises(NotImplementedError, match="Queue 1"):
         TAPP.main(argv)
+
+
+def _jax_app_rows(monkeypatch, fn, *args, **kw):
+    """Rows the JAX app prints: its scene loaded under `jax.disable_jit`
+    (bitwise the port's), its per-frame `ground_frame` with the banded pair
+    pass the port takes."""
+    load = JL.load_scene
+
+    def load_op_by_op(*a, **k):
+        with jax.disable_jit():
+            return load(*a, **k)
+
+    monkeypatch.setattr(JL, "load_scene", load_op_by_op)
+    monkeypatch.setattr(JWM, "ground_frame", _jax_frame_banded)
+    return _run(fn, *args, **kw)[1]
+
+
+def _no_ms(rows):
+    return [{k: v for k, v in r.items() if k != "ms"} for r in rows]
+
+
+def test_run_ground_per_frame_rows_match_jax_app(tmp_path, monkeypatch):
+    """The per-frame path prints the JAX app's rows, `player_z` included:
+    the JAX app steps the player there on the default world's grid
+    (`app.py:49-50`), and so does the port.  At this mesh size (32^2) the
+    scene's own grid gives other heights: the player, falling from z = 1
+    onto the image terrain, lands about frame 39 (4 balls, one platform
+    off the player's path)."""
+    _write(tmp_path, "heightmap")            # the 16-bit image
+    (tmp_path / "plat.txt").write_text(
+        "Q 1  2.0 2.0 0.0 0.0  0.3 0.0  0 0 0  1 0 0  1\n"
+        "B 1.4 2.0 1.4 2.0 -0.9 -0.8\nQ 0\n")
+    (tmp_path / "cfg.txt").write_text(
+        "mesh_size 32 32 8\nrand_seed 3\nnum_dodgeballs 4\nread_heightmap 1\n"
+        "mesh_height_image hm.png\nwater_h_off -0.2 0\nload_coll_objs 1\n"
+        "coll_obj_file plat.txt\n")
+    path = str(tmp_path / "cfg.txt")
+    jrows = _jax_app_rows(monkeypatch, JAPP.run_ground, path, 44, 4)
+    _, trows = _run(TAPP.run_ground, path, 44, 4, chain=1, device="cpu")
+    assert [r["frame"] for r in trows] == list(range(44))
+    assert _no_ms(trows) == _no_ms(jrows)
+    fall = [a["player_z"] - b["player_z"] for a, b in zip(trows, trows[1:])]
+    assert fall[-1] < fall[-6]               # the fall slowed: it landed
+
+
+def test_main_chains_ground_mode_whatever_the_chunk(tmp_path, monkeypatch):
+    """`--chunk` is the tiled mode's: `main` runs ground mode on a scene
+    without platforms in chained calls of 32 frames, as the JAX `main`
+    does, so `--chunk 1` still prints chained rows in both packages."""
+    path = _write(tmp_path, "ntrees")
+    argv = ["--config", path, "--chunk", "1", "--frames", "6", "--objects", "16"]
+    monkeypatch.delenv("W3D_PLATFORM", raising=False)
+    jrows = _jax_app_rows(monkeypatch, JAPP.main, argv)
+    monkeypatch.setenv("W3D_PLATFORM", "cpu")
+    _, trows = _run(TAPP.main, argv)
+    keys = ("frame", "mode", "chained", "player_z")
+    assert [[r.get(k) for k in keys] for r in trows] == \
+        [[r.get(k) for k in keys] for r in jrows] == [[5, "ground", 6, trows[0]["player_z"]]]

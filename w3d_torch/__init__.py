@@ -15,6 +15,7 @@ Conventions:
   the plain PyTorch version for CPU tensors and the CUDA kernel for CUDA
   tensors (and raises rather than falling back).
 
-Currently ported: the combined world step (`entry.combined_step`) — the
-terrain tile batch and the spheres physics frame.
+Currently ported: the combined world step (`entry.combined_step`: the
+terrain tile batch and the spheres physics frame) and all of ground mode
+(`app.run_ground`, FPS game mode included); ROADMAP.md lists the rest.
 """

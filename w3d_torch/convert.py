@@ -6,7 +6,9 @@ read them by field name, and build the port's tensors on a device, so both
 packages can compute on the same inputs.  Nothing here imports jax.
 `ground_scene` carries a whole loaded scene: its host specs (config,
 scene parse, sphere materials) become the port's dataclasses of the same
-names.  `to_numpy` goes the other way, for comparisons and round trips.
+names.  The gameplay states (smileys, weapons, scores), the destroy and
+particle states, group specs, teleporters and waypoint graphs carry
+across field by field.  `to_numpy` goes the other way, for comparisons and round trips.
 
 JAX keeps per-object and per-type flags as uint32; the port keeps them as
 int32 bit masks (every flag bit fits).
@@ -30,6 +32,13 @@ from .terrain.mesh import TerrainState
 from .physics.platforms import PlatformSet, TriggerSet
 from .veg.scenery import ScenerySet
 from .lighting.lmap import LightGrid
+from .physics.destroy import DestroyState, SurfaceDamage
+from .physics.groups import GroupSpec
+from .physics.particles import BubblePool, CloudPool, FirePool, DecalPool
+from .gameplay.ai import SmileyAI
+from .gameplay.game import SmileyState, WeaponState, GameScore
+from .gameplay.teleport import Teleporters
+from .gameplay.waypoints import WaypointGraph
 from .scene import cobj as SC, sphere_materials as SM
 from .scene.loader import GroundScene
 from .utils import config as CFG
@@ -131,6 +140,60 @@ def trigger_set(src, device) -> TriggerSet:
 
 def scenery_set(src, device) -> ScenerySet:
     return _named(ScenerySet, src, device)
+
+
+def smiley_ai(src, device) -> SmileyAI:
+    return _named(SmileyAI, src, device)
+
+
+def smiley_state(src, device) -> SmileyState:
+    return _named(SmileyState, src, device)
+
+
+def weapon_state(src, device) -> WeaponState:
+    return _named(WeaponState, src, device)
+
+
+def game_score(src, device) -> GameScore:
+    return _named(GameScore, src, device)
+
+
+def destroy_state(src, device) -> DestroyState:
+    return _named(DestroyState, src, device)
+
+
+def surface_damage(src, device) -> SurfaceDamage:
+    return _named(SurfaceDamage, src, device)
+
+
+def bubble_pool(src, device) -> BubblePool:
+    return _named(BubblePool, src, device)
+
+
+def cloud_pool(src, device) -> CloudPool:
+    return _named(CloudPool, src, device)
+
+
+def fire_pool(src, device) -> FirePool:
+    return _named(FirePool, src, device)
+
+
+def decal_pool(src, device) -> DecalPool:
+    return _named(DecalPool, src, device)
+
+
+def teleporters(src, device) -> Teleporters:
+    return _named(Teleporters, src, device)
+
+
+def group_spec(src) -> GroupSpec:
+    """A GroupSpec (host values: type id, capacity, rate)."""
+    return GroupSpec(int(src.otype), int(src.capacity), float(src.app_rate))
+
+
+def waypoint_graph(src) -> WaypointGraph:
+    """A WaypointGraph (host numpy arrays, as in the JAX package)."""
+    return WaypointGraph(*(np.asarray(getattr(src, f)).copy() for f in WaypointGraph._fields))
 
 
 _SPEC_MODULES = (SC, SM, CFG)   # where the host dataclasses' port twins live

@@ -10,7 +10,8 @@ queues all K frames without waiting.
 
 `ground_frame` steps a loaded `GroundScene` (scene/loader.py) by one
 frame: the platform and trigger pass, riders, physics, ripples and gated
-smoke.  Not ported yet: `with_valley_water`, and the tiled and universe
+smoke; `with_valley_water` fills its terrain basins and feeds the water
+surface to the physics env.  Not ported yet: the tiled and universe
 modes.
 """
 
@@ -24,6 +25,18 @@ from ..water import ripples as WR, smoke as WSM
 from ..gameplay import player as PL
 from ..physics import platforms as PP
 from ..scene.loader import GroundScene
+
+
+def with_valley_water(scene: GroundScene, volumes_per_basin) -> GroundScene:
+    """Fill terrain basins and feed the per-cell water surface into the
+    physics env (water_matrix wiring: valleys -> check_water_collision).
+    Edits `scene` in place and returns it."""
+    from ..water import valleys as WV
+
+    _labels, _zv, water, _wet = WV.fill_valleys(
+        scene.env.mesh_height, volumes_per_basin, scene.world)
+    scene.env = scene.env._replace(water_height=water)
+    return scene
 
 
 def ground_frame(scene: GroundScene, substeps: int = 4,

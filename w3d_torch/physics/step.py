@@ -26,8 +26,9 @@ launch (`ops/cuda/physics_kernel`, plain version `physics/fused`) per
 substep in place of `_substep`'s ~400 small ops, with the sort and the
 banded pair pass between the launches.
 
-Not ported yet: the Morton, grid, block and rowblock pair paths,
-`spatial_sort_repair` and `local_wind_field`.
+`local_wind_field` is the batched local wind (plain PyTorch, as the JAX
+package leaves it to XLA).  Not ported: the Morton, grid, block and
+rowblock pair paths and `spatial_sort_repair` (ROADMAP: left out).
 """
 
 from __future__ import annotations
@@ -636,3 +637,44 @@ def step_objects_fused(
     time = s.time + 1
     status = torch.where((life > 0) & (time.to(torch.float32) > life), 0, s.status)
     return s._replace(time=time, status=status)
+
+
+def local_wind_field(px, py, pz, wind, mesh, world: WorldConst,
+                     zbottom, ztop, t_offset=0.0, seed: int = 0):
+    """Batched get_local_wind (Physics.cpp:649-676): under the mesh no
+    wind; near the surface the wind follows the terrain contour
+    (orthogonalized against the vertex normal, z damped 10x) blended by
+    (1 - rel_height)^2; pressure rises over hills; spatial intensity
+    modulates by a drifting hashed cell noise (the WIND_TEX lookup), the
+    cell hash in uint32 arithmetic as the JAX package's."""
+    from ..utils import rng as w3d_rng
+    dev = px.device
+    f32 = lambda v: torch.as_tensor(v, dtype=torch.float32, device=dev)
+    mh, nx, ny, nz = sample_mesh(mesh, px, py, world)
+    wx, wy, wz = wind[0], wind[1], wind[2]
+    d = wx * nx + wy * ny + wz * nz
+    ox = wx - d * nx
+    oy = wy - d * ny
+    oz = (wz - d * nz) * 0.1            # z component much smaller
+    span = torch.clamp(ztop - mh, min=1e-6)
+    rel = torch.clamp((pz - mh) / span, 0.0, 1.0)
+    hval = (1.0 - rel) * (1.0 - rel)
+    half = 0.5 * (ztop - zbottom)
+    pressure = torch.clamp(f32(half) / torch.clamp(ztop - mh, min=1e-6), max=2.0)
+    lwx = ox * hval + wx * (1.0 - hval)
+    lwy = oy * hval + wy * (1.0 - hval)
+    lwz = oz * hval + wz * (1.0 - hval)
+    # wind-texture intensity: hashed cell noise drifting with total wind
+    u32 = 0xFFFFFFFF
+    gx = (px * world.dx_inv + t_offset).to(torch.int32).to(torch.int64) & u32
+    gy = (py * world.dy_inv + t_offset).to(torch.int32).to(torch.int64) & u32
+    h = w3d_rng.xxhash_u32(((gx * 92837111) & u32) ^ gy, seed=seed)
+    tex = (h & 0xFFFF).to(torch.float32) / f32(65535.0)
+    inten = torch.clamp(1.0 - 2.0 * tex, 0.0, 1.0)
+    scale = pressure * (hval * inten + (1.0 - hval))
+    under = pz < mh
+    above = pz > ztop
+
+    def sel(lc, w):
+        return torch.where(under, 0.0, torch.where(above, w, lc * scale))
+    return sel(lwx, wx), sel(lwy, wy), sel(lwz, wz)

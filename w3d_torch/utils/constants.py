@@ -58,6 +58,10 @@ class WorldConst:
         return 0.5 * (self.dx + self.dy)
 
     @cached_property
+    def dxdy(self) -> float:
+        return self.dx * self.dy
+
+    @cached_property
     def dx_inv(self) -> float:
         return 1.0 / self.dx
 

@@ -364,13 +364,15 @@ add_material steel
 
 
 def write_ground_scene(dirname: str, name: str, platforms: bool = True,
-                       objects: int = 2000, small: bool = False) -> str:
+                       objects: int = 2000, small: bool = False,
+                       erosion_iters: int = 0) -> str:
     """Write the ground scene (with or without its platforms), its two
     sphere materials and a config that loads them into `dirname`; return
     the config's path.  The config: the default 128^2 x 32 sine mesh with
     40 trees, scenery and the water raised by "water_h_off 0.09 0"; or,
     `small`, a 32^2 fBm mesh (bitwise on the card and the CPU) with the
-    water raised into its height range."""
+    water raised into its height range.  `erosion_iters` droplets erode
+    the terrain at load (through kernel A on the card)."""
     def write(fn, text):
         path = os.path.join(dirname, fn)
         with open(path, "w") as f:
@@ -382,6 +384,8 @@ def write_ground_scene(dirname: str, name: str, platforms: bool = True,
     write("mats.txt", SPHERE_MATS)
     mesh = ("mesh_size 32 32 8\nmesh_gen_mode 2\nwater_h_off 0.053 0\n" if small
             else "mesh_size 128 128 32\nwater_h_off 0.09 0\n")
+    if erosion_iters:
+        mesh += f"erosion_iters {erosion_iters}\n"
     return write(f"cfg_{name}.txt", mesh + "rand_seed 1\nmesh_seed 1\nntrees 40\n"
                  f"num_dodgeballs {objects}\nsphere_materials_fn mats.txt\n"
                  f"load_coll_objs 1\ncoll_obj_file scene_{name}.txt\n")

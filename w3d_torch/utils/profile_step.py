@@ -1,5 +1,5 @@
 """Where the time goes on the GPU: trace the main path's two halves, the
-fused frame and the chained ground frame.
+fused frame, the chained ground frame and game mode.
 
     python3 -m w3d_torch.utils.profile_step [--table PATH]
 
@@ -13,8 +13,11 @@ simplex terrain with the plain CobjSet of `kernel_probe.wide_scene(8)`
 loaded ground scene of `chip_smoke.py`'s phase 3e (scene P:
 `kernel_probe.write_ground_scene`, 2,000 material spheres, 384 cobj slots,
 two moving platforms), under `torch.profiler`, after two warm-up calls
-each.  For each it
-prints the host wall time per call, the device-busy time per call (the
+each; then game mode on `chip_smoke.py`'s phase 3f scene (scene P eroded
+by 1,024 droplets, 8 smileys): one whole game frame of
+`app._run_ground_game`, and its parts, `ground_frame`, the AI step
+(`gameplay/ai.step_smileys_ai`) and `gameplay/frame.update_game_frame`.
+For each it prints the host wall time per call, the device-busy time per call (the
 union of the CUDA kernel intervals in the trace) and its share of the
 wall, the kernels launched per call, and the kernels that take the most
 device time.  `--table` writes the profiler's full operator tables to a file.
@@ -102,6 +105,47 @@ def main() -> None:
     gen = torch.Generator(device=dev).manual_seed(1234)
     tables: list[str] = []
 
+    trace_frames(dev, world, gen, tables)
+    trace_game(dev, tables)
+    if args.table:
+        with open(args.table, "w") as f:
+            f.write("\n\n".join(tables) + "\n")
+
+
+def trace_game(dev, tables: list) -> None:
+    """A game frame and its parts on phase 3f's scene."""
+    import contextlib
+    import io
+    from .. import app as APP
+    from ..gameplay import ai as AI
+    from ..gameplay import frame as GF
+    from ..physics import destroy as PD
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = write_ground_scene(tmp, "g", erosion_iters=1024)
+        box = [SL.load_scene(cfg, device=dev)]
+    draws = APP.GameDraws()
+    sm = draws.smileys(8, dev)
+    d0 = draws.ai(0, 8, dev)
+    ds = PD.make_destroy_state(box[0].cobjs)
+
+    def game_frame():
+        with contextlib.redirect_stdout(io.StringIO()):
+            box[0] = APP._run_ground_game(box[0], None, 1, 8, draws=draws)
+    trace(f"game frame, scene P eroded, 2,000 objects, 8 smileys, "
+          f"{box[0].cobjs.size} slots", game_frame, 4, tables)
+
+    def frame():
+        box[0] = WM.ground_frame(box[0])
+    trace("  its ground_frame", frame, 4, tables)
+    trace("  its AI step (72 line-of-sight rays, every shape family)",
+          lambda: AI.step_smileys_ai(sm, d0, box[0].cobjs), 4, tables)
+    trace("  its update_game_frame (nothing exploding)",
+          lambda: GF.update_game_frame(box[0].objects, box[0].cobjs, ds, box[0].table),
+          4, tables)
+
+
+def trace_frames(dev, world, gen, tables: list) -> None:
+    """The main path, the fused frame and the ground frames."""
     mcfg = TMOD.TileModelConfig(tile_size=128, erosion_iters_tt=512,
                                 erosion_batch=512, erosion_steps=64,
                                 use_pallas_erosion=True)
@@ -159,9 +203,6 @@ def main() -> None:
             box[0] = WM.ground_frame(box[0])
         trace("ground_frame, loaded scene P (2,000 material spheres, "
               f"{box[0].cobjs.size} slots, two platforms)", frame, 4, tables)
-    if args.table:
-        with open(args.table, "w") as f:
-            f.write("\n\n".join(tables) + "\n")
 
 
 if __name__ == "__main__":
