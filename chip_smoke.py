@@ -75,6 +75,25 @@ Phases, each fatal on failure (no phase hides an error):
       and settle, one step of each particle pool, a group spawn, a blast,
       cobj destruction, fragments and stepped heightfield rays within
       1e-6.
+   g. tiled mode: `app.run_tiled` at the app's and `bench.py`'s
+      `bench_live_tiled` settings (seed 1, 64^2 tiles, a 128^2 city with
+      64 cars, 128 pedestrians, 48 building people, 8 birds, 2 trains,
+      fauna 16 + 16 + 32; 6 chunks of 32 frames, the camera moving 0.8 a
+      frame): ms per frame, tiles resident, created and deleted, fauna,
+      launches per frame (B twice a frame from the fauna, A never);
+      `live_tiled_city_ms_per_frame` from `bench_live_tiled`'s own loop
+      (`step_chunk`, the median of chunks 3-6) and one chunk under the
+      profiler (the device-busy share); a 4-chunk session recorded and
+      replayed on the card (hashes equal); a tile manager at tile 128
+      eroding 512 droplets a tile along a camera path (ms per creating
+      update, A twice per update; two deferred updates run with
+      `torch.cuda.set_sync_debug_mode("error")`); A bitwise against its
+      plain walk on 8 tile maps of 72^2 and 136^2 (256 droplets, 96
+      steps); and 2 chunks of 8 frames on the card against the CPU (rows
+      but ms and hash and integer fields equal, the city's floats 1e-5,
+      tile heights 1e-4; over one mesh birds and butterflies 1e-5 and
+      fish 2e-3: a fish's cruise speed rounds onto either side of the
+      drag threshold, so an ulp of cos or sin slows it by 4% a frame).
    Prints time to first result, tiles/s and frames/s, and fails if a
    kernel was never launched or a value is not finite.
 4. Each kernel against its plain PyTorch version on the card, at its
@@ -688,6 +707,251 @@ def run_game_phase(tmp: str, dev, kernels: dict, reset_counts, read_counts) -> d
     return out
 
 
+TILED_CHUNK = 32         # bench_live_tiled's chunk (app.py --chunk default)
+TILED_CHUNKS = 6         # bench_live_tiled's chunks; the metric is the median of 3-6
+TILED_EROSION = 512      # droplets per tile of the eroding tile manager (2 batches)
+TILED_EROSION_TILE = 128
+
+
+def run_tiled_phase(dev, kernels: dict, reset_counts, read_counts) -> dict:
+    """Phase 3g: tiled mode on the card.  `app.run_tiled` at the app's and
+    `bench_live_tiled`'s settings (seed 1, 6 chunks of 32 frames, the
+    camera moving 0.8 a frame), the bench's own loop for
+    `live_tiled_city_ms_per_frame`, a chunk under the profiler, a recorded
+    session replayed on the card, an eroding tile manager at tile 128 (A,
+    and `update` checked to never wait for the card), A bitwise against its
+    plain walk at the tile paths' shapes, and a short session on the card
+    against the CPU.  Returns the metrics and the kernel launches."""
+    from w3d_torch import app as APP
+    from w3d_torch import convert
+    from w3d_torch.ops import erosion as E
+    from w3d_torch.ops.cuda import erosion_kernel as EK
+    from w3d_torch.terrain import mesh as TM
+    from w3d_torch.terrain import tiles as TL
+    from w3d_torch.utils import profile_step as PROF
+    from w3d_torch.utils.constants import WorldConst
+
+    out = {"launches": {n: 0 for n in kernels}}
+
+    def rows_of(fn, *a, **k):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            result = fn(*a, **k)
+        return result, [json.loads(line) for line in buf.getvalue().splitlines()]
+
+    def add_counts(c):
+        for n in c:
+            out["launches"][n] += c[n]
+
+    # the app: 6 chunks of 32 frames, every row's keys, B twice a frame
+    frames = TILED_CHUNK * TILED_CHUNKS
+    reset_counts()
+    w, rows = rows_of(APP.run_tiled, frames, 1, chunk=TILED_CHUNK, device=dev)
+    torch.cuda.synchronize()
+    ct = read_counts("tiled app path (6 chunks of 32 frames)", ("sample",))
+    add_counts(ct)
+    need(len(rows) == TILED_CHUNKS and all(r["mode"] == "tiled" for r in rows),
+         "tiled app: one row a chunk")
+    need(ct["sample"] == 2 * frames + 1 and ct["erosion"] == 0,
+         "tiled app: B twice a frame (butterflies, fish) and once for the fish spawn; A never")
+    row_ms = statistics.median(sorted(r["ms"] for r in rows[2:]))
+    created = sum(r["created"] for r in rows)
+    deleted = sum(r["deleted"] for r in rows)
+    for part in (w.cars, w.peds, w.city.people) + tuple(w.fauna):
+        for v in part:
+            if isinstance(v, torch.Tensor) and v.is_floating_point():
+                need(bool(torch.isfinite(v).all()), "tiled app: state finite")
+    log(f"tiled app, seed 1, {TILED_CHUNKS} x {TILED_CHUNK} frames: {row_ms:.3f} ms per "
+        f"frame (rows' median of chunks 3-6, fauna included), {len(w.tile_mgr.tiles)} "
+        f"tiles resident, {created} created, {deleted} deleted, fauna {rows[-1]['fauna']}, "
+        f"building people by activity {rows[-1]['bldg_people_acts']}, launches per frame "
+        f"{ {n: c / frames for n, c in ct.items() if c} }")
+
+    # bench_live_tiled's loop on the port: step_chunk alone, 6 chunks of 32
+    tw = PROF.tiled_world(dev, chunk=TILED_CHUNK)
+    cam, times = 0.0, []
+    for _ in range(TILED_CHUNKS):
+        t0 = time.perf_counter()
+        tw.step_chunk(cam, 0.0, frames=TILED_CHUNK)
+        cam += 0.8 * TILED_CHUNK
+        times.append((time.perf_counter() - t0) / TILED_CHUNK)
+    times = sorted(times[2:])
+    live_ms = times[len(times) // 2] * 1e3
+    # the chained city frames and the fauna queue without waiting for the
+    # card: one chunk of each with syncs raising (the chunk's draws are
+    # made and copied before)
+    from w3d_torch.city import city_step as CS
+    from w3d_torch.veg import animals as VA
+    d = tw.draws.city(tw.frame, TILED_CHUNK, tw)
+    wl = WorldConst(mesh_x=64, mesh_y=64)
+    tile = tw.tile_mgr.tiles[tw.tile_mgr.camera_tile(cam - 0.8 * TILED_CHUNK, 0.0)]
+    mesh = tile.zvals[:64, :64].contiguous()
+    fd = APP.TiledDraws(1)
+    fa = (VA.make_animals(fd.fauna_birds(16, dev)), VA.make_butterflies(fd.butterflies(16, wl, dev)),
+          VA.gen_fish(fd.fish(32, wl, dev), mesh, APP.FAUNA_WATER_Z, wl))
+    fdr = fd.fauna(0, TILED_CHUNK, 16, 16, 32, dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        CS.city_frames_chained(tw.city, tw.road_graph, tw.ped_nav, tw.pads, tw.perches,
+                               TILED_CHUNK, d, rail=tw.rail)
+        VA.step_tiled_fauna(*fa, fdr, mesh, wl, APP.FAUNA_WATER_Z, 0.0, 0.0,
+                            frames=TILED_CHUNK)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    prof = PROF.trace_tiled(dev, [], chunk=TILED_CHUNK)
+    busy = prof["busy_ms"] / prof["wall_ms"]
+    log(f"live_tiled_city_ms_per_frame {live_ms:.3f} (bench_live_tiled's loop: "
+        f"step_chunk, median of chunks 3-6, ms per frame; chunks {[round(t * 1e3, 3) for t in times]}); "
+        f"a chunk with the fauna under the profiler: {prof['wall_ms']:.1f} ms wall, device "
+        f"busy {prof['busy_ms']:.2f} ms ({100 * busy:.1f}%), {prof['kernels']:.0f} kernels; "
+        f"{TILED_CHUNK} chained city frames and {TILED_CHUNK} fauna frames ran with syncs "
+        f"raising")
+    out.update(live_tiled_city_ms_per_frame=live_ms, tiled_app_ms_per_frame=row_ms,
+               tiled_chunk_device_busy_share=busy,
+               tiled_chunk_kernels=prof["kernels"])
+
+    # record 4 chunks on the card, replay them there (another seed given)
+    with tempfile.TemporaryDirectory() as tmp:
+        journal = os.path.join(tmp, "session.uel")
+        w1, _ = rows_of(APP.run_tiled, 4 * 16, 3, chunk=16, record=journal, device=dev)
+        w2, _ = rows_of(APP.run_tiled, 4 * 16, 999, chunk=16, replay=journal, device=dev)
+    need(w2.frame_hashes == w1.frame_hashes and len(set(w1.frame_hashes)) == 4,
+         "tiled replay on the card: the recorded hashes, bit for bit")
+    log(f"tiled record/replay on the card, 4 chunks of 16: hashes equal "
+        f"({w1.frame_hashes[-1]})")
+
+    # an eroding tile manager at tile 128 along a camera path: A twice per
+    # creating update; one deferred update run with syncs raising
+    wl = WorldConst(mesh_x=64, mesh_y=64)
+    tm = TL.TileManager(cfg=TM.TerrainConfig(mesh_seed=1), world=wl,
+                        tile_size=TILED_EROSION_TILE, erosion_iters_tt=TILED_EROSION,
+                        device=dev)
+    tile_w = TILED_EROSION_TILE * wl.dx
+    reset_counts()
+    upd_ms, host_ms = [], []
+    for i in range(8):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new, _ = tm.update(0.5 * tile_w * i, 0.0)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        if new:
+            upd_ms.append((time.perf_counter() - t0) * 1e3)
+            host_ms.append((t1 - t0) * 1e3)
+    ce = read_counts("eroding tile manager (tile 128, 512 droplets)", ("erosion",))
+    add_counts(ce)
+    need(ce["erosion"] == 2 * len(upd_ms), "eroding tiles: A twice per creating update")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tm.update(0.5 * tile_w * 8, 0.0, max_tiles_per_frame=3)
+        tm.update(0.5 * tile_w * 9, 0.0, max_tiles_per_frame=3)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    tm.flush()
+    z = torch.stack([t.zvals for t in tm.tiles.values()])
+    need(bool(torch.isfinite(z).all()), "eroding tiles: heights finite")
+    log(f"eroding tile manager, tile {TILED_EROSION_TILE}, {TILED_EROSION} droplets: "
+        f"{statistics.median(upd_ms):.3f} ms per creating update to the card's finish "
+        f"(median of {len(upd_ms)}; host part {statistics.median(host_ms):.3f} ms), "
+        f"A {ce['erosion']} launches; two deferred updates ran with syncs raising")
+    out.update(eroding_tile_update_ms=statistics.median(upd_ms))
+
+    # A at the tile paths' shapes (72^2 and 136^2 padded maps, 256 droplets,
+    # 96 steps) bitwise against its plain walk on the same inputs
+    gen = torch.Generator().manual_seed(11)
+    for stride in (64, TILED_EROSION_TILE):
+        tmx = TL.TileManager(cfg=TM.TerrainConfig(mesh_seed=1), world=wl, tile_size=stride,
+                             device=dev)
+        txs = torch.arange(8, dtype=torch.float32, device=dev)
+        h = 36
+        zv = TL.tile_context(tmx.table, txs, txs * 0, tmx._zmax_t, tmx.cfg, wl,
+                             stride)[:, h:h + stride, h:h + stride]
+        hm = torch.nn.functional.pad(zv[:, None], (E.PAD,) * 4, mode="replicate")[:, 0].contiguous()
+        xi, zi = E.droplet_starts(TL.EROSION_BATCH, stride, stride, pad=E.PAD, device=dev)
+        xi = xi.expand(8, -1).contiguous()
+        zi = zi.expand(8, -1).contiguous()
+        ang = E.draw_angles(TL.EROSION_BATCH, TL.EROSION_BATCH, TL.EROSION_STEPS, gen,
+                            device="cpu")[0].to(dev)
+        p6 = E.pack_params(E.ErosionParams(
+            erode_amount=1.0, water_plane_z=tmx._wpz_t, half_dxy=wl.half_dxy,
+            zmin=-tmx._zmax_t, zmax=tmx._zmax_t, rock_thresh=TM.clip_hd1(tmx.cfg)), dev)
+        k1 = EK.erosion_walk(hm, xi, zi, ang, p6)
+        k2 = EK.erosion_walk(hm, xi, zi, ang, p6)
+        plain = E._walk_batch(hm, xi, zi, ang, p6)
+        n = hm.shape[-1]
+        need(torch.equal(k1, k2) and torch.equal(k1, plain),
+             f"A at {n}^2 tile maps: bitwise equal to its plain walk and run to run")
+        log(f"A on 8 padded tile maps of {n}^2, {TL.EROSION_BATCH} droplets, "
+            f"{TL.EROSION_STEPS} steps: bitwise equal to its plain walk and run to run "
+            f"(max |delta| {float(k1.abs().max()):.4g})")
+
+    # a short session on the card against the CPU: the same draws (CPU
+    # generators), 2 chunks of 8 frames.  The tiles' noise sums in another
+    # order on the card (cuBLAS), so the fauna, which samples the tile
+    # mesh, is also held on one mesh: the CPU's camera tile on both devices
+    res = {}
+    for d in ("cpu", dev):
+        res[d] = rows_of(APP.run_tiled, 16, 3, chunk=8, device=d)
+    (wc, rc), (wg, rg) = res["cpu"], res[dev]
+    strip = lambda rows: [{k: v for k, v in r.items() if k not in ("ms", "hash")} for r in rows]
+    same_rows = strip(rc) == strip(rg)
+
+    def diff(a, b):
+        worst, exact = 0.0, True
+        for x, y in zip(_leaves(convert.to_numpy(a)), _leaves(convert.to_numpy(b))):
+            if x.dtype.kind == "f":
+                worst = max(worst, float(np.abs(x - y).max()) if x.size else 0.0)
+            else:
+                exact &= bool(np.array_equal(x, y))
+        return worst, exact
+    city_d, city_exact = diff(wc.city, wg.city)
+    sess_fauna_d, sess_fauna_exact = diff(wc.fauna, wg.fauna)
+    tz = max(float((wc.tile_mgr.tiles[k].zvals - wg.tile_mgr.tiles[k].zvals.cpu()).abs().max())
+             for k in wc.tile_mgr.tiles)
+    from w3d_torch.veg import animals as VA
+    wl = WorldConst(mesh_x=64, mesh_y=64)
+    mesh = wc.tile_mgr.tiles[(0, 0)].zvals[:64, :64].contiguous()
+    draws = APP.TiledDraws(3)
+    fauna = {}
+    for d in ("cpu", dev):
+        m = mesh.to(d)
+        f = (VA.make_animals(draws.fauna_birds(16, d)),
+             VA.make_butterflies(draws.butterflies(16, wl, d)),
+             VA.gen_fish(draws.fish(32, wl, d), m, APP.FAUNA_WATER_Z, wl))
+        fauna[d] = VA.step_tiled_fauna(*f, draws.fauna(0, 16, 16, 16, 32, d), m, wl,
+                                       APP.FAUNA_WATER_Z, 0.3, 0.1, frames=16)
+    # per population: a fish's cruise speed sqrt(vx^2 + vy^2) of
+    # (0.002 cos a, 0.002 sin a) rounds onto either side of fish_t's drag
+    # threshold (speed > FISH_SPEED), so one ulp of cos or sin decides
+    # whether it slows by 4% a frame: 1.3e-3 of drift after 16 frames
+    per = [diff(a, b) for a, b in zip(fauna["cpu"], fauna[dev])]
+    fauna_exact = all(e for _d, e in per)
+    log(f"tiled session, 2 chunks of 8, card vs CPU: rows equal but ms and hash {same_rows}; "
+        f"city state floats max diff {city_d:.3g}, integer fields equal {city_exact}; tile "
+        f"heights max diff {tz:.3g}; the session's fauna (over each device's tiles) max "
+        f"diff {sess_fauna_d:.3g}, kinds and flags equal {sess_fauna_exact}; 16 fauna "
+        f"frames over one mesh: birds {per[0][0]:.3g}, butterflies {per[1][0]:.3g}, fish "
+        f"{per[2][0]:.3g}, kinds and flags equal {fauna_exact}; hashes card "
+        f"{rg[-1]['hash']} CPU {rc[-1]['hash']}")
+    need(same_rows and city_exact and city_d <= 1e-5 and tz <= 1e-4 and fauna_exact
+         and per[0][0] <= 1e-5 and per[1][0] <= 1e-5 and per[2][0] <= 2e-3,
+         "tiled session, card vs CPU: rows and integer fields equal, city floats 1e-5, "
+         "tile heights 1e-4; over one mesh birds and butterflies 1e-5, fish 2e-3")
+    out.update(tiled_card_vs_cpu_city_max_diff=city_d,
+               tiled_card_vs_cpu_fauna_max_diff=[d for d, _e in per])
+    return out
+
+
+def _leaves(value) -> list:
+    """The numpy arrays of a NamedTuple tree, in field order (None skipped)."""
+    if value is None:
+        return []
+    if isinstance(value, tuple):
+        return [a for v in value for a in _leaves(v)]
+    return [np.asarray(value)]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; the port runs its "
@@ -1138,6 +1402,16 @@ def main() -> int:
     for n, c in game3f["launches"].items():
         launches[n] += c
 
+    # ---- 3g. tiled mode --------------------------------------------------
+    # app.run_tiled at the app's and bench_live_tiled's settings (B twice a
+    # frame), bench_live_tiled's own loop, a profiled chunk, record and
+    # replay on the card, an eroding tile manager at tile 128 (A), A bitwise
+    # against its plain walk at 72^2 and 136^2, and a short session on the
+    # card against the CPU
+    tiled3g = run_tiled_phase(dev, kernels, reset_counts, read_counts)
+    for n, c in tiled3g["launches"].items():
+        launches[n] += c
+
     # ---- 4. kernels vs plain versions, main-path shapes ------------------
     # Each kernel device-only (a CUDA graph of 20 launches replayed between
     # CUDA events), in turns with its plain version (CUDA events around
@@ -1539,7 +1813,8 @@ def main() -> int:
                     "gen_terrain_ms": gen_ms,
                     "ungrouped_narrow_ms_2000x640": plain_narrow["graph_ms"],
                     **{k: v for k, v in scene3e.items() if k != "launches"},
-                    **{k: v for k, v in game3f.items() if k != "launches"}},
+                    **{k: v for k, v in game3f.items() if k != "launches"},
+                    **{k: v for k, v in tiled3g.items() if k != "launches"}},
         "card": smi}))
     log(json.dumps({"kernels": [
         {"name": srcs[n][0], "route": "cuda", "source": srcs[n][1],

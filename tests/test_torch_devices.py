@@ -30,6 +30,10 @@ from w3d_torch.water import ripples as WR
 from w3d_torch import app as APP
 from w3d_torch.gameplay import ai as AI, game as GG, spray as SP, teleport as TP
 from w3d_torch.physics import destroy as PD, particles as PPT
+from w3d_torch.city import assemble as CA, city_step as CCS, floorplan as CF
+from w3d_torch.city import room_content as CRC
+from w3d_torch.models import world as WM
+from w3d_torch.terrain import tiles as TL
 
 
 def _generator():
@@ -62,6 +66,16 @@ def _modmap():
     j = ModmapJournal()
     j.add(1, 1, 1, 0.5)
     return j.apply(np.zeros((4, 4), np.float32))
+
+
+def _tiled_world():
+    """A TiledWorld over a city built on the CPU: its building people and
+    elevator bank go to the default device."""
+    cw = CA.build_city(np.zeros((64, 64), np.float32), num_cities=1, num_cars=4,
+                       num_peds=4, seed=1, device="cpu")
+    interior = CF.gen_interior((0.0, 0.0, 0.0, 1.2, 0.9, 0.4), 3, 0.08, seed=1)
+    objs = CRC.furnish_rooms(interior, 0.08, seed=1)
+    return WM.make_tiled_world(None, cw, builders=[(interior, 2, objs)]).city.people.x
 
 
 MAKERS = {
@@ -99,6 +113,12 @@ MAKERS = {
     "make_teleporters": lambda: TP.make_teleporters([[0, 0, 0, 1, 1, 1, 1, 0]]).sx,
     "make_paint_grid": lambda: SP.make_paint_grid(WorldConst(mesh_x=4, mesh_y=4)),
     "run_ground(game=True)": _run_game,
+    "run_tiled": lambda: APP.run_tiled(1, 1, chunk=1).cars.t,
+    "make_tiled_world": _tiled_world,
+    "TileManager": lambda: TL.TileManager(tile_size=16).table.mag,
+    "build_city": lambda: CA.build_city(np.zeros((64, 64), np.float32), num_cities=1,
+                                        num_cars=4, num_peds=4).cars.t,
+    "make_elevator_bank": lambda: CCS.make_elevator_bank(2).z,
     "gen_terrain": lambda: TM.gen_terrain(
         TM.TerrainConfig(mode=N.MGEN_SIMPLEX),
         WorldConst(mesh_x=8, mesh_y=8)).mesh_height,

@@ -122,8 +122,9 @@ def test_convert_round_trip():
 
 
 def test_import_leaves_jax_out():
-    """Importing the port, its entry points, every module of scene loading
-    and every module of ground physics and game mode loads no jax, no
+    """Importing the port, its entry points, every module of scene loading,
+    of ground physics and game mode, and of tiled mode (tiles, the city,
+    the fauna, the event journal) loads no jax, no
     module of the JAX package and nothing from its directory (its compiled
     `native/` parser included)."""
     code = ("import os, sys, w3d_torch, w3d_torch.entry, w3d_torch.convert, "
@@ -139,7 +140,14 @@ def test_import_leaves_jax_out():
             "w3d_torch.physics.particles, w3d_torch.physics.movable, "
             "w3d_torch.water.valleys, w3d_torch.gameplay.game, w3d_torch.gameplay.ai, "
             "w3d_torch.gameplay.frame, w3d_torch.gameplay.waypoints, "
-            "w3d_torch.gameplay.teleport, w3d_torch.gameplay.spray; "
+            "w3d_torch.gameplay.teleport, w3d_torch.gameplay.spray, "
+            "w3d_torch.ops.ao, w3d_torch.ops.shadows, w3d_torch.terrain.biomes, "
+            "w3d_torch.terrain.tiles, w3d_torch.city.plots, w3d_torch.city.roads, "
+            "w3d_torch.city.buildings, w3d_torch.city.structures, "
+            "w3d_torch.city.floorplan, w3d_torch.city.room_content, "
+            "w3d_torch.city.clocks, w3d_torch.city.traffic, w3d_torch.city.people, "
+            "w3d_torch.city.city_step, w3d_torch.city.assemble, "
+            "w3d_torch.city.spectate, w3d_torch.veg.animals, w3d_torch.utils.events; "
             "jaxdir = os.path.join(os.getcwd(), '3dworld_tpu'); "
             "bad = sorted(m for m, v in sys.modules.items() if m == 'jax' "
             "or m.startswith('jax.') or m == 'w3d' or m.startswith('w3d.') "

@@ -324,9 +324,12 @@ def test_run_ground_matches_jax(tmp_path, name, chunk):
     _close(np.asarray(js.objects.pz), scene.objects.pz.numpy(), 1e-5, "pz")
 
 
-@pytest.mark.parametrize("argv", [["--mode", "tiled"], ["--mode", "universe"],
-                                  ["--record", "x.json"], ["--spectate"]])
+@pytest.mark.parametrize("argv", [["--mode", "universe"], ["--mode", "universe", "--chunk", "4"],
+                                  ["--mode", "universe", "--record", "x.json"],
+                                  ["--mode", "universe", "--spectate"]])
 def test_main_refuses_unported_modes(argv):
+    """Universe mode is not ported, whatever tiled-mode flags come with it
+    (tiled mode, record, replay and spectate are: test_torch_tiled_app)."""
     with pytest.raises(NotImplementedError, match="Queue 1"):
         TAPP.main(argv)
 

@@ -194,3 +194,120 @@ def check_narrow(case: str, out, ref, pen_all) -> None:
             assert np.abs(out[k][tie] - ref[k][tie]).max() < 1e-5
         for k in (5, 6):
             np.testing.assert_array_equal(out[k][tie], ref[k][tie])
+
+
+def jax_city_draws(key, frames: int, n_peds: int, n_helis: int = 0, n_pads: int = 1,
+                   n_birds: int = 0, n_perches: int = 1):
+    """The JAX city frame's threefry draws for `frames` frames from the
+    city state's key (`city_step._one_frame`: split five ways a frame;
+    `traffic.step_peds`, `step_helis`, `step_birds`), as the port's
+    `CityDraws` on the CPU.  Returns (draws, the key after the chunk)."""
+    import jax
+    from w3d_torch.city.city_step import CityDraws
+    r = jax.random
+    rows = {f: [] for f in CityDraws._fields}
+    for _ in range(frames):
+        key, _k1, k2, k3, k4 = r.split(key, 5)
+        a, b, c = r.split(k2, 3)
+        rows["ped_u"].append(r.uniform(a, (n_peds,)))
+        rows["ped_side"].append(r.randint(b, (n_peds,), 0, 4))
+        rows["ped_u3"].append(r.uniform(c, (n_peds,)))
+        rows["ped_u4"].append(r.uniform(r.fold_in(c, 1), (n_peds,)))
+        if n_helis:
+            rows["heli_pad"].append(r.randint(k3, (n_helis,), 0, n_pads))
+            rows["heli_wait"].append(r.randint(r.fold_in(k3, 1), (n_helis,), 30, 120))
+        if n_birds:
+            rows["bird_perch"].append(r.randint(k4, (n_birds,), 0, n_perches))
+            rows["bird_wait"].append(r.randint(r.fold_in(k4, 1), (n_birds,), 60, 400))
+    t = lambda v: torch.as_tensor(np.stack([np.asarray(x) for x in v])) if v else None
+    return CityDraws(**{f: t(v) for f, v in rows.items()}), key
+
+
+def jax_fauna_draws(key, frames: int, n_birds: int, n_bfly: int, n_fish: int):
+    """`veg/animals.step_tiled_fauna`'s threefry draws from its chunk key
+    (`fold_in(key, i)` for frame i, then 1, 2, 3 for the birds, the
+    butterflies and the fish), as the port's `FaunaDraws`."""
+    import jax
+    from w3d_torch.veg.animals import FaunaDraws
+    r = jax.random
+    rows = {f: [] for f in FaunaDraws._fields}
+    for i in range(frames):
+        kk = r.fold_in(key, i)
+        k1, k2, k3 = r.split(r.fold_in(kk, 1), 3)
+        rows["bird_turn"].append(r.uniform(k1, (n_birds,)))
+        rows["bird_jx"].append(r.uniform(k2, (n_birds,), minval=-1.0, maxval=1.0))
+        rows["bird_jy"].append(r.uniform(k3, (n_birds,), minval=-1.0, maxval=1.0))
+        ks = r.split(r.fold_in(kk, 2), 6)
+        rows["bfly_explore"].append(r.uniform(ks[0], (n_bfly,)))
+        for name, k in (("bfly_fwd", ks[1]), ("bfly_rot", ks[2]), ("bfly_alt", ks[3])):
+            rows[name].append(r.uniform(k, (n_bfly,), minval=-1.0, maxval=1.0))
+        rows["bfly_rest"].append(r.uniform(ks[4], (n_bfly,)))
+        k1, k2, k3 = r.split(r.fold_in(kk, 3), 3)
+        rows["fish_rnd"].append(r.randint(k1, (n_fish,), 0, 128))
+        rows["fish_jx"].append(r.uniform(k2, (n_fish,), minval=-1.0, maxval=1.0))
+        rows["fish_jy"].append(r.uniform(k3, (n_fish,), minval=-1.0, maxval=1.0))
+        rows["fish_ang"].append(r.uniform(r.fold_in(k1, 1), (n_fish,), minval=0.0,
+                                          maxval=2 * np.pi))
+    return FaunaDraws(**{f: torch.as_tensor(np.stack([np.asarray(x) for x in v]))
+                         for f, v in rows.items()})
+
+
+def jax_spawn_rows(key, kind: str, n: int, world=None) -> torch.Tensor:
+    """The uniform rows the JAX spawners draw from `key`:
+    `make_animals` (six, spread 1), `make_butterflies` or `gen_fish`
+    (four), as the port's spawners take them."""
+    import jax
+    r = jax.random
+    if kind == "animals":
+        ks = r.split(key, 6)
+        rng = ((-1.0, 1.0), (-1.0, 1.0), (-0.2, 0.2), (-0.01, 0.01), (-0.01, 0.01),
+               (-0.002, 0.002))
+    else:
+        ks = r.split(key, 4)
+        xy = ((-world.x_scene, world.x_scene), (-world.y_scene, world.y_scene))
+        rng = xy + (((0.0, 2 * np.pi), (0.2, 0.8)) if kind == "butterflies"
+                    else ((0.0, 1.0), (0.0, 2 * np.pi)))
+    return torch.as_tensor(np.stack([np.asarray(r.uniform(k, (n,), minval=lo, maxval=hi))
+                                     for k, (lo, hi) in zip(ks, rng)]))
+
+
+def jax_tiled_draws(seed: int):
+    """An `app.TiledDraws` that replays the JAX app's key chain: the city
+    state's key(seed), and the fauna's key(seed ^ 0xFA0A) with its spawn
+    folds 0, 1, 2 and chunk folds 100 + i.  The city draws must be asked
+    for chunk by chunk, in order."""
+    import jax
+    from w3d_torch.app import TiledDraws
+
+    class JaxTiledDraws(TiledDraws):
+        def __init__(self, seed):
+            super().__init__(seed)
+            self.key = jax.random.key(seed)
+            self.fk = jax.random.key(seed ^ 0xFA0A)
+
+        def city(self, frame, frames, w):
+            cs = w.city
+            count = lambda v: 0 if v is None else v.shape[0]
+            d, self.key = jax_city_draws(
+                self.key, frames, cs.peds.x.shape[0], count(cs.helis and cs.helis.px),
+                count(w.pads), count(cs.birds and cs.birds.px), count(w.perches))
+            dev = cs.peds.x.device
+            return type(d)(*(None if v is None else v.to(dev) for v in d))
+
+        def fauna(self, frame, frames, n_birds, n_bfly, n_fish, device):
+            d = jax_fauna_draws(jax.random.fold_in(self.fk, 100 + frame), frames,
+                                n_birds, n_bfly, n_fish)
+            return type(d)(*(v.to(device) for v in d))
+
+        def fauna_birds(self, n, device):
+            return jax_spawn_rows(self.fk, "animals", n).to(device)
+
+        def butterflies(self, n, world, device):
+            return jax_spawn_rows(jax.random.fold_in(self.fk, 1), "butterflies", n,
+                                  world).to(device)
+
+        def fish(self, n, world, device):
+            return jax_spawn_rows(jax.random.fold_in(self.fk, 2), "fish", n,
+                                  world).to(device)
+
+    return JaxTiledDraws(seed)

@@ -1,22 +1,28 @@
-"""Application entry, ground mode: config -> scene -> frame loop (port of
-the ground half of `3dworld_tpu/app.py`).
+"""Application entry (port of `3dworld_tpu/app.py`): config -> world mode ->
+frame loop.
 
 The reference's `main` (3DWorld.cpp) reads the config, selects the world
-mode, builds the scene and runs the display loop.  This is the ground-mode
-path without the GL window: frames run headless on the card, and each
-frame (or chunk of chained frames) prints one JSON line with the JAX
-package's keys.
+mode, builds the scene and runs the display loop.  This is that path
+without the GL window: frames run headless on the card, and each frame
+(or chunk of chained frames) prints one JSON line with the JAX package's
+keys.
 
     python -m w3d_torch.app --config scene_config/config_spheres.txt \\
         --mode ground --frames 10
     python -m w3d_torch.app --config <cfg> --mode ground --game --smileys 8
+    python -m w3d_torch.app --mode tiled --frames 64 [--chunk 16] [--seed 1] \\
+        [--record session.uel | --replay session.uel] [--spectate]
 
 `--game` runs FPS game mode: smiley AI, weapons and explosions over the
-ground frame.  `W3D_PLATFORM=cpu` runs on the CPU (the JAX app's platform
-override); by default everything runs on the card.  Not ported: the tiled
-and universe modes and the tiled mode's record, replay and spectator
-options (`--record`, `--replay`, `--spectate`); asking for one raises
-NotImplementedError naming its ROADMAP item.
+ground frame.  `--mode tiled` streams terrain tiles around a moving camera
+and runs the live city (traffic, crowds, building people) and the tiled
+fauna, `--chunk` frames a chained call; `--record` writes the session's
+event journal and per-chunk state hashes, `--replay` drives a session
+from a journal and reproduces its hashes, `--spectate` follows the
+closest city agent.  `W3D_PLATFORM=cpu` runs on the CPU (the JAX app's
+platform override); by default everything runs on the card.  Not ported:
+the universe mode, which raises NotImplementedError naming its ROADMAP
+item.
 """
 
 from __future__ import annotations
@@ -179,6 +185,200 @@ def _run_ground_game(scene, ply, frames: int, num_smileys: int = 8,
     return scene
 
 
+class TiledDraws:
+    """The draws of tiled mode, which the JAX app takes from threefry keys
+    (the city state's key, split five ways a frame; `fold_in(key(seed ^
+    0xFA0A), 100 + i)` for the fauna of the chunk at frame i, and folds
+    0, 1, 2 of that key for the spawns).  Each stream here is a CPU
+    generator seeded from (`seed`, stream), its draws copied to the
+    device, so every device gets the same draws.  A caller (a test)
+    replaces the methods to inject other draws."""
+
+    CITY = 2 << 20      # + the chunk's first frame
+    FAUNA = 1 << 20     # + the chunk's first frame
+
+    def __init__(self, seed: int = 1):
+        self.seed = seed
+
+    def _gen(self, stream: int) -> torch.Generator:
+        return torch.Generator().manual_seed(((self.seed % 2 ** 31) << 32) | stream)
+
+    def city(self, frame: int, frames: int, w):
+        """The `city_step.CityDraws` of the chunk of `frames` frames that
+        starts at `frame`, for the TiledWorld `w`."""
+        from .city import city_step as CS
+        cs = w.city
+        count = lambda v: 0 if v is None else v.shape[0]
+        return CS.draw_city(frames, cs.peds.x.shape[0],
+                            count(cs.helis and cs.helis.px), count(w.pads),
+                            count(cs.birds and cs.birds.px), count(w.perches),
+                            self._gen(self.CITY + frame), device=cs.peds.x.device)
+
+    def fauna(self, frame: int, frames: int, n_birds: int, n_bfly: int,
+              n_fish: int, device):
+        """The `veg/animals.FaunaDraws` of the chunk at `frame`."""
+        from .veg import animals as VA
+        return VA.draw_fauna(frames, n_birds, n_bfly, n_fish,
+                             self._gen(self.FAUNA + frame), device=device)
+
+    def fauna_birds(self, n: int, device):
+        """The terrain flock's spawn rows (`veg/animals.draw_animals`)."""
+        from .veg import animals as VA
+        return VA.draw_animals(n, self._gen(0)).to(device)
+
+    def butterflies(self, n: int, world, device):
+        from .veg import animals as VA
+        return VA.draw_butterflies(n, world, self._gen(1)).to(device)
+
+    def fish(self, n: int, world, device):
+        from .veg import animals as VA
+        return VA.draw_fish(n, world, self._gen(2)).to(device)
+
+
+def _world_hash(w, tm) -> str:
+    """Deterministic digest of the live tiled-world state (cars, peds,
+    building people, tile keys) — the replay-equality check target.  The
+    same bytes in the same order as the JAX app's: `cars.seg` int32,
+    `cars.t`, `peds.x`, `peds.y` and the probe float32, then the sorted
+    tile keys."""
+    import hashlib
+    h = hashlib.sha256()
+    for a in (w.cars.seg, w.cars.t, w.peds.x, w.peds.y):
+        h.update(np.ascontiguousarray(a.cpu().numpy()).tobytes())
+    if w.last_probe is not None:
+        h.update(np.ascontiguousarray(np.asarray(w.last_probe)).tobytes())
+    h.update(",".join(map(str, sorted(tm.tiles))).encode())
+    return h.hexdigest()[:16]
+
+
+FAUNA_WATER_Z = -0.4
+
+
+def run_tiled(frames: int, seed: int, chunk: int = 16,
+              record: str | None = None, replay: str | None = None,
+              spectate: bool = False, device: torch.device | str = "cuda",
+              draws: TiledDraws | None = None):
+    """Tiled-city loop with session record/replay (`-uel` semantics,
+    u_event.cpp:23-60): `record` writes an event journal (srand seed +
+    per-chunk camera inputs) plus per-chunk state hashes; `replay`
+    drives the loop from a journal instead of the default camera path
+    and must reproduce the hashes bit-identically.  `spectate` follows
+    the closest city agent with the camera (city_interact.cpp
+    city_spectate_manager_t) instead of the default camera path.
+
+    The world: 64^2 tiles of the seed's terrain, one 128^2 city with 64
+    cars, 128 pedestrians, 8 birds, 2 trains and a furnished 3-floor tower
+    with 48 people, and the tiled fauna (16 birds, 16 butterflies, 32
+    fish) over the camera tile.  `draws` (default `TiledDraws(seed)`, the
+    seed read from a replayed journal) gives every draw.  Prints one JSON
+    line a chunk with the JAX app's keys; returns the TiledWorld with the
+    chunk hashes in `frame_hashes`."""
+    from types import SimpleNamespace
+    from .models.world import make_tiled_world
+    from .terrain.tiles import TileManager
+    from .terrain.mesh import TerrainConfig
+    from .utils.constants import WorldConst
+    from .city import assemble as CA
+    from .city import floorplan as CF
+    from .city import room_content as CRC
+    from .city import spectate as CSP
+    from .utils import events as EV
+    from .veg import animals as VA
+
+    journal = rp = None
+    if replay:
+        rp = EV.Replay(EV.EventJournal.load(replay))
+        for (_f, kind, payload) in rp.events_for_frame(0):
+            if kind == EV.EV_SRAND:
+                seed = int(payload[0])
+    if record:
+        journal = EV.EventJournal()
+        journal.record(0, EV.EV_SRAND, seed)
+    draws = draws or TiledDraws(seed)
+    tm = TileManager(cfg=TerrainConfig(mesh_seed=seed),
+                     world=WorldConst(mesh_x=64, mesh_y=64), tile_size=64,
+                     device=device)
+    # full live city over a flat region (gen_cities + traffic init)
+    cw = CA.build_city(np.zeros((128, 128), np.float32), num_cities=1,
+                       num_cars=64, num_peds=128, seed=seed, device=device)
+    # building AI in the same fused frame: one furnished tower with
+    # people riding its stairs/elevators
+    interior = CF.gen_interior((0.0, 0.0, 0.0, 1.2, 0.9, 0.4), 3, 0.08, seed=seed)
+    objs = CRC.furnish_rooms(interior, 0.08, seed=seed)
+    w = make_tiled_world(tm, cw, builders=[(interior, 48, objs)], seed=seed,
+                         chunk=chunk, num_birds=8, num_trains=2, draws=draws,
+                         device=device)
+    # tiled-terrain fauna (animals.cpp): terrain bird flock + butterflies
+    # + fish, chained per chunk over the camera tile's mesh (separate from
+    # the city's perch birds above)
+    wl = WorldConst(mesh_x=64, mesh_y=64)
+    fauna_birds = VA.make_animals(draws.fauna_birds(16, device), VA.A_BIRD,
+                                  center=(0.0, 0.0, 1.0))
+    fauna_bfly = VA.make_butterflies(draws.butterflies(16, wl, device))
+    fauna_fish = None    # spawned from the first camera tile's mesh
+    cam, cam_y = 0.0, 0.0
+    spec = None
+    shim = lambda: SimpleNamespace(cars=w.cars, peds=w.peds, graph=w.road_graph)
+    if spectate:
+        # toggle from the starting camera; wide radius so the demo city
+        # always yields a followed agent
+        spec = CSP.toggle(CSP.Spectate(), cam, cam_y, shim(), camera_radius=25.0)
+    hashes = []
+    i = 0
+    while i < frames:
+        k = min(chunk, frames - i)
+        if spec is not None and spec.mode != CSP.SPEC_NONE:
+            eye = CSP.camera_state(spec, shim())
+            if eye is not None:
+                cam, cam_y = eye[0], eye[1]
+        if rp is not None:
+            # recorded camera input for this chunk (EV_CAMERA rows)
+            for (_f, kind, payload) in rp.events_for_frame(i):
+                if kind == EV.EV_CAMERA:
+                    cam, cam_y, k = payload[0], payload[1], int(payload[2])
+        if journal is not None:
+            journal.record(i, EV.EV_CAMERA, cam, cam_y, k)
+        t0 = time.perf_counter()
+        created, deleted = w.step_chunk(cam, cam_y, frames=k)
+        # fauna over the camera tile's mesh, chained the same k frames
+        ct = tm.tiles.get(tm.camera_tile(cam, cam_y))
+        if ct is not None:
+            mesh_t = ct.zvals[:64, :64].contiguous()
+            if fauna_fish is None:
+                fauna_fish = VA.gen_fish(draws.fish(32, wl, device), mesh_t,
+                                         FAUNA_WATER_Z, wl)
+            fauna_birds, fauna_bfly, fauna_fish = VA.step_tiled_fauna(
+                fauna_birds, fauna_bfly, fauna_fish,
+                draws.fauna(i, k, 16, 16, 32, device), mesh_t, wl,
+                FAUNA_WATER_Z, cam, cam_y, frames=k)
+        cam += 0.8 * k
+        acts = (np.bincount(w.last_probe[:, 4].astype(np.int32), minlength=5).tolist()
+                if w.last_probe is not None else [])
+        dt = (time.perf_counter() - t0) / k
+        hashes.append(_world_hash(w, tm))
+        print(json.dumps({"frame": i + k - 1, "mode": "tiled",
+                          "chained": k,
+                          "tiles": len(tm.tiles),
+                          "cars": int(w.cars.seg.shape[0]),
+                          "peds": int(w.peds.x.shape[0]),
+                          "bldg_people_acts": acts,
+                          "fauna": [int(fauna_birds.px.shape[0]),
+                                    int(fauna_bfly.px.shape[0]),
+                                    int((fauna_fish.kind >= 0).sum())
+                                    if fauna_fish is not None else 0],
+                          "created": len(created), "deleted": len(deleted),
+                          "hash": hashes[-1],
+                          "ms": round(dt * 1e3, 3)}))
+        i += k
+    if journal is not None:
+        journal.save(record)
+        with open(record + ".hashes.json", "w") as f:
+            json.dump(hashes, f)
+    w.frame_hashes = hashes
+    w.fauna = (fauna_birds, fauna_bfly, fauna_fish)
+    return w
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", default="scene_config/config_spheres.txt",
@@ -187,31 +387,29 @@ def main(argv=None):
                     default="ground")
     ap.add_argument("--frames", type=int, default=10)
     ap.add_argument("--chunk", type=int, default=32,
-                    help="frames chained per dispatch (tiled mode, not "
-                         "ported; ground mode chains 32)")
+                    help="frames chained per dispatch (tiled mode)")
     ap.add_argument("--objects", type=int, default=2000)
+    ap.add_argument("--seed", type=int, default=1)
     ap.add_argument("--game", action="store_true",
                     help="FPS game mode: smiley AI + weapons (ground)")
     ap.add_argument("--smileys", type=int, default=8)
-    ap.add_argument("--record", default=None, help="(tiled mode; not ported)")
-    ap.add_argument("--replay", default=None, help="(tiled mode; not ported)")
+    ap.add_argument("--record", default=None,
+                    help="write a session event journal (tiled mode)")
+    ap.add_argument("--replay", default=None,
+                    help="replay a recorded session journal (tiled mode)")
     ap.add_argument("--spectate", action="store_true",
-                    help="(tiled mode; not ported)")
+                    help="follow the closest city agent (tiled mode)")
     args = ap.parse_args(argv)
-    if args.mode == "tiled":
-        raise NotImplementedError("--mode tiled is not ported (ROADMAP Queue 1, "
-                                  "items 6 and 10)")
     if args.mode == "universe":
         raise NotImplementedError("--mode universe is not ported (ROADMAP Queue 1, "
                                   "items 8 and 10)")
-    if args.record or args.replay or args.spectate:
-        raise NotImplementedError("--record, --replay and --spectate belong to "
-                                  "tiled mode, which is not ported (ROADMAP "
-                                  "Queue 1, items 6 and 10)")
     device = "cpu" if os.environ.get("W3D_PLATFORM") == "cpu" else "cuda"
-    run_ground(args.config, args.frames, args.objects, game=args.game,
-               num_smileys=args.smileys, device=device)
-
+    if args.mode == "ground":
+        run_ground(args.config, args.frames, args.objects, game=args.game,
+                   num_smileys=args.smileys, device=device)
+    else:
+        run_tiled(args.frames, args.seed, chunk=args.chunk, record=args.record,
+                  replay=args.replay, spectate=args.spectate, device=device)
 
 if __name__ == "__main__":
     main()

@@ -8,7 +8,11 @@ packages can compute on the same inputs.  Nothing here imports jax.
 scene parse, sphere materials) become the port's dataclasses of the same
 names.  The gameplay states (smileys, weapons, scores), the destroy and
 particle states, group specs, teleporters and waypoint graphs carry
-across field by field.  `to_numpy` goes the other way, for comparisons and round trips.
+across field by field, and so do the tiled mode's values: the city state
+(without the JAX key, whose draws are the port's `CityDraws`), the road
+graph, the pedestrian nav, building people, animals, butterflies and
+tiles.  `to_numpy` goes the other way, for comparisons and round trips;
+it needs neither jax nor the JAX package.
 
 JAX keeps per-object and per-type flags as uint32; the port keeps them as
 int32 bit masks (every flag bit fits).
@@ -41,6 +45,9 @@ from .gameplay.teleport import Teleporters
 from .gameplay.waypoints import WaypointGraph
 from .scene import cobj as SC, sphere_materials as SM
 from .scene.loader import GroundScene
+from .city import traffic as CT, people as CPE, city_step as CCS
+from .terrain.tiles import Tile
+from .veg.animals import AnimalState, ButterflyState
 from .utils import config as CFG
 from .utils.constants import WorldConst
 
@@ -242,6 +249,48 @@ def ground_scene(src, device) -> GroundScene:
         scenery=opt(scenery_set, src.scenery))
 
 
+def road_graph(src, device) -> CT.RoadGraph:
+    return _named(CT.RoadGraph, src, device)
+
+
+def ped_nav(src, device) -> CT.PedNav:
+    return _named(CT.PedNav, src, device)
+
+
+def people_state(src, device) -> CPE.PeopleState:
+    return _named(CPE.PeopleState, src, device)
+
+
+def animal_state(src, device) -> AnimalState:
+    return _named(AnimalState, src, device)
+
+
+def butterfly_state(src, device) -> ButterflyState:
+    return _named(ButterflyState, src, device)
+
+
+def tile(src, device) -> Tile:
+    """A resident Tile (its key and its four arrays)."""
+    return Tile(tx=int(src.tx), ty=int(src.ty), zvals=array(src.zvals, device),
+                ao=array(src.ao, device), smask_sun=array(src.smask_sun, device),
+                weights=array(src.weights, device))
+
+
+def city_state(src, device) -> CCS.CityState:
+    """A CityState (the JAX one's threefry `key` is dropped: the port takes
+    the draws as `CityDraws`); helicopters, birds, trains and people may
+    be None."""
+    opt = lambda cls, v: None if v is None else _named(cls, v, device)
+    return CCS.CityState(
+        stoplights=_named(CT.StoplightSet, src.stoplights, device),
+        cars=_named(CT.CarState, src.cars, device),
+        peds=_named(CT.PedState, src.peds, device),
+        people=opt(CPE.PeopleState, src.people),
+        elev=_named(CCS.ElevatorBank, src.elev, device),
+        helis=opt(CT.HeliState, src.helis), birds=opt(CT.BirdState, src.birds),
+        trains=opt(CT.TrainState, src.trains))
+
+
 def to_numpy(value):
     """Tensors -> numpy arrays through NamedTuples, GroupedCobjs, tuples
     and lists; anything else passes through."""
@@ -253,5 +302,10 @@ def to_numpy(value):
         return type(value)(*(to_numpy(v) for v in value))
     if isinstance(value, (tuple, list)):
         return type(value)(to_numpy(v) for v in value)
+    if isinstance(value, dict):
+        return {k: to_numpy(v) for k, v in value.items()}
+    if isinstance(value, Tile):
+        return Tile(value.tx, value.ty, *(to_numpy(getattr(value, f))
+                                          for f in ("zvals", "ao", "smask_sun", "weights")))
     return value
 

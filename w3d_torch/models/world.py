@@ -11,12 +11,19 @@ queues all K frames without waiting.
 `ground_frame` steps a loaded `GroundScene` (scene/loader.py) by one
 frame: the platform and trigger pass, riders, physics, ripples and gated
 smoke; `with_valley_water` fills its terrain basins and feeds the water
-surface to the physics env.  Not ported yet: the tiled and universe
-modes.
+surface to the physics env.
+
+WMODE_INF_TERRAIN: `TiledWorld` streams tiles (`terrain/tiles`) and
+advances one fused city state (`city/city_step`) K frames a chunk, with
+the host's building-people reroute once per chunk; `make_tiled_world`
+assembles it.  Not ported yet: the universe mode.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
+import numpy as np
 import torch
 
 from ..utils.constants import WorldConst
@@ -109,3 +116,116 @@ def ground_frames_chained(objects: PS.ObjectState, env: PS.PhysicsEnv, cobjs,
     if smoke is None:
         return st, rip, ply, live
     return st, rip, ply, live, smk
+
+
+# ---------------------------------------------------------------------------
+# tiled-terrain mode
+# ---------------------------------------------------------------------------
+
+@dataclass
+class TiledWorld:
+    """WMODE_INF_TERRAIN session: streamed tiles + one fused city sim.
+
+    The whole per-frame city compute — stoplights, cars, pedestrians,
+    helicopters, birds, trains, elevator cars, building people — lives in
+    ONE device `CityState` advanced by `city_step.city_frames_chained`, K
+    frames a chunk, queued without a host sync.  Host work per chunk:
+    tile streaming, the chunk's draws (`draws.city`, an `app.TiledDraws`)
+    and the building-people reroute from one packed fetch
+    (display_world.cpp:1295-1309's 3-thread city frame)."""
+
+    tile_mgr: object
+    road_graph: object = None
+    ped_nav: object = None
+    city: object = None          # city_step.CityState
+    bldg: object = None          # city_step.MergedBuildingPeople
+    pads: object = None          # [P, 3] heli pads (device)
+    perches: object = None       # [P, 3] bird perches (device)
+    rail: object = None          # traffic.RailLine (trains ride it)
+    chunk: int = 16
+    frame: int = 0
+    last_probe: object = None    # latest people_probe fetch (host numpy)
+    draws: object = None         # the city's draws per chunk (app.TiledDraws)
+
+    def step_chunk(self, cam_x: float, cam_y: float, frames: int | None = None):
+        """Advance K frames: tiles + one chained city call + the per-chunk
+        host reroute phase.  Returns the tile keys (created, deleted)."""
+        from ..city import city_step as CS
+
+        k = self.chunk if frames is None else frames
+        created, deleted = self.tile_mgr.update(cam_x, cam_y)
+        if self.city is not None:
+            d = self.draws.city(self.frame, k, self)
+            self.city = CS.city_frames_chained(
+                self.city, self.road_graph, self.ped_nav, self.pads,
+                self.perches, k, d, rail=self.rail)
+            if self.bldg is not None and self.city.people is not None:
+                # single packed fetch; reroute decisions + display stats
+                # both come from it
+                self.last_probe = CS.people_probe(self.city.people).cpu().numpy()
+                self.city = self.city._replace(
+                    people=self.bldg.reroute(self.city.people, probe=self.last_probe))
+        self.frame += k
+        return created, deleted
+
+    def step(self, cam_x: float, cam_y: float):
+        """One un-chained frame (compat/debug path)."""
+        return self.step_chunk(cam_x, cam_y, frames=1)
+
+    # convenience views
+    @property
+    def cars(self):
+        return self.city.cars if self.city is not None else None
+
+    @property
+    def peds(self):
+        return self.city.peds if self.city is not None else None
+
+    @property
+    def stoplights(self):
+        return self.city.stoplights if self.city is not None else None
+
+
+def make_tiled_world(tile_mgr, city_world=None, builders=(), seed: int = 0,
+                     chunk: int = 16, num_birds: int = 0, num_trains: int = 0,
+                     draws=None, device: torch.device | str = "cuda") -> TiledWorld:
+    """Assemble a TiledWorld from a `city.assemble.CityWorld` plus
+    furnished interiors (`builders` = [(interior, n_people, room_objs)]),
+    its state on `device`.  `draws` gives the city's draws per chunk
+    (default `app.TiledDraws(seed)`)."""
+    from ..city import city_step as CS
+    from ..city import traffic as CT
+
+    if city_world is None:
+        return TiledWorld(tile_mgr=tile_mgr, chunk=chunk)
+    if draws is None:
+        from ..app import TiledDraws
+        draws = TiledDraws(seed)
+    bldg = CS.MergedBuildingPeople(builders, seed=seed, device=device) if builders else None
+    birds = None
+    perches = None
+    if num_birds > 0:
+        perches_np = CT.bird_perches(None, city_world.buildings)
+        perches = torch.as_tensor(perches_np, device=device)
+        birds = CT.make_birds(num_birds, perches_np, seed=seed, device=device)
+    rail = None
+    trains = None
+    if num_trains > 0 and city_world.net.blocks:
+        # rail line along the city's -y edge (railroad segments along
+        # the connector route, roads.cpp railroads)
+        xs = [b[0] for b in city_world.net.blocks] + \
+            [b[2] for b in city_world.net.blocks]
+        ys = [b[1] for b in city_world.net.blocks]
+        y = min(ys) - 1.0
+        rail = CT.gen_railroad([(min(xs), y), (max(xs), y)], device=device)
+        trains = CT.make_trains(num_trains, 1, seed=seed, device=device)
+    cs = CS.CityState(
+        stoplights=city_world.stoplights, cars=city_world.cars,
+        peds=city_world.peds,
+        people=bldg.people if bldg is not None else None,
+        elev=bldg.elev if bldg is not None else CS.make_elevator_bank(1, device=device),
+        helis=city_world.helis, birds=birds, trains=trains)
+    return TiledWorld(tile_mgr=tile_mgr, road_graph=city_world.graph,
+                      ped_nav=city_world.ped_nav, city=cs, bldg=bldg,
+                      pads=city_world.helipads, perches=perches,
+                      rail=rail, chunk=chunk, draws=draws)

@@ -83,8 +83,12 @@ def pack_params(p: ErosionParams, device) -> torch.Tensor:
     """The six float32 scalars one batch walk reads: erode_amount,
     water cut (water_plane_z - half_dxy), zmin, 1/(zmax-zmin), rock
     threshold, relative-height offset.  A device tensor, so `wpz` and
-    `zmax_est` may stay on the device."""
-    f = lambda v: torch.as_tensor(v, dtype=torch.float32, device=device)
+    `zmax_est` may stay on the device; host floats are filled on the
+    device, so packing never waits for it."""
+    def f(v):   # a host float fills on the device: no copy, no wait
+        if isinstance(v, torch.Tensor):
+            return v.to(device=device, dtype=torch.float32)
+        return torch.full((), v, dtype=torch.float32, device=device)
     zmin = f(p.zmin)
     return torch.stack([
         f(p.erode_amount),

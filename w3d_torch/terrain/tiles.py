@@ -1,0 +1,286 @@
+"""Infinite tiled-terrain streaming (port of `3dworld_tpu/terrain/tiles.py`).
+
+Re-expresses `tile_draw_t::update` + `tile_t` (tiled_mesh.cpp:142,
+2311-2417, tiled_mesh.h:156,406): an unordered map of tiles keyed by
+(tx, ty), created within CREATE_DIST of the camera and deleted beyond
+DELETE_DIST; per tile: zvals generation -> erosion -> AO -> shadows ->
+biome weights.
+
+Every update's whole set of new tiles is one batched call (padded to a
+multiple of 8 tiles), generating the AO-halo context directly.  The host
+manager only tracks keys and owns the result tensors.  `_generate` never
+waits for the card: the tile origins go up through pinned memory, every
+scalar lives on the device, and the results stay there, so the card's
+work for one batch overlaps the host bookkeeping of the next (the
+deferred batch of `update(max_tiles_per_frame=...)`).
+
+Erosion (`erosion_iters_tt > 0`) follows the JAX package's non-TPU branch
+on every device: `ops/erosion.erode` with its roam ring (`pad=PAD`),
+batches of 256 droplets, 96 steps and each tile's own minimum as
+`min_zval`; on the card it walks through the erosion kernel.  The JAX TPU
+branch (`erode_tiles_pallas`, no roam ring, the clamp after) gives another
+result and is not ported.  The flat-spot angles are inputs: one
+[ceil(iters / 256), 96, 256] tensor per manager (`angles`), drawn from a
+CPU generator seeded with 0 unless given (the JAX `erode`
+draws them from key 0, so every tile of every batch walks the same
+angles there too).
+
+Not ported yet: `grass_for_tile` and `flowers_for_tile` (they need
+`veg/grass`, ROADMAP Queue 1) raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from ..utils.constants import WorldConst, DEFAULT_WORLD
+from ..ops import noise as N
+from ..ops import erosion as E
+from ..ops import ao as AO
+from ..ops import shadows as SH
+from . import mesh as TM
+from . import biomes as B
+
+CREATE_DIST_TILES = 1.5   # in tile units (~ get_tile_radius scaling)
+DELETE_DIST_TILES = 2.0
+EROSION_BATCH = 256       # droplets per lockstep batch (tiles.py:241-243)
+EROSION_STEPS = 96
+
+
+@dataclass
+class Tile:
+    """One resident tile's generated data (device tensors)."""
+
+    tx: int
+    ty: int
+    zvals: torch.Tensor       # [stride, stride]
+    ao: torch.Tensor          # [stride, stride]
+    smask_sun: torch.Tensor   # [stride, stride] bool
+    weights: torch.Tensor     # [5, stride, stride]
+
+
+def _upload(a: np.ndarray, device) -> torch.Tensor:
+    """A host array on `device` without waiting for the device: through
+    pinned memory to a CUDA device."""
+    t = torch.from_numpy(a)
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+@dataclass
+class TileManager:
+    cfg: TM.TerrainConfig = TM.TerrainConfig()
+    world: WorldConst = DEFAULT_WORLD
+    tile_size: int = 128
+    erosion_iters_tt: int = 0
+    sun_dir: tuple = (0.4, 0.3, 0.8)
+    tiles: dict = field(default_factory=dict)
+    zmax_est: float = 10.0
+    device: torch.device | str = "cuda"
+    angles: torch.Tensor | None = None   # [nb, EROSION_STEPS, EROSION_BATCH]
+    _batch_pad: int = 8
+    _pending: tuple | None = None   # (keys, device tensors) in-flight batch
+
+    def __post_init__(self):
+        ts = TM.gen_terrain(self.cfg._replace(erosion_iters=0),
+                            WorldConst(mesh_x=64, mesh_y=64,
+                                       x_scene=self.world.x_scene,
+                                       y_scene=self.world.y_scene,
+                                       z_scene=self.world.z_scene),
+                            device=self.device)
+        self.set_height_range(float(ts.zmax_est), float(ts.water_plane_z))
+        self.table = TM.gen_table_for(self.cfg, self.world, device=self.device) \
+            if self.cfg.mode == N.MGEN_SINE else None
+        if self.erosion_iters_tt > 0:
+            if self.angles is None:
+                gen = torch.Generator().manual_seed(0)
+                self.angles = E.draw_angles(self.erosion_iters_tt, EROSION_BATCH,
+                                            EROSION_STEPS, gen, device="cpu")
+            self.angles = self.angles.to(self.device)
+
+    def set_height_range(self, zmax_est: float, water_plane_z: float):
+        """The height range every tile is generated against: `zmax_est`
+        (glaciation, erosion's relative height, biome bands) and the water
+        plane (erosion's ocean cutoff), as host floats and as device
+        scalars."""
+        self.zmax_est, self.water_plane_z = zmax_est, water_plane_z
+        f32 = lambda v: torch.full((), v, dtype=torch.float32, device=self.device)
+        self._zmax_t, self._wpz_t = f32(zmax_est), f32(water_plane_z)
+
+    # -- streaming bookkeeping (tile_draw_t::update) --
+
+    def camera_tile(self, cam_x: float, cam_y: float):
+        tw = self.tile_size * self.world.dx
+        th = self.tile_size * self.world.dy
+        return int(np.floor(cam_x / tw)), int(np.floor(cam_y / th))
+
+    def wanted_tiles(self, cam_x: float, cam_y: float,
+                     radius: float = CREATE_DIST_TILES):
+        ctx, cty = self.camera_tile(cam_x, cam_y)
+        r = int(np.ceil(radius))
+        out = []
+        for dy in range(-r, r + 1):
+            for dx in range(-r, r + 1):
+                if dx * dx + dy * dy <= radius * radius + 1e-6:
+                    out.append((ctx + dx, cty + dy))
+        return out
+
+    def update(self, cam_x: float, cam_y: float,
+               max_tiles_per_frame: int | None = None):
+        """Create missing in-range tiles (one batched call), delete
+        out-of-range ones.  Returns (created, deleted) key lists.
+
+        Missing tiles are created nearest-camera-first, at most
+        `max_tiles_per_frame` per call (None = all), as the reference's
+        priority queue with a per-frame budget (tile_draw_t::update,
+        tiled_mesh.cpp:2349-2417).  With a budget the batch is deferred:
+        its results are adopted at the start of the NEXT call, so the
+        card's work for batch N overlaps the host bookkeeping of batch
+        N+1."""
+        if self._pending is not None:
+            self._adopt_pending()
+        want = self.wanted_tiles(cam_x, cam_y)
+        ctx, cty = self.camera_tile(cam_x, cam_y)
+        deleted = []
+        for key in list(self.tiles):
+            ddx = key[0] - ctx
+            ddy = key[1] - cty
+            if ddx * ddx + ddy * ddy > DELETE_DIST_TILES ** 2:
+                del self.tiles[key]
+                deleted.append(key)
+        new = [k for k in want if k not in self.tiles]
+        # nearest-first priority (the reference sorts by tile priority)
+        new.sort(key=lambda k: (k[0] - ctx) ** 2 + (k[1] - cty) ** 2)
+        if max_tiles_per_frame is not None:
+            new = new[:max_tiles_per_frame]
+            if new:
+                self._generate(new, defer=True)
+        elif new:
+            self._generate(new)
+        return new, deleted
+
+    def _adopt(self, keys, out):
+        zv, ao, sm, wts = out
+        for i, k in enumerate(keys):
+            self.tiles[k] = Tile(tx=k[0], ty=k[1], zvals=zv[i], ao=ao[i],
+                                 smask_sun=sm[i], weights=wts[i])
+
+    def _adopt_pending(self):
+        keys, out = self._pending
+        self._pending = None
+        self._adopt(keys, out)
+
+    def flush(self):
+        """Force-adopt any in-flight batch (end-of-frame sync point)."""
+        if self._pending is not None:
+            self._adopt_pending()
+
+    # -- per-tile vegetation (grass_tile_manager_t, grass.cpp:58) --
+
+    def grass_for_tile(self, key, blades_per_cell: int = 4):
+        raise NotImplementedError("grass_for_tile needs veg/grass, which is not "
+                                  "ported (ROADMAP Queue 1)")
+
+    def flowers_for_tile(self, key, flower_density: float = 1.0):
+        raise NotImplementedError("flowers_for_tile needs veg/grass, which is not "
+                                  "ported (ROADMAP Queue 1)")
+
+    # -- batched generation --
+
+    def _generate(self, keys, defer: bool = False):
+        n = len(keys)
+        pad = -(-n // self._batch_pad) * self._batch_pad
+        txs = np.array([k[0] for k in keys] + [keys[-1][0]] * (pad - n), np.float32)
+        tys = np.array([k[1] for k in keys] + [keys[-1][1]] * (pad - n), np.float32)
+        out = gen_tile_batch(
+            self.table, _upload(txs, self.device), _upload(tys, self.device),
+            self._zmax_t, self._wpz_t, self.cfg, self.world, self.tile_size,
+            self.erosion_iters_tt, self.sun_dir, angles=self.angles)
+        if defer:   # adopted on the NEXT update
+            self._pending = (list(keys), out)
+            return
+        self._adopt(keys, out)
+
+
+def tile_context(table, txs, tys, zmax_est, cfg: TM.TerrainConfig,
+                 world: WorldConst, tile_size: int) -> torch.Tensor:
+    """The glaciated context heights [T, C, C] (C = tile + 2 AO halos) of
+    tiles at [T] tile indices: sine-table or fBm noise, then glaciation."""
+    stride = tile_size
+    halo = AO.AO_RAY_LEN
+    csz = stride + 2 * halo
+    x0 = txs * stride - halo
+    y0 = tys * stride - halo
+    if cfg.mode == N.MGEN_SINE:
+        start = N.start_eval_sin(cfg.mesh_scale, cfg.mesh_freq_filter)
+        xt, yt = N.sine_term_tables(
+            table, x0, y0, world.dx, world.dy, csz, csz, world=world,
+            mesh_scale=cfg.mesh_scale, mesh_scale_z_inv=1.0 / cfg.mesh_scale_z,
+            start_sin=start)
+        ctx = N.eval_sine_grid(xt, yt)
+        ctx = N.apply_noise_shape_final(ctx, cfg.shape)
+        ctx = TM.postproc_noise_zval(ctx, cfg.hmap)
+    else:
+        ar = torch.arange(csz, dtype=torch.float32, device=txs.device)
+        T = txs.shape[0]
+        xi = torch.broadcast_to(ar[None, None, :] + x0[:, None, None], (T, csz, csz))
+        yi = torch.broadcast_to(ar[None, :, None] + y0[:, None, None], (T, csz, csz))
+        ctx = N.noise_zval_grid(xi, yi, cfg.mode, shape=cfg.shape,
+                                mesh_scale=cfg.mesh_scale,
+                                mesh_seed=cfg.mesh_seed, world=world)
+    return TM.apply_glaciate(ctx, zmax_est, cfg)
+
+
+def erode_tiles(zv: torch.Tensor, zmax_est, wpz, cfg: TM.TerrainConfig,
+                world: WorldConst, erosion_iters: int,
+                angles: torch.Tensor) -> torch.Tensor:
+    """The JAX package's non-TPU tile erosion: the padded `erode` of each
+    tile with batches of 256 droplets, 96 steps, clamped below at the
+    tile's own minimum."""
+    eparams = E.ErosionParams(
+        erode_amount=cfg.erode_amount, water_plane_z=wpz,
+        half_dxy=world.half_dxy, zmin=-zmax_est, zmax=zmax_est,
+        rock_thresh=TM.clip_hd1(cfg), relh_adj_tex=cfg.relh_adj_tex)
+    zmin_t = torch.amin(zv, dim=(-1, -2))
+    return E.erode(zv, erosion_iters, eparams, angles,
+                   min_zval=zmin_t[:, None, None], batch_size=EROSION_BATCH,
+                   max_steps=EROSION_STEPS, pad=E.PAD)
+
+
+def gen_tile_batch(table, txs, tys, zmax_est, wpz, cfg: TM.TerrainConfig,
+                   world: WorldConst, tile_size: int, erosion_iters: int,
+                   sun_dir: tuple, angles: torch.Tensor | None = None):
+    """Generate a padded batch of tiles: context zvals (with AO halo) ->
+    glaciate -> [erode interior] -> AO -> shadows -> biome weights.
+
+    `txs`, `tys` [T] float32 tile indices; `zmax_est`, `wpz` 0-d float32
+    tensors on the same device; `angles` as `TileManager.angles` when
+    `erosion_iters > 0`.  Returns (zvals [T, n, n], ao [T, n, n], shadow
+    mask [T, n, n] bool, weights [T, 5, n, n])."""
+    stride = tile_size
+    halo = AO.AO_RAY_LEN
+    inner = (slice(None), slice(halo, halo + stride), slice(halo, halo + stride))
+    ctx = tile_context(table, txs, tys, zmax_est, cfg, world, tile_size)
+    zv = ctx[inner]
+    if erosion_iters > 0:
+        zv = erode_tiles(zv, zmax_est, wpz, cfg, world, erosion_iters, angles)
+        ctx = ctx.clone()
+        ctx[inner] = zv
+
+    ao = AO.tile_ao(ctx, stride, dz=0.5 * world.half_dxy)
+    smask, _ = SH.mesh_shadows(zv, sun_dir, cell_w=world.dx)
+
+    # normal z for slope-based texturing: centered differences from the
+    # halo-padded context, so borders use true neighbor heights
+    s = slice(halo, halo + stride)
+    dzdx = (ctx[:, s, halo + 1:halo + stride + 1]
+            - ctx[:, s, halo - 1:halo + stride - 1]) * (0.5 * world.dx_inv)
+    dzdy = (ctx[:, halo + 1:halo + stride + 1, s]
+            - ctx[:, halo - 1:halo + stride - 1, s]) * (0.5 * world.dy_inv)
+    norm_z = torch.rsqrt(dzdx ** 2 + dzdy ** 2 + 1.0)
+    weights = B.biome_weights(zv, norm_z, -zmax_est, zmax_est, cfg)
+    return zv, ao, smask, weights

@@ -2,8 +2,8 @@
 (port of `3dworld_tpu/utils/config.py`; pure host code).
 
 `Config.world_const` and `Config.terrain_config` build the port's
-`WorldConst` and `TerrainConfig`.  Not ported: `building_params`, which
-reads the city's `BuildingParams`.
+`WorldConst` and `TerrainConfig`; `building_params` the city's
+`BuildingParams`.
 
 The reference binds hundreds of text keywords to typed globals through
 `kw_to_val_map_t` maps (`file_utils.h:88-104`, populated in
@@ -526,6 +526,38 @@ def city_params(cfg: Config) -> dict:
         "num_rr_tracks": _dget(c, "num_rr_tracks", int, 0),
         "plots_to_parks_ratio": _dget(c, "plots_to_parks_ratio", int, 20),
     }
+
+
+def building_params(cfg: Config):
+    """Typed view of the `buildings <param> ...` sub-config mapped onto
+    city/buildings.py BuildingParams (+ the animal counts the building
+    AI consumes)."""
+    from ..city.buildings import BuildingParams
+    b = cfg.buildings
+    bp = BuildingParams(
+        min_sz=_dget(b, "size_range_min", float, 2.0),
+        max_sz=_dget(b, "size_range_max", float, 6.0),
+        min_floors=_dget(b, "min_levels", int, 1),
+        max_floors=_dget(b, "max_levels", int, 8),
+        num_materials=max(1, _dget(b, "num_materials", int, 4)),
+        round_prob=_dget(b, "round_prob", float, 0.15),
+        # rotated buildings only when the config allows a rotation angle
+        rotate_prob=0.2 if _dget(b, "max_rot_angle", float, 0.0) > 0 else 0.0,
+        max_rot_angle=_dget(b, "max_rot_angle", float, 0.5),
+    )
+    extras = {
+        "num_place": _dget(b, "num_place", int, 100),
+        "num_tries": _dget(b, "num_tries", int, 10),
+        "flatten_mesh": _dget(b, "flatten_mesh", int, 0),
+        "num_rats_min": _dget(b, "num_rats_min", int, 0),
+        "num_rats_max": _dget(b, "num_rats_max", int, 0),
+        "num_spiders_min": _dget(b, "num_spiders_min", int, 0),
+        "num_spiders_max": _dget(b, "num_spiders_max", int, 0),
+        "num_snakes_min": _dget(b, "num_snakes_min", int, 0),
+        "num_snakes_max": _dget(b, "num_snakes_max", int, 0),
+        "ai_target_player": _dget(b, "ai_target_player", int, 0),
+    }
+    return bp, extras
 
 
 def load_config_tiered(base_dir: str = "scene_config") -> Config:

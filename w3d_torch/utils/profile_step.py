@@ -16,7 +16,11 @@ two moving platforms), under `torch.profiler`, after two warm-up calls
 each; then game mode on `chip_smoke.py`'s phase 3f scene (scene P eroded
 by 1,024 droplets, 8 smileys): one whole game frame of
 `app._run_ground_game`, and its parts, `ground_frame`, the AI step
-(`gameplay/ai.step_smileys_ai`) and `gameplay/frame.update_game_frame`.
+(`gameplay/ai.step_smileys_ai`) and `gameplay/frame.update_game_frame`;
+last tiled mode at `bench.py`'s `bench_live_tiled` settings (`tiled_world`):
+one chunk of 32 frames (`TiledWorld.step_chunk`: tiles, the chained city
+frames, the reroute, as the bench times it) with the fauna's 32 frames,
+and its parts, the chained city frames alone and the fauna alone.
 For each it prints the host wall time per call, the device-busy time per call (the
 union of the CUDA kernel intervals in the trace) and its share of the
 wall, the kernels launched per call, and the kernels that take the most
@@ -71,7 +75,7 @@ def device_busy(prof) -> tuple[float, int, list]:
     return busy_us / 1e3, len(ks), top
 
 
-def trace(label: str, fn, reps: int, tables: list) -> None:
+def trace(label: str, fn, reps: int, tables: list) -> dict:
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
@@ -89,6 +93,7 @@ def trace(label: str, fn, reps: int, tables: list) -> None:
         print(f"    {ms / reps:8.3f} ms {count // reps:6d}x  {name[:90]}", flush=True)
     tables.append(f"==== {label}\n" + prof.key_averages().table(
         sort_by="self_cuda_time_total", row_limit=30))
+    return {"wall_ms": wall / reps, "busy_ms": busy / reps, "kernels": nk / reps}
 
 
 def main() -> None:
@@ -107,6 +112,7 @@ def main() -> None:
 
     trace_frames(dev, world, gen, tables)
     trace_game(dev, tables)
+    trace_tiled(dev, tables)
     if args.table:
         with open(args.table, "w") as f:
             f.write("\n\n".join(tables) + "\n")
@@ -207,3 +213,57 @@ def trace_frames(dev, world, gen, tables: list) -> None:
 
 if __name__ == "__main__":
     main()
+
+
+def tiled_world(dev, seed: int = 1, chunk: int = 32):
+    """The world of `bench.py`'s `bench_live_tiled` (and of `app.run_tiled`):
+    64^2 tiles, one 128^2 city with 64 cars and 128 pedestrians, a
+    furnished 3-floor tower with 48 people, 8 birds, 2 trains."""
+    import numpy as np
+    from ..city import assemble as CA
+    from ..city import floorplan as CF
+    from ..city import room_content as CRC
+    from ..terrain.tiles import TileManager
+    tm = TileManager(cfg=TM.TerrainConfig(mesh_seed=seed),
+                     world=WorldConst(mesh_x=64, mesh_y=64), tile_size=64, device=dev)
+    cw = CA.build_city(np.zeros((128, 128), np.float32), num_cities=1, num_cars=64,
+                       num_peds=128, seed=seed, device=dev)
+    interior = CF.gen_interior((0.0, 0.0, 0.0, 1.2, 0.9, 0.4), 3, 0.08, seed=seed)
+    objs = CRC.furnish_rooms(interior, 0.08, seed=seed)
+    return WM.make_tiled_world(tm, cw, builders=[(interior, 48, objs)], seed=seed,
+                               chunk=chunk, num_birds=8, num_trains=2, device=dev)
+
+
+def trace_tiled(dev, tables: list, chunk: int = 32) -> dict:
+    """A tiled-mode chunk and its parts; returns the whole chunk's
+    {"wall_ms", "busy_ms", "kernels"} (per chunk)."""
+    from .. import app as APP
+    from ..city import city_step as CS
+    from ..veg import animals as VA
+    w = tiled_world(dev, chunk=chunk)
+    draws = APP.TiledDraws(1)
+    wl = WorldConst(mesh_x=64, mesh_y=64)
+    fa = [VA.make_animals(draws.fauna_birds(16, dev)),
+          VA.make_butterflies(draws.butterflies(16, wl, dev)), None]
+    cam = [0.0]
+
+    def fauna(c):
+        tm = w.tile_mgr
+        mesh = tm.tiles[tm.camera_tile(c, 0.0)].zvals[:64, :64].contiguous()
+        if fa[2] is None:
+            fa[2] = VA.gen_fish(draws.fish(32, wl, dev), mesh, APP.FAUNA_WATER_Z, wl)
+        fa[:] = VA.step_tiled_fauna(*fa, draws.fauna(w.frame, chunk, 16, 16, 32, dev),
+                                    mesh, wl, APP.FAUNA_WATER_Z, c, 0.0, frames=chunk)
+
+    def step():
+        w.step_chunk(cam[0], 0.0, frames=chunk)
+        fauna(cam[0])
+        cam[0] += 0.8 * chunk
+    out = trace(f"tiled chunk of {chunk} frames (tiles, city, reroute, fauna)", step, 4,
+                tables)
+    d = draws.city(0, chunk, w)
+    trace(f"  its {chunk} chained city frames",
+          lambda: CS.city_frames_chained(w.city, w.road_graph, w.ped_nav, w.pads,
+                                         w.perches, chunk, d, rail=w.rail), 4, tables)
+    trace(f"  its {chunk} fauna frames", lambda: fauna(cam[0] - 0.8 * chunk), 4, tables)
+    return out
