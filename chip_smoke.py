@@ -94,8 +94,32 @@ Phases, each fatal on failure (no phase hides an error):
       tile heights 1e-4; over one mesh birds and butterflies 1e-5 and
       fish 2e-3: a fish's cruise speed rounds onto either side of the
       drag threshold, so an ulp of cos or sin slows it by 4% a frame).
+   h. universe mode: `app.run_universe` at the app's sizes, 6 chunks of 32
+      frames with the camera moving 0.5 a frame: without ship defs (64
+      built-in ships, the fleet step; ms per frame, the first chunk's time
+      as the time to the first universe frame, cells created and freed,
+      galaxies generated, ships alive), on the ship defs of
+      `kernel_probe.write_ship_defs` (156 ships in 195 slots, a projectile
+      pool of 1,024, 8 weapon slots, the full weapon model: ms per frame,
+      ships alive, projectiles live, captures) and at 8 times its fleets
+      (1,248 ships in 1,560 slots); one defs chunk under the profiler
+      (kernels per frame, device-busy share) and one with
+      `torch.cuda.set_sync_debug_mode("error")`; scripted scenes that make a
+      beam hit, a torpedo fly and hit, point defence shoot one down, a bay
+      launch fighters and a shuttle capture a ship; 8 ships beside a
+      configured black hole fleeing it while the player ship steers;
+      `gen_asteroid_field` with 512 asteroids at radius 10 and 64
+      `step_asteroid_field` steps (D once a step; ms per step), 8,192
+      asteroids for D's time at window 32, D against its plain version on
+      both fields' Morton order (1e-6, bitwise run to run); planet surfaces
+      at 64x128 and 256x512 with craters and colors (ms per call); and the
+      card against the CPU on the same draws: 2 chunks of 8 combat frames
+      of 68 slots, 16 default frames (rows and paging equal) and 8
+      asteroid steps (floats 1e-5, integer and bool fields equal).
    Prints time to first result, tiles/s and frames/s, and fails if a
-   kernel was never launched or a value is not finite.
+   kernel was never launched or a value is not finite.  D's launches in
+   the kernels line include 3h's, and its entry carries a `universe` row
+   (8,192 asteroids, window 32: device-only and plain ms, bound).
 4. Each kernel against its plain PyTorch version on the card, at its
    path's shapes: max difference and mismatch counts; erosion and pairs
    also bitwise from run to run and at one ragged shape each (3 tiles of
@@ -129,6 +153,7 @@ import contextlib
 import io
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -943,6 +968,343 @@ def run_tiled_phase(dev, kernels: dict, reset_counts, read_counts) -> dict:
     return out
 
 
+UNIVERSE_CHUNK = 32      # app.py's --chunk default
+UNIVERSE_CHUNKS = 6      # the metric is the median of chunks 3-6, as in 3g
+ASTEROIDS = 512          # gen_asteroid_field's default field
+ASTEROID_RADIUS = 10.0   # the JAX package's field radius
+ASTEROID_STEPS = 64
+ASTEROIDS_BIG = 8192     # D's time at this path's window
+ASTEROID_WINDOW = 32     # step_asteroid_field's window
+SCALE_MULTIPLIER = 8     # 1,248 ships: the [n, n] targeting at a size the card works at
+
+
+def run_universe_phase(dev, kernels: dict, reset_counts, read_counts) -> dict:
+    """Phase 3h: universe mode on the card.  `app.run_universe` without
+    ship defs (64 built-in ships) and on the written defs (156 ships in
+    195 slots, the full weapon model) and at 8 times their fleets; one
+    defs chunk under the profiler and one with syncs raising; scripted
+    scenes for each weapon event; the hazards and the player; the asteroid
+    field through D; the planet surfaces; and the card against the CPU.
+    Returns the metrics, the kernel launches and D's universe row."""
+    from w3d_torch import app as APP
+    from w3d_torch import convert
+    from w3d_torch.models import world as WM
+    from w3d_torch.ops.cuda import pairs_kernel as PK
+    from w3d_torch.physics import step as PS
+    from w3d_torch.universe import asteroids as UA, combat as UCB, gen as UG
+    from w3d_torch.universe import ship_config as USC, ships as USH, surface as USF
+    from w3d_torch.utils import kernel_probe as KP
+    from w3d_torch.utils import profile_step as PROF
+
+    out = {"launches": {n: 0 for n in kernels}}
+
+    def rows_of(fn, *a, **k):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            result = fn(*a, **k)
+        return result, [json.loads(line) for line in buf.getvalue().splitlines()]
+
+    def add_counts(c):
+        for n in c:
+            out["launches"][n] += c[n]
+
+    def finite(state, what):
+        for v in _leaves(convert.to_numpy(state)):
+            if v.dtype.kind == "f":
+                need(bool(np.isfinite(v[np.abs(v) < 1e17]).all()), f"{what}: finite")
+
+    frames = UNIVERSE_CHUNK * UNIVERSE_CHUNKS
+    tmp = tempfile.mkdtemp()
+    try:
+        # the default path: no ship defs, 64 built-in ships, no combat
+        reset_counts()
+        w, rows = rows_of(APP.run_universe, frames, 1, os.path.join(tmp, "none.txt"),
+                          chunk=UNIVERSE_CHUNK, device=dev)
+        add_counts(read_counts("universe default path (6 chunks of 32 frames)", ()))
+        need(len(rows) == UNIVERSE_CHUNKS and rows[0]["cells_created"] == 343
+             and all(r["cells_created"] % 49 == 0 for r in rows[1:])
+             and sum(r["cells_created"] for r in rows[1:]) > 0,
+             "universe default path: 343 cells at start, 49 per cell crossing")
+        finite(w.fleet, "universe default fleet")
+        default_ms = statistics.median(r["ms"] for r in rows[2:])
+        first_s = rows[0]["ms"] * rows[0]["chained"] / 1e3
+        created = sum(r["cells_created"] for r in rows)
+        freed = sum(r["cells_freed"] for r in rows)
+        log(f"universe default path, 64 ships, {UNIVERSE_CHUNKS} x {UNIVERSE_CHUNK} frames: "
+            f"{default_ms:.3f} ms per frame (rows' median of chunks 3-6), first chunk "
+            f"{first_s:.3f} s, cells created {created} and freed {freed}, galaxies "
+            f"generated {w.state.num_generated()} of "
+            f"{sum(len(c.galaxies) for c in w.state.cells.values())}, ships alive "
+            f"{rows[-1]['ships_alive']}")
+        out.update(universe_ms_per_frame_default=default_ms,
+                   time_to_first_universe_frame_s=first_s)
+
+        # the defs path: 156 ships in 195 slots, the full weapon model
+        udir = os.path.join(tmp, "universe")
+        os.makedirs(udir)
+        path = KP.write_ship_defs(os.path.join(udir, "ship_defs.txt"))
+        reset_counts()
+        w, rows = rows_of(APP.run_universe, frames, 1, path, chunk=UNIVERSE_CHUNK, device=dev)
+        add_counts(read_counts("universe defs path (6 chunks of 32 frames)", ()))
+        cs = w.combat
+        n_slots, slots = cs.cool.shape
+        need(n_slots == 195 and slots == 8 and cs.proj.px.shape[0] == 1024,
+             "universe defs path: 156 ships in 195 slots, 8 weapon slots, a pool of 1,024")
+        finite(cs, "universe defs combat state")
+        defs_ms = statistics.median(r["ms"] for r in rows[2:])
+        alive = rows[-1]["ships_alive"]
+        proj = int(cs.proj.alive.sum())
+        caps = int(cs.captured.sum())
+        spawned = int(cs.fleet.alive[156:].sum())
+        ct = w.combat_tables
+        ammo_used = (ct.slot_ammo0[cs.fleet.cls.long()] - cs.ammo)[:156]
+        wid = ct.slot_wid[cs.fleet.cls.long()][:156]
+        bays = int(((wid == 20) & (ammo_used > 0)).sum())
+        torps = int(((wid == 15) & (ammo_used > 0)).sum())
+        log(f"universe defs path, {n_slots} slots, {UNIVERSE_CHUNKS} x {UNIVERSE_CHUNK} "
+            f"frames: {defs_ms:.3f} ms per frame (rows' median of chunks 3-6), ships alive "
+            f"{[r['ships_alive'] for r in rows]}, projectiles live {proj}, captures {caps}, "
+            f"fighters alive in the reserve slots {spawned}, carriers that launched {bays}, "
+            f"armageddons that fired torpedoes {torps}, attacked ships "
+            f"{int(cs.fleet.attacked.sum())}")
+        need(not bool(cs.fleet.alive[:156].all()) and bool(cs.fleet.attacked.any()),
+             "universe defs path: a battle (ships of the fleets died)")
+        out.update(universe_ms_per_frame=defs_ms, universe_defs_ships_alive=alive,
+                   universe_defs_projectiles_live=proj, universe_defs_captures=caps)
+
+        # one chunk under the profiler, one chunk with syncs raising
+        prof = PROF.trace_universe(dev, [], tmp)
+        busy = prof["busy_ms"] / prof["wall_ms"]
+        w2 = PROF.universe_world(dev, tmp)
+        w2.step_chunk((0.0, 0.0, 0.0), frames=UNIVERSE_CHUNK)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            w2.step_chunk((16.0, 0.0, 0.0), frames=UNIVERSE_CHUNK)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        log(f"universe defs chunk of {UNIVERSE_CHUNK} under the profiler: "
+            f"{prof['wall_ms']:.1f} ms wall, device busy {prof['busy_ms']:.2f} ms "
+            f"({100 * busy:.1f}%), {prof['kernels'] / UNIVERSE_CHUNK:.0f} kernels per frame; "
+            f"a chunk ran with syncs raising")
+        out.update(universe_chunk_device_busy_share=busy,
+                   universe_kernels_per_frame=prof["kernels"] / UNIVERSE_CHUNK)
+
+        # the scale point: 8 times the fleets (1,248 ships in 1,560 slots)
+        big = KP.write_ship_defs(os.path.join(udir, "ship_defs_x8.txt"), SCALE_MULTIPLIER)
+        w, rows = rows_of(APP.run_universe, frames, 1, big, chunk=UNIVERSE_CHUNK, device=dev)
+        need(w.combat.cool.shape[0] == 1560, "universe scale point: 1,560 slots")
+        finite(w.combat, "universe scale point")
+        big_ms = statistics.median(r["ms"] for r in rows[2:])
+        log(f"universe scale point, 1,248 ships in 1,560 slots: {big_ms:.3f} ms per frame, "
+            f"ships alive {[r['ships_alive'] for r in rows]}, projectiles live "
+            f"{int(w.combat.proj.alive.sum())}, captures {int(w.combat.captured.sum())}")
+        out.update(universe_ms_per_frame_x8=big_ms)
+
+        # scripted scenes: each weapon event, on the card
+        defs = USC.parse_ship_defs(path)
+        ct = UCB.build_combat_tables(defs, device=dev)
+        tbl = USC.ship_class_table(defs)
+        gen = torch.Generator().manual_seed(5)
+
+        def scene(rows_, frames_, ct_=ct, pad=0, **fields):
+            cls = np.array([r[0] for r in rows_], np.int32)
+            pos = np.array([r[2] for r in rows_], np.float32)
+            z = np.zeros(len(rows_), np.float32)
+            f = USH.FleetState(px=pos[:, 0], py=pos[:, 1], pz=pos[:, 2], vx=z, vy=z, vz=z,
+                               cls=cls, align=np.array([r[1] for r in rows_], np.int32),
+                               armor=tbl[cls, 2], shields=tbl[cls, 3], cooldown=z,
+                               alive=np.ones(len(rows_), bool))._replace(**fields)
+            s = UCB.make_combat_state(UCB.pad_fleet(f, len(rows_) + pad), ct_, pool_size=64)
+            hist = []
+            for _ in range(frames_):
+                d = UCB.draw_combat(1, *s.cool.shape, gen)
+                s = UCB.step_combat(s, UCB.CombatDraws(*(t[0].to(dev) for t in d)), ct_)
+                hist.append(s)
+            return hist
+
+        def only(cls_id, wid, ct_=ct):
+            sw = ct_.slot_wid.clone()
+            sw[cls_id] = torch.where(sw[cls_id] == wid, sw[cls_id], 0)
+            return ct_._replace(slot_wid=sw)
+
+        none = np.array([USH.AI_ATT_ENEMY, USH.AI_NONE], np.int32)
+        beam = scene([(3, 0, (0, 0, 0)), (2, 1, (0.03, 0, 0))], 1, only(3, 6), ai=none)
+        beam_hit = float(beam[0].fleet.shields[1]) < tbl[2, 3]
+        torp = scene([(9, 0, (0, 0, 0)), (2, 1, (0.05, 0, 0))], 60, only(9, 15), ai=none)
+        torp_flew = int(torp[2].proj.alive.sum()) >= 1 and float(torp[2].fleet.shields[1]) == tbl[2, 3]
+        torp_hit = float(torp[-1].fleet.shields[1]) < tbl[2, 3]
+        pd = scene([(9, 0, (0, 0, 0)), (2, 1, (0.04, 0, 0))]
+                   + [(28, 1, (0.04 + 0.004 * k, 0.004, 0)) for k in range(4)], 24,
+                   only(28, 17, only(9, 15)))
+        pd_fired = any(bool((s.cool[2:, 0] > 0).any()) for s in pd)
+        pd_saved = float(pd[-1].fleet.shields[1]) == tbl[2, 3]
+        bay = scene([(8, 0, (0, 0, 0)), (2, 1, (0.25, 0, 0))], 12, only(8, 20), pad=8)
+        launched = int(bay[-1].fleet.alive[2:].sum())
+        gap = 0.8 * UCB.BOARD_REACH * (tbl[17, 7] + tbl[2, 7])
+        board = scene([(2, 1, (gap, 0, 0)), (17, 0, (0, 0, 0))], 24,
+                      ai=np.array([USH.AI_NONE, USH.AI_ATT_ENEMY], np.int32),
+                      shields=np.float32([0.0, tbl[17, 3]]),
+                      armor=np.float32([0.2 * tbl[2, 2], tbl[17, 2]]))
+        captured = int(board[-1].fleet.align[0]) == 0 and bool(board[-1].captured[0])
+        log(f"scripted scenes on the card: beam hit on frame 1 {beam_hit}; torpedo in flight "
+            f"on frame 3 with no damage yet {torp_flew}, a hit by frame 60 {torp_hit}; point "
+            f"defence fired {pd_fired} and the target kept its shields {pd_saved}; bay "
+            f"launched {launched} fighters; boarding capture {captured}")
+        need(beam_hit and torp_flew and torp_hit and pd_fired and pd_saved and launched >= 1
+             and captured, "scripted universe scenes: beam, torpedo, point defence, bay, capture")
+
+        # hazards and the player: a fleet parked beside a configured black
+        # hole flees it; the player ship under controls
+        fl = USH.make_fleet(USH.draw_fleet(8, torch.Generator().manual_seed(2), num_teams=1,
+                                           spread=0.01, device=dev))
+        hw = WM.UniverseWorld(state=UG.UniverseState(), fleet=fl,
+                              black_holes=[((0.3, 0.0, 0.0), 0.02)],
+                              player_ship=USH.make_player_ship(1, device=dev))
+        hw.step_chunk((0.0, 0.0, 0.0), frames=2,
+                      controls=[(USH.MOVE_FRONT, 2.0, True), (USH.MOVE_LEFT, 1.0, False)])
+        hw.step_chunk((0.0, 0.0, 0.0), frames=2, controls=[(USH.MOVE_FRONT, 1.0, False)])
+        flee = bool((hw.fleet.vx <= 0.0).all())
+        player_x = float(hw.player_ship.px)
+        log(f"hazards: 8 ships beside a black hole all flee it (-x) {flee}; the player ship "
+            f"moved to x {player_x:.4f}")
+        need(flee and player_x > 0.0, "universe hazards: ships flee the hole, the player moves")
+
+        # the asteroid field: D once a step
+        agen = torch.Generator().manual_seed(9)
+        field = UA.gen_asteroid_field(UA.draw_asteroid_field(ASTEROIDS, agen, device=dev),
+                                      ASTEROID_RADIUS)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        for _ in range(ASTEROID_STEPS):
+            field = UA.step_asteroid_field(field, ASTEROID_RADIUS, 1.0)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / ASTEROID_STEPS
+        ca = read_counts(f"asteroid field ({ASTEROIDS} asteroids, {ASTEROID_STEPS} steps)",
+                         ("pairs",))
+        add_counts(ca)
+        need(ca["pairs"] == ASTEROID_STEPS, "asteroid field: D once a step")
+        finite(field, "asteroid field")
+        bf = UA.gen_asteroid_field(UA.draw_asteroid_field(ASTEROIDS_BIG, agen, device=dev),
+                                   ASTEROID_RADIUS)
+        big_step_ms = KP.events_ms(lambda: UA.step_asteroid_field(bf, ASTEROID_RADIUS, 1.0),
+                                   launches=8)
+
+        # D on the field's Morton order against its plain version
+        def d_inputs(f):
+            order = torch.sort(PS.morton_key(f.px, f.py, 0.05 * ASTEROID_RADIUS,
+                                             2.0 * ASTEROID_RADIUS), stable=True).indices
+            c = [t[order].contiguous() for t in (f.px, f.py, f.pz, f.vx, f.vy, f.vz, f.radius)]
+            return (*c, c[6] ** 3, torch.ones_like(c[0]), torch.ones_like(c[0], dtype=torch.bool))
+        pair_err = 0.0
+        for f in (field, bf):
+            ins = d_inputs(f)
+            k1 = PK.banded_pairs(*ins, window=ASTEROID_WINDOW)
+            k2 = PK.banded_pairs(*ins, window=ASTEROID_WINDOW)
+            ref = PS.banded_pair_collisions(*ins, window=ASTEROID_WINDOW)
+            err = max(float((a - b).abs().max()) for a, b in zip(k1, ref))
+            need(err <= 1e-6 and all(torch.equal(a, b) for a, b in zip(k1, k2)),
+                 "D on the asteroid field: " + TOLS["pairs"])
+            pair_err = max(pair_err, err)
+        ins = d_inputs(bf)
+        valid, hits = KP.pair_work(*ins[:3], ins[6], ins[9], ASTEROID_WINDOW)
+        timer = KP.GraphTimer(lambda: PK.banded_pairs(*ins, window=ASTEROID_WINDOW))
+        plain = lambda: PS.banded_pair_collisions(*ins, window=ASTEROID_WINDOW)
+        d_ms, d_plain = [], []
+        for i in range(4):
+            d_ms.append(timer.time())
+            d_plain.append(KP.events_ms(plain, 1, reps=1, warm=i == 0))
+        bound = KP.pairs_bound(ASTEROIDS_BIG, valid, hits)
+        out["pairs_universe"] = dict(
+            n=ASTEROIDS_BIG, window=ASTEROID_WINDOW, ms=statistics.median(d_ms),
+            plain_ms=statistics.median(d_plain), bound_ms=bound[0], bound_by=bound[1],
+            launches=ca["pairs"], max_abs_err=pair_err, valid_pairs=valid, contacts=hits)
+        log(f"asteroid field: {ASTEROIDS} asteroids, {ASTEROID_STEPS} steps, "
+            f"{step_ms:.3f} ms per step (host clock, synchronised), D {ca['pairs']} launches; "
+            f"{ASTEROIDS_BIG} asteroids {big_step_ms:.3f} ms per step (CUDA events); D at "
+            f"window {ASTEROID_WINDOW} on {ASTEROIDS_BIG}: {out['pairs_universe']['ms']:.4f} ms "
+            f"device-only, plain {out['pairs_universe']['plain_ms']:.4f} ms, bound "
+            f"{bound[0]:.5f} ms by {bound[1]} ({valid} pair tests, {hits} contacts); max "
+            f"|kernel - plain| {pair_err:.3g} on both fields, bitwise run to run")
+        out.update(asteroid_step_ms=step_ms, asteroid_step_ms_8192=big_step_ms)
+
+        # the planet surfaces
+        surf = {}
+        for nlat, nlon in ((64, 128), (256, 512)):
+            def gen_s():
+                h, m = USF.gen_planet_surface(12345, nlat, nlon, water_level=0.1, device=dev)
+                return USF.surface_color(USF.add_craters(h, seed=7), m, 30.0)
+            col = gen_s()
+            need(col.shape == (3, nlat, nlon) and bool(torch.isfinite(col).all()),
+                 "planet surface: finite colors")
+            ts_ = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                gen_s()
+                torch.cuda.synchronize()
+                ts_.append((time.perf_counter() - t0) * 1e3)
+            surf[f"{nlat}x{nlon}"] = statistics.median(ts_)
+        log(f"planet surfaces (gen_planet_surface + 24 craters + colors), ms per call "
+            f"(median of 5, host clock, synchronised): {surf}")
+        out.update(planet_surface_ms=surf)
+
+        # the card against the CPU: combat frames of a small armed fleet,
+        # the paging, asteroid steps
+        jf, _t, _o, _n = USH.fleet_from_defs(defs, APP.UniverseDraws(1).fleet_positions)
+        sel = np.r_[0:30, 55:85, 156:164]
+        small = USH.FleetState(*(None if v is None else np.asarray(v)[sel]
+                                 for v in UCB.pad_fleet(jf, 164)))
+        small = small._replace(px=np.where(small.align == 5, small.px - 0.2,
+                                           small.px).astype(np.float32))
+        res = {}
+        for d_ in ("cpu", dev):
+            ctd = UCB.build_combat_tables(defs, device=d_)
+            s = UCB.make_combat_state(small, ctd, pool_size=128)
+            draws = APP.UniverseDraws(1)
+            for k in range(2):
+                s = UCB.combat_frames_chained(s, draws.combat(8 * k, 8, 68, 8, d_), 8, ctd)
+            res[d_] = convert.to_numpy(s)
+        worst, exact = 0.0, True
+        for a, b in zip(_leaves(res["cpu"]), _leaves(res[dev])):
+            if a.dtype.kind == "f":
+                fin = np.isfinite(a)
+                exact &= bool(np.array_equal(fin, np.isfinite(b)))
+                worst = max(worst, float(np.abs(a[fin] - b[fin]).max()) if fin.any() else 0.0)
+            else:
+                exact &= bool(np.array_equal(a, b))
+        page = {}
+        for d_ in ("cpu", dev):
+            wd, rws = rows_of(APP.run_universe, 16, 1, os.path.join(tmp, "none.txt"), chunk=8,
+                              device=d_)
+            page[d_] = (wd, [{k: v for k, v in r.items() if k != "ms"} for r in rws])
+        paging_equal = page["cpu"][1] == page[dev][1] and \
+            list(page["cpu"][0].state.cells) == list(page[dev][0].state.cells) and \
+            page["cpu"][0].state.num_generated() == page[dev][0].state.num_generated()
+        fleet_d = max(float(np.abs(a - b).max()) for a, b in zip(
+            _leaves(convert.to_numpy(page["cpu"][0].fleet)),
+            _leaves(convert.to_numpy(page[dev][0].fleet))) if a.dtype.kind == "f")
+        fc = UA.gen_asteroid_field(UA.draw_asteroid_field(ASTEROIDS, torch.Generator()
+                                                          .manual_seed(4), device="cpu"),
+                                   ASTEROID_RADIUS)
+        fg = UA.AsteroidField(*(t.to(dev) for t in fc))
+        for _ in range(8):
+            fc = UA.step_asteroid_field(fc, ASTEROID_RADIUS, 1.0)
+            fg = UA.step_asteroid_field(fg, ASTEROID_RADIUS, 1.0)
+        ast_d = max(float((a.cpu() - b).abs().max()) for a, b in zip(fg, fc))
+        log(f"universe, card vs CPU: 2 chunks of 8 combat frames on 68 slots: floats max diff "
+            f"{worst:.3g}, integer and bool fields equal {exact}; 16 default frames: rows "
+            f"and paging equal {paging_equal}, fleet max diff {fleet_d:.3g}; 8 asteroid "
+            f"steps max diff {ast_d:.3g}")
+        need(exact and worst <= 1e-5 and paging_equal and fleet_d <= 1e-5 and ast_d <= 1e-5,
+             "universe, card vs CPU: integer fields and paging equal, floats 1e-5")
+        out.update(universe_card_vs_cpu_max_diff=max(worst, fleet_d, ast_d))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def _leaves(value) -> list:
     """The numpy arrays of a NamedTuple tree, in field order (None skipped)."""
     if value is None:
@@ -1412,6 +1774,16 @@ def main() -> int:
     for n, c in tiled3g["launches"].items():
         launches[n] += c
 
+    # ---- 3h. universe mode -----------------------------------------------
+    # app.run_universe without defs and on the written ship defs (the full
+    # weapon model) and at 8 times their fleets, a profiled chunk and one
+    # with syncs raising, scripted weapon scenes, hazards and the player,
+    # the asteroid field through D, the planet surfaces, and the card
+    # against the CPU
+    universe3h = run_universe_phase(dev, kernels, reset_counts, read_counts)
+    for n, c in universe3h["launches"].items():
+        launches[n] += c
+
     # ---- 4. kernels vs plain versions, main-path shapes ------------------
     # Each kernel device-only (a CUDA graph of 20 launches replayed between
     # CUDA events), in turns with its plain version (CUDA events around
@@ -1621,6 +1993,8 @@ def main() -> int:
         "no PyTorch call computes banded pair impulses",
         floor=lambda: PK.banded_pairs(*pin_floor, window=WINDOW),
         floor_at=f"{PAIRS_FLOOR_N} ranks")
+    # D on phase 3h's asteroid field: 8,192 asteroids, window 32
+    report["pairs"]["universe"] = universe3h["pairs_universe"]
 
     # G: one fused substep at 10K, on the dense pile in the spheres scene,
     # and on random objects (random status, flag bits and params) over a
@@ -1814,7 +2188,9 @@ def main() -> int:
                     "ungrouped_narrow_ms_2000x640": plain_narrow["graph_ms"],
                     **{k: v for k, v in scene3e.items() if k != "launches"},
                     **{k: v for k, v in game3f.items() if k != "launches"},
-                    **{k: v for k, v in tiled3g.items() if k != "launches"}},
+                    **{k: v for k, v in tiled3g.items() if k != "launches"},
+                    **{k: v for k, v in universe3h.items()
+                       if k not in ("launches", "pairs_universe")}},
         "card": smi}))
     log(json.dumps({"kernels": [
         {"name": srcs[n][0], "route": "cuda", "source": srcs[n][1],
@@ -1824,7 +2200,7 @@ def main() -> int:
          "bound_by": report[n]["bound"][1], "library_ms": None,
          "library_none_because": report[n]["note"],
          "floor_ms": report[n]["floor"], "floor_at": report[n]["floor_at"],
-         **{k: report[n][k] for k in ("padded", "wide") if k in report[n]}}
+         **{k: report[n][k] for k in ("padded", "wide", "universe") if k in report[n]}}
         for n in srcs]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -319,3 +319,38 @@ def test_building_params_match(tmp_path):
     tb, tx = TCFG.building_params(TCFG.load_config(str(cfg)))
     assert tuple(tb) == tuple(jb) and tx == jx
     assert tb.max_floors == 12 and tb.rotate_prob == 0.2 and tx["num_spiders_max"] == 5
+
+
+@pytest.fixture
+def no_assets(monkeypatch):
+    """W3D_ASSET_ROOT="" with both packages' `utils/names` reloaded (their
+    text-data directory is read at import); reloaded again after."""
+    import importlib
+    from w3d.utils import names as JN
+    from w3d_torch.utils import names as TN
+    monkeypatch.setenv("W3D_ASSET_ROOT", "")
+    importlib.reload(JN)
+    importlib.reload(TN)
+    yield
+    monkeypatch.undo()
+    importlib.reload(JN)
+    importlib.reload(TN)
+
+
+def test_labels_and_building_names_match(no_assets):
+    """room_content.label_objects (book titles, numbered door signs) on
+    furnished office and hotel towers, and building_name for every
+    building type over several seeds: equal, without an asset tree."""
+    for seed, btype in ((9, TCRC.BT_OFFICE), (4, TCRC.BT_HOTEL), (13, TCRC.BT_HOSPITAL)):
+        ji = JCF.gen_interior((0.0, 0.0, 0.0, 1.2, 0.9, 0.4), 3, 0.08, seed=seed)
+        ti = TCF.gen_interior((0.0, 0.0, 0.0, 1.2, 0.9, 0.4), 3, 0.08, seed=seed)
+        jo = JCRC.furnish_rooms(ji, 0.08, seed=seed, is_office_bldg=True, btype=btype)
+        to = TCRC.furnish_rooms(ti, 0.08, seed=seed, is_office_bldg=True, btype=btype)
+        jl, js = JCRC.label_objects(ji, jo, seed=seed)
+        tl, ts = TCRC.label_objects(ti, to, seed=seed)
+        assert (tl, ts) == (jl, js) and len(ts) > 0
+    kinds = [v for k, v in vars(TCRC).items() if k.startswith("BT_") and isinstance(v, int)]
+    assert len(kinds) >= 10
+    for bt in kinds:
+        for seed in range(6):
+            assert TCRC.building_name(bt, seed) == JCRC.building_name(bt, seed)

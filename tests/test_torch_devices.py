@@ -34,6 +34,10 @@ from w3d_torch.city import assemble as CA, city_step as CCS, floorplan as CF
 from w3d_torch.city import room_content as CRC
 from w3d_torch.models import world as WM
 from w3d_torch.terrain import tiles as TL
+from w3d_torch.ops import noise as ON
+from w3d_torch.universe import asteroids as UA, combat as UCB, ship_config as USC
+from w3d_torch.universe import ships as USH, surface as USF
+from w3d_torch.utils.kernel_probe import write_ship_defs
 
 
 def _generator():
@@ -78,6 +82,20 @@ def _tiled_world():
     return WM.make_tiled_world(None, cw, builders=[(interior, 2, objs)]).city.people.x
 
 
+def _combat_state():
+    """A combat state over the written ship defs: its tables and pools go
+    to the default device."""
+    with tempfile.TemporaryDirectory() as d:
+        defs = USC.parse_ship_defs(write_ship_defs(os.path.join(d, "defs.txt")))
+    fleet = USH.fleet_from_defs(defs, lambda n: np.zeros((n, 3), np.float32))[0]
+    return UCB.make_combat_state(fleet, UCB.build_combat_tables(defs), pool_size=8).fleet.px
+
+
+def _run_universe():
+    with tempfile.TemporaryDirectory() as d:
+        return APP.run_universe(1, 1, ship_defs=os.path.join(d, "none.txt"), chunk=1).fleet.px
+
+
 MAKERS = {
     "spawn": lambda: PM.spawn(4, _generator())[0],
     "build_spheres_world": _spheres_world,
@@ -119,6 +137,15 @@ MAKERS = {
     "build_city": lambda: CA.build_city(np.zeros((64, 64), np.float32), num_cities=1,
                                         num_cars=4, num_peds=4).cars.t,
     "make_elevator_bank": lambda: CCS.make_elevator_bank(2).z,
+    "run_universe": _run_universe,
+    "gen_asteroid_field": lambda: UA.gen_asteroid_field(
+        UA.draw_asteroid_field(4, torch.Generator()), 10.0).px,
+    "gen_planet_surface": lambda: USF.gen_planet_surface(1, 4, 8)[0],
+    "gen_sine_table_3d": lambda: ON.gen_sine_table_3d().mag,
+    "make_fleet": lambda: USH.make_fleet(USH.draw_fleet(4, torch.Generator())).px,
+    "make_player_ship": lambda: USH.make_player_ship().px,
+    "make_claims": lambda: USH.make_claims(2).owner,
+    "make_combat_state": _combat_state,
     "gen_terrain": lambda: TM.gen_terrain(
         TM.TerrainConfig(mode=N.MGEN_SIMPLEX),
         WorldConst(mesh_x=8, mesh_y=8)).mesh_height,

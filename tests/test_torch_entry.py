@@ -123,8 +123,9 @@ def test_convert_round_trip():
 
 def test_import_leaves_jax_out():
     """Importing the port, its entry points, every module of scene loading,
-    of ground physics and game mode, and of tiled mode (tiles, the city,
-    the fauna, the event journal) loads no jax, no
+    of ground physics and game mode, of tiled mode (tiles, the city,
+    the fauna, the event journal) and of universe mode (generation, names,
+    surfaces, asteroids, ship defs, fleets, combat) loads no jax, no
     module of the JAX package and nothing from its directory (its compiled
     `native/` parser included)."""
     code = ("import os, sys, w3d_torch, w3d_torch.entry, w3d_torch.convert, "
@@ -147,7 +148,11 @@ def test_import_leaves_jax_out():
             "w3d_torch.city.floorplan, w3d_torch.city.room_content, "
             "w3d_torch.city.clocks, w3d_torch.city.traffic, w3d_torch.city.people, "
             "w3d_torch.city.city_step, w3d_torch.city.assemble, "
-            "w3d_torch.city.spectate, w3d_torch.veg.animals, w3d_torch.utils.events; "
+            "w3d_torch.city.spectate, w3d_torch.veg.animals, w3d_torch.utils.events, "
+            "w3d_torch.utils.assets, w3d_torch.utils.names, w3d_torch.universe, "
+            "w3d_torch.universe.gen, w3d_torch.universe.surface, "
+            "w3d_torch.universe.asteroids, w3d_torch.universe.ship_config, "
+            "w3d_torch.universe.ships, w3d_torch.universe.combat; "
             "jaxdir = os.path.join(os.getcwd(), '3dworld_tpu'); "
             "bad = sorted(m for m, v in sys.modules.items() if m == 'jax' "
             "or m.startswith('jax.') or m == 'w3d' or m.startswith('w3d.') "

@@ -324,14 +324,18 @@ def test_run_ground_matches_jax(tmp_path, name, chunk):
     _close(np.asarray(js.objects.pz), scene.objects.pz.numpy(), 1e-5, "pz")
 
 
-@pytest.mark.parametrize("argv", [["--mode", "universe"], ["--mode", "universe", "--chunk", "4"],
-                                  ["--mode", "universe", "--record", "x.json"],
-                                  ["--mode", "universe", "--spectate"]])
+@pytest.mark.parametrize("argv", [["--mode", "voxel"], ["--mode", "lighting", "--chunk", "4"],
+                                  ["--mode", "menu", "--record", "x.json"],
+                                  ["--mode", "universes", "--spectate"]])
 def test_main_refuses_unported_modes(argv):
-    """Universe mode is not ported, whatever tiled-mode flags come with it
-    (tiled mode, record, replay and spectate are: test_torch_tiled_app)."""
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        TAPP.main(argv)
+    """Every mode of the JAX app's `main` is ported (ground, tiled and,
+    since universe mode runs, test_torch_universe_app, all three); a mode
+    that neither app has is refused by both parsers, whatever flags come
+    with it."""
+    from w3d import app as JAPP
+    for main in (TAPP.main, JAPP.main):
+        with pytest.raises(SystemExit):
+            main(argv)
 
 
 def _jax_app_rows(monkeypatch, fn, *args, **kw):

@@ -114,7 +114,7 @@ def test_record_replay_reproduces_hashes(tmp_path):
 def test_main_tiled_runs_on_cpu(tmp_path, monkeypatch):
     """`main --mode tiled` with the JAX `main`'s flags under
     W3D_PLATFORM=cpu: rows with the JAX app's keys; record then replay
-    reproduces the hashes; universe mode still raises."""
+    reproduces the hashes; universe mode, which used to raise, runs too."""
     monkeypatch.setenv("W3D_PLATFORM", "cpu")
     j = str(tmp_path / "m.uel")
     _, rows = _rows(TAPP.main, ["--mode", "tiled", "--frames", "8", "--chunk", "4",
@@ -125,5 +125,6 @@ def test_main_tiled_runs_on_cpu(tmp_path, monkeypatch):
     _, again = _rows(TAPP.main, ["--mode", "tiled", "--frames", "8", "--chunk", "4",
                                  "--replay", j])
     assert [r["hash"] for r in again] == [r["hash"] for r in rows]
-    with pytest.raises(NotImplementedError):
-        TAPP.main(["--mode", "universe"])
+    monkeypatch.setenv("W3D_ASSET_ROOT", str(tmp_path))     # no ship defs there
+    _, urows = _rows(TAPP.main, ["--mode", "universe", "--frames", "4", "--chunk", "4"])
+    assert [(r["mode"], r["frame"], r["ships_alive"]) for r in urows] == [("universe", 3, 64)]

@@ -311,3 +311,106 @@ def jax_tiled_draws(seed: int):
                                   world).to(device)
 
     return JaxTiledDraws(seed)
+
+
+# ---------------------------------------------------------------------------
+# universe mode: the JAX package's threefry draws as the port's inputs
+# ---------------------------------------------------------------------------
+
+def jax_fleet_draws(key, n: int, num_teams: int = 2, spread: float = 2.0):
+    """`universe/ships.make_fleet`'s draws from `key` (split six ways), as
+    the port's `FleetDraws` on the CPU."""
+    import jax
+    from w3d_torch.universe.ships import FleetDraws
+    r = jax.random
+    ks = r.split(key, 6)
+    u = lambda k: r.uniform(k, (n,), minval=-spread, maxval=spread)
+    d = (r.randint(ks[0], (n,), 0, 4), u(ks[1]), u(ks[2]), u(ks[3]),
+         r.randint(ks[4], (n,), 0, num_teams), r.uniform(ks[5], (n,)))
+    return FleetDraws(*(torch.as_tensor(np.array(a)) for a in d))
+
+
+def jax_combat_draws(key, frames: int, n: int, slots: int):
+    """`universe/combat.combat_frames_chained`'s draws from `key` (split
+    `frames` ways, then four ways a frame), as the port's `CombatDraws`
+    with a leading [frames] axis on the CPU."""
+    import jax
+    from w3d_torch.universe.combat import CombatDraws
+    r = jax.random
+    rows = [[], [], [], []]
+    for k in r.split(key, frames):
+        ke, ks, k1, k2 = r.split(k, 4)
+        rows[0].append(r.normal(ke, (n, slots, 3)))
+        rows[1].append(r.normal(ks, (n * slots, 3)))
+        rows[2].append(r.randint(k1, (n,), 0, 100))
+        rows[3].append(r.randint(k2, (n,), 0, 100))
+    return CombatDraws(*(torch.as_tensor(np.stack([np.asarray(x) for x in v])) for v in rows))
+
+
+def jax_asteroid_draws(key, n: int):
+    """`universe/asteroids.gen_asteroid_field`'s draws from `key` (split
+    six ways, and `fold_in(key, 9)` for the model seeds), as the port's
+    `AsteroidDraws` on the CPU."""
+    import jax
+    from w3d_torch.universe.asteroids import AsteroidDraws
+    r = jax.random
+    ks = r.split(key, 6)
+    d = (r.uniform(ks[0], (n,)), r.uniform(ks[1], (n,), minval=-1.0, maxval=1.0),
+         r.uniform(ks[2], (n,), minval=0.0, maxval=2 * np.pi), r.normal(ks[3], (3, n)),
+         r.uniform(ks[4], (n,), minval=-1.2, maxval=0.8),
+         r.uniform(ks[5], (n,), minval=-1.0, maxval=1.0),
+         r.randint(r.fold_in(key, 9), (n,), 0, 1 << 30))
+    return AsteroidDraws(*(torch.as_tensor(np.array(a)) for a in d))
+
+
+def jax_fleet_positions(key):
+    """`fleet_from_defs`' position draw from `key`: n -> [n, 3] uniform
+    [-1, 1)."""
+    import jax
+    return lambda n: np.asarray(jax.random.uniform(key, (n, 3), minval=-1.0, maxval=1.0))
+
+
+def jax_universe_draws(seed: int):
+    """An `app.UniverseDraws` that replays the JAX app's key chain:
+    `key(seed)` for the fleet, the world's `key(1)` folded with the
+    chunk's first frame for the combat frames."""
+    import jax
+    from w3d_torch.app import UniverseDraws
+
+    class JaxUniverseDraws(UniverseDraws):
+        def fleet(self, n, device):
+            d = jax_fleet_draws(jax.random.key(self.seed), n)
+            return type(d)(*(t.to(device) for t in d))
+
+        def fleet_positions(self, n):
+            return jax_fleet_positions(jax.random.key(self.seed))(n)
+
+        def combat(self, frame, frames, n, slots, device):
+            d = jax_combat_draws(jax.random.fold_in(jax.random.key(1), frame), frames, n,
+                                 slots)
+            return type(d)(*(t.to(device) for t in d))
+
+    return JaxUniverseDraws(seed)
+
+
+def same_tree(port, ref, tol: float = 1e-5, what: str = "") -> None:
+    """A port value (tensors in NamedTuples, None fields allowed) against a
+    JAX one: floats within `tol` (infinities equal), every other field
+    equal."""
+    from w3d_torch import convert
+    port, ref = convert.to_numpy(port), np_tree(ref)
+    if hasattr(ref, "_fields"):
+        for f in ref._fields:
+            same_tree(getattr(port, f), getattr(ref, f), tol, f"{what}.{f}")
+        return
+    if ref is None:
+        assert port is None, what
+        return
+    a, b = np.asarray(port), np.asarray(ref)
+    assert a.shape == b.shape, (what, a.shape, b.shape)
+    if b.dtype.kind == "f":
+        np.testing.assert_array_equal(np.isinf(a), np.isinf(b), err_msg=what)
+        fin = np.isfinite(b)
+        np.testing.assert_allclose(a[fin], b[fin], rtol=0, atol=tol, err_msg=what)
+    else:
+        np.testing.assert_array_equal(a.astype(np.int64), b.astype(np.int64), err_msg=what)

@@ -12,6 +12,7 @@ keys.
     python -m w3d_torch.app --config <cfg> --mode ground --game --smileys 8
     python -m w3d_torch.app --mode tiled --frames 64 [--chunk 16] [--seed 1] \\
         [--record session.uel | --replay session.uel] [--spectate]
+    python -m w3d_torch.app --mode universe --frames 192 [--chunk 32] [--seed 1]
 
 `--game` runs FPS game mode: smiley AI, weapons and explosions over the
 ground frame.  `--mode tiled` streams terrain tiles around a moving camera
@@ -19,10 +20,14 @@ and runs the live city (traffic, crowds, building people) and the tiled
 fauna, `--chunk` frames a chained call; `--record` writes the session's
 event journal and per-chunk state hashes, `--replay` drives a session
 from a journal and reproduces its hashes, `--spectate` follows the
-closest city agent.  `W3D_PLATFORM=cpu` runs on the CPU (the JAX app's
-platform override); by default everything runs on the card.  Not ported:
-the universe mode, which raises NotImplementedError naming its ROADMAP
-item.
+closest city agent.  `--mode universe` pages the universe's cells
+around a camera moving 0.5 a frame and fights a fleet, `--chunk` frames a
+chained call: the ship-defs file under the asset root
+(`W3D_ASSET_ROOT/universe/ship_defs.txt`, or the file its
+`config_universe.txt` names) gives the fleets and the full weapon model;
+without one, 64 ships of the built-in classes fight without it.
+`W3D_PLATFORM=cpu` runs on the CPU (the JAX app's platform override); by
+default everything runs on the card.
 """
 
 from __future__ import annotations
@@ -379,6 +384,129 @@ def run_tiled(frames: int, seed: int, chunk: int = 16,
     return w
 
 
+class UniverseDraws:
+    """The draws of universe mode, which the JAX app takes from threefry
+    keys: `key(seed)` for the fleet (`make_fleet`'s six draws, or
+    `fleet_from_defs`' positions) and, whatever the seed, the world's
+    `key(1)` folded with the chunk's first frame for the combat frames
+    (split per frame, then four ways).  Each stream here is a CPU
+    generator seeded from (`seed`, stream), the world's from (1, stream),
+    its draws copied to the device through pinned memory (without waiting
+    for the card), so every device gets the same draws.  A caller (a test,
+    a scripted battle) replaces the methods to inject other draws."""
+
+    WORLD_SEED = 1
+    COMBAT = 1 << 20     # + the chunk's first frame
+
+    def __init__(self, seed: int = 1):
+        self.seed = seed
+
+    @staticmethod
+    def _gen(seed: int, stream: int) -> torch.Generator:
+        return torch.Generator().manual_seed(((seed % 2 ** 31) << 32) | stream)
+
+    def fleet(self, n: int, device):
+        """`universe/ships.FleetDraws` of the default fleet of `n` ships."""
+        from .universe import ships as USH
+        return USH.draw_fleet(n, self._gen(self.seed, 0), device=device)
+
+    def fleet_positions(self, n: int) -> np.ndarray:
+        """`fleet_from_defs`' [n, 3] uniform [-1, 1) position draw."""
+        return (2.0 * torch.rand(n, 3, generator=self._gen(self.seed, 1)) - 1.0).numpy()
+
+    def combat(self, frame: int, frames: int, n: int, slots: int, device):
+        """The `universe/combat.CombatDraws` ([frames] leading) of the chunk
+        of `frames` frames that starts at `frame`."""
+        from .universe import combat as UCB
+        from .terrain.tiles import upload
+        d = UCB.draw_combat(frames, n, slots, self._gen(self.WORLD_SEED, self.COMBAT + frame))
+        return UCB.CombatDraws(*(upload(t.numpy(), device) for t in d))
+
+
+def run_universe(frames: int, seed: int, ship_defs: str | None = None, chunk: int = 32,
+                 device: torch.device | str = "cuda", draws: UniverseDraws | None = None):
+    """Universe loop (WMODE_UNIVERSE): cells paged around a camera moving
+    0.5 a frame, the fleet advanced `chunk` frames a chained call.  The
+    fleet comes from the ship-defs file (`ship_defs`, by default the asset
+    root's `universe/ship_defs.txt`, or the file its
+    `config_universe.txt` names, else `ship_defs_assault.txt` beside it),
+    padded with dead slots for bay launches and fought through the full
+    weapon model with a projectile pool of 1,024; without a file, 64 ships
+    of the built-in classes and the fleet step.  `draws` (default
+    `UniverseDraws(seed)`) gives every draw.  Prints one JSON line a chunk
+    with the JAX app's keys; returns the UniverseWorld."""
+    from .models.world import UniverseWorld
+    from .universe.gen import UniverseState
+    from .universe import ship_config as SCfg
+    from .universe import ships as USH
+    from .universe import combat as UCB
+
+    draws = draws or UniverseDraws(seed)
+    if ship_defs is None:   # asset tree (W3D_ASSET_ROOT) when available
+        ship_defs = SCfg.shipped_defs_path()
+    fleet = tbl = None
+    # honor config_universe.txt's ship_def_file when present
+    # (3DWorld.cpp binds "ship_def_file"; the shipped config points at
+    # universe/ship_defs_fight.txt)
+    ucfg = os.path.join(os.path.dirname(ship_defs), "config_universe.txt")
+    if os.path.exists(ucfg):
+        from .utils import config as C
+        try:
+            cfg = C.load_config(ucfg)
+        except (OSError, ValueError):
+            cfg = None
+        if cfg is not None and cfg.ship_def_file:
+            cand = cfg.ship_def_file
+            if not os.path.exists(cand):
+                cand = os.path.join(os.path.dirname(os.path.dirname(ship_defs)),
+                                    cfg.ship_def_file)
+            if os.path.exists(cand):
+                ship_defs = cand
+    defs = None
+    if os.path.exists(ship_defs):
+        # the reference config drive: ship classes/weapons/fleets from
+        # the ship_def_file (ship_config.cpp)
+        try:
+            defs = SCfg.parse_ship_defs(ship_defs)
+            fleet, tbl, _offs, _np = USH.fleet_from_defs(defs, draws.fleet_positions)
+        except (OSError, ValueError, KeyError) as e:
+            print(json.dumps({"warn": f"ship defs gave no fleet: {e}"}))
+    if fleet is None:
+        # fleets live in the assault/teams variants; default combat sim
+        alt = os.path.join(os.path.dirname(ship_defs), "ship_defs_assault.txt")
+        if os.path.exists(alt):
+            defs = SCfg.parse_ship_defs(alt)
+            fleet, tbl, _offs, _np = USH.fleet_from_defs(defs, draws.fleet_positions)
+        else:
+            fleet = USH.make_fleet(draws.fleet(64, device))
+    combat = ctbl = None
+    if defs is not None:
+        # full weapon model: projectiles/beams/bays/PD/boarding driven
+        # by the parsed tables, with reserve slots for bay launches
+        ctbl = UCB.build_combat_tables(defs, device=device)
+        n0 = int(fleet.px.shape[0])
+        combat = UCB.make_combat_state(UCB.pad_fleet(fleet, n0 + max(16, n0 // 4)), ctbl,
+                                       pool_size=1024)
+        fleet = combat.fleet
+    w = UniverseWorld(state=UniverseState(), fleet=USH.fleet_to(fleet, device),
+                      fleet_tbl=None if tbl is None else torch.as_tensor(tbl, device=device),
+                      combat=combat, combat_tables=ctbl, draws=draws)
+    pos = [0.0, 0.0, 0.0]
+    i = 0
+    while i < frames:
+        k = min(chunk, frames - i)
+        t0 = time.perf_counter()
+        created, freed = w.step_chunk(tuple(pos), frames=k)
+        pos[0] += 0.5 * k
+        alive = int(w.fleet.alive.sum())
+        dt = (time.perf_counter() - t0) / k
+        print(json.dumps({"frame": i + k - 1, "mode": "universe", "chained": k,
+                          "cells_created": len(created), "cells_freed": len(freed),
+                          "ships_alive": alive, "ms": round(dt * 1e3, 3)}))
+        i += k
+    return w
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", default="scene_config/config_spheres.txt",
@@ -387,7 +515,7 @@ def main(argv=None):
                     default="ground")
     ap.add_argument("--frames", type=int, default=10)
     ap.add_argument("--chunk", type=int, default=32,
-                    help="frames chained per dispatch (tiled mode)")
+                    help="frames chained per dispatch (tiled and universe modes)")
     ap.add_argument("--objects", type=int, default=2000)
     ap.add_argument("--seed", type=int, default=1)
     ap.add_argument("--game", action="store_true",
@@ -400,16 +528,15 @@ def main(argv=None):
     ap.add_argument("--spectate", action="store_true",
                     help="follow the closest city agent (tiled mode)")
     args = ap.parse_args(argv)
-    if args.mode == "universe":
-        raise NotImplementedError("--mode universe is not ported (ROADMAP Queue 1, "
-                                  "items 8 and 10)")
     device = "cpu" if os.environ.get("W3D_PLATFORM") == "cpu" else "cuda"
     if args.mode == "ground":
         run_ground(args.config, args.frames, args.objects, game=args.game,
                    num_smileys=args.smileys, device=device)
-    else:
+    elif args.mode == "tiled":
         run_tiled(args.frames, args.seed, chunk=args.chunk, record=args.record,
                   replay=args.replay, spectate=args.spectate, device=device)
+    else:
+        run_universe(args.frames, args.seed, chunk=args.chunk, device=device)
 
 if __name__ == "__main__":
     main()

@@ -1,7 +1,5 @@
 """Room content generation: furnishing rooms by assigned type (port of
-`3dworld_tpu/city/room_content.py`, host numpy code, copied whole; the
-text labels of `label_objects` and `building_name` need `utils/names`,
-which is not ported, and raise NotImplementedError).
+`3dworld_tpu/city/room_content.py`, host numpy code, copied whole).
 
 The reference has ~30 specialized room generators (kitchens, bathrooms,
 offices, retail, malls, jails, hospitals, ... —
@@ -1724,8 +1722,7 @@ def label_objects(interior, objs: RoomObjects, seed: int):
     numbered door signs per labeled room type (building_names_signs.cpp
     add_numbered_door_sign / TYPE_BOOK title assignment).  Drawn from a
     separate RNG stream so placement stays byte-identical."""
-    raise NotImplementedError("label_objects needs utils/names, which is not "
-                              "ported (ROADMAP Queue 1, item 9)")
+    from ..utils.names import choose_book_title
     rg = RandGen(seed + 41, 3 * seed + 13)
     labels = {}
     for idx, kind in enumerate(objs.kinds):
@@ -1747,8 +1744,7 @@ def label_objects(interior, objs: RoomObjects, seed: int):
 
 def building_name(btype: int, seed: int) -> str:
     """Business name on the building sign (choose_business_name)."""
-    raise NotImplementedError("building_name needs utils/names, which is not "
-                              "ported (ROADMAP Queue 1, item 9)")
+    from ..utils.names import choose_business_name
     kind = {BT_HOUSE: "house", BT_OFFICE: "office", BT_SCHOOL: "school",
             BT_HOSPITAL: "hospital", BT_JAIL: "prison",
             BT_APARTMENT: "apartment", BT_HOTEL: "hotel",

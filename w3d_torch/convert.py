@@ -11,8 +11,10 @@ particle states, group specs, teleporters and waypoint graphs carry
 across field by field, and so do the tiled mode's values: the city state
 (without the JAX key, whose draws are the port's `CityDraws`), the road
 graph, the pedestrian nav, building people, animals, butterflies and
-tiles.  `to_numpy` goes the other way, for comparisons and round trips;
-it needs neither jax nor the JAX package.
+tiles; and the universe's: fleets, combat tables, projectile pools and
+combat states, asteroid fields, the player ship, planet claims and 3-D
+sine tables.  `to_numpy` goes the other way, for comparisons and round
+trips; it needs neither jax nor the JAX package.
 
 JAX keeps per-object and per-type flags as uint32; the port keeps them as
 int32 bit masks (every flag bit fits).
@@ -25,7 +27,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from .ops.noise import SineTable
+from .ops.noise import SineTable, SineTable3D
 from .physics.cobjs import CobjSet, GroupedCobjs
 from .physics.step import ObjectState, PhysicsEnv
 from .physics.types import ObjTypeTable
@@ -50,6 +52,9 @@ from .terrain.tiles import Tile
 from .veg.animals import AnimalState, ButterflyState
 from .utils import config as CFG
 from .utils.constants import WorldConst
+from .universe.ships import FleetState, PlayerShip, PlanetClaims
+from .universe.combat import CombatTables, ProjPool, CombatState
+from .universe.asteroids import AsteroidField
 
 _INT32_FIELDS = ("flags",)   # uint32 bit masks in JAX
 
@@ -289,6 +294,43 @@ def city_state(src, device) -> CCS.CityState:
         elev=_named(CCS.ElevatorBank, src.elev, device),
         helis=opt(CT.HeliState, src.helis), birds=opt(CT.BirdState, src.birds),
         trains=opt(CT.TrainState, src.trains))
+
+
+def sine_table_3d(src, device) -> SineTable3D:
+    return _named(SineTable3D, src, device)
+
+
+def fleet_state(src, device) -> FleetState:
+    """A FleetState; its optional fields stay None where the source's
+    are."""
+    return FleetState(**{f: None if getattr(src, f) is None
+                         else array(getattr(src, f), device, f) for f in FleetState._fields})
+
+
+def combat_tables(src, device) -> CombatTables:
+    return _named(CombatTables, src, device)
+
+
+def proj_pool(src, device) -> ProjPool:
+    return _named(ProjPool, src, device)
+
+
+def combat_state(src, device) -> CombatState:
+    return CombatState(fleet=fleet_state(src.fleet, device), proj=proj_pool(src.proj, device),
+                       **{f: array(getattr(src, f), device, f)
+                          for f in ("cool", "ammo", "crew", "captured")})
+
+
+def asteroid_field(src, device) -> AsteroidField:
+    return _named(AsteroidField, src, device)
+
+
+def player_ship(src, device) -> PlayerShip:
+    return _named(PlayerShip, src, device)
+
+
+def planet_claims(src, device) -> PlanetClaims:
+    return _named(PlanetClaims, src, device)
 
 
 def to_numpy(value):

@@ -16,12 +16,18 @@ surface to the physics env.
 WMODE_INF_TERRAIN: `TiledWorld` streams tiles (`terrain/tiles`) and
 advances one fused city state (`city/city_step`) K frames a chunk, with
 the host's building-people reroute once per chunk; `make_tiled_world`
-assembles it.  Not ported yet: the universe mode.
+assembles it.
+
+WMODE_UNIVERSE: `UniverseWorld` pages the universe's cells around the
+player (`universe/gen`), steers the player ship, and advances the fleet K
+frames a chunk, through the full weapon model (`universe/combat`) when it
+has combat tables, else the fleet step (`universe/ships`), then turns
+ships away from the stars and black holes near them.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -229,3 +235,114 @@ def make_tiled_world(tile_mgr, city_world=None, builders=(), seed: int = 0,
                       ped_nav=city_world.ped_nav, city=cs, bldg=bldg,
                       pads=city_world.helipads, perches=perches,
                       rail=rail, chunk=chunk, draws=draws)
+
+
+# ---------------------------------------------------------------------------
+# universe mode
+# ---------------------------------------------------------------------------
+
+@dataclass
+class UniverseWorld:
+    """WMODE_UNIVERSE session: cell paging + fleet combat + the
+    player-controlled ship.  The fleet, the combat state and the player
+    ship are tensors on one device; the cells are host objects."""
+
+    state: object                 # universe.gen.UniverseState
+    fleet: object = None          # universe.ships.FleetState
+    fleet_tbl: object = None      # [C, 9] class table from parsed ship defs
+    combat: object = None         # universe.combat.CombatState (full weapon model)
+    combat_tables: object = None  # universe.combat.CombatTables
+    player_ship: object = None    # universe.ships.PlayerShip
+    black_holes: list = field(default_factory=list)  # [(pos, radius)]
+    # ($BLACK_HOLE rows, ship_config.cpp; plus generated collapsed stars)
+    frame: int = 0
+    draws: object = None          # the combat frames' draws (app.UniverseDraws)
+    HAZARD_PAD = 64               # the star arrays' fixed size
+
+    def __post_init__(self):
+        if self.draws is None:
+            from ..app import UniverseDraws
+            self.draws = UniverseDraws()
+
+    def _hazards(self, device):
+        """Star/black-hole bodies near the fleet: generated systems'
+        stars + configured $BLACK_HOLE entries, padded to a fixed shape
+        and uploaded once (pinned, without waiting for the card).  Returns
+        None when there is none."""
+        from ..terrain.tiles import upload
+        pos, rad, bh = [], [], []
+        for (p, r) in self.black_holes:
+            pos.append(tuple(p))
+            rad.append(float(r))
+            bh.append(True)
+        for cell in self.state.cells.values():
+            for g in cell.galaxies:
+                if not g.generated:
+                    continue
+                for sy in g.systems:
+                    pos.append(tuple(cell.pos[d] + sy.pos[d] for d in range(3)))
+                    rad.append(float(sy.star.radius))
+                    bh.append(bool(sy.star.is_black_hole))
+        if not pos:
+            return None
+        n = self.HAZARD_PAD
+        pad = n - len(pos[:n])
+        pos = pos[:n] + [(1e9, 1e9, 1e9)] * pad
+        rad = rad[:n] + [0.0] * pad
+        bh = bh[:n] + [False] * pad
+        return (upload(np.asarray(pos, np.float32), device),
+                upload(np.asarray(rad, np.float32), device),
+                upload(np.asarray(bh, bool), device))
+
+    def step_chunk(self, player_pos, frames: int = 1, controls=()):
+        """draw_universe: player thrust commands + process_ships + lazy
+        cell gen.  `controls` = [(tdir, speed, hyperspeed), ...] applied
+        before the chunk (u_ship::thrust inputs).  The fleet advances
+        `frames` steps in one chained call that never reads the card; cell
+        paging runs at chunk granularity (cells span 10 units, so a
+        sub-chunk camera move never crosses more cells than the endpoint
+        check sees).  With a player ship, its position is read back once.
+        Returns the cells (created, freed)."""
+        from ..universe import ships as USH
+        from ..universe import combat as UCB
+
+        if self.player_ship is not None:
+            for (tdir, speed, hyper) in controls:
+                self.player_ship = USH.player_thrust(self.player_ship, tdir, speed, hyper)
+            for _ in range(frames):
+                self.player_ship = USH.player_ship_frame(self.player_ship)
+            s = self.player_ship
+            player_pos = tuple(torch.stack([s.px, s.py, s.pz]).tolist())
+        created, freed = self.state.update(player_pos)
+        if self.combat is not None:
+            # full weapon model (universe.combat): projectiles, beams,
+            # bays, point defense, boarding — one chained call
+            ct = self.combat_tables
+            dev = ct.cls_tbl.device
+            n, slots = self.combat.cool.shape
+            self.combat = UCB.combat_frames_chained(
+                self.combat, self.draws.combat(self.frame, frames, n, slots, dev),
+                frames, ct)
+            hz = self._hazards(dev)
+            if hz is not None:
+                self.combat = self.combat._replace(fleet=USH.avoid_hazards(
+                    self.combat.fleet, *hz, tbl=ct.cls_tbl))
+            self.fleet = self.combat.fleet
+        elif self.fleet is not None:
+            if self.fleet_tbl is not None:
+                self.fleet = USH.fleet_frames_chained(
+                    self.fleet, frames, tbl=self.fleet_tbl,
+                    abomin_id=USH.USC_ABOMIN_ID, reaper_id=USH.USC_REAPER_ID)
+            else:
+                self.fleet = USH.fleet_frames_chained(self.fleet, frames)
+            # star-heat / black-hole avoidance once per chunk
+            # (u_ship::ai_action hazard branch, u_ship.cpp:995-1012);
+            # hazards only exist where systems have generated
+            hz = self._hazards(self.fleet.px.device)
+            if hz is not None:
+                self.fleet = USH.avoid_hazards(self.fleet, *hz, tbl=self.fleet_tbl)
+        self.frame += frames
+        return created, freed
+
+    def step(self, player_pos, controls=()):
+        return self.step_chunk(player_pos, frames=1, controls=controls)

@@ -16,8 +16,13 @@ shapes linear/billowy/ridged.  Gradients are picked by the JAX package's
 own integer hash of the lattice point (the port's `xxhash_u32`, uint32
 carried in int64), from a table of the 8 float32 (cos, sin) pairs that
 its `jnp.cos`/`jnp.sin` give.  Every constant and operation order is the
-JAX package's, so the values agree to float32 rounding.  The 3-D
-generators (`simplex3d`, `fbm3d`) belong to the voxel port.
+JAX package's, so the values agree to float32 rounding.
+
+The 3-D generators (noise_gen_3d, upsurface.cpp:16-72; voxels.cpp:355-365)
+serve the universe's planet surfaces and asteroid models: the separable 3-D
+sine table (`gen_sine_table_3d`, bitwise with the JAX package's), its grid
+evaluation as one `(nz*ny, K) @ (K, nx)` product, and 3-D simplex noise and
+its fBm, hashed like the 2-D ones.
 """
 
 from __future__ import annotations
@@ -395,3 +400,174 @@ def noise_zval_grid(xval: torch.Tensor, yval: torch.Tensor, mode: int,
     if postproc is not None:
         z = postproc(z)
     return z * get_hmap_scale(mode, world.mesh_height)
+
+
+# ---------------------------------------------------------------------------
+# 3-D separable sine noise and 3-D simplex / fBm
+# ---------------------------------------------------------------------------
+
+# noise_gen_3d (upsurface.cpp:16-72)
+SINES_PER_FREQ = 12
+MAX_FREQ_BINS = 5
+TOT_NUM_SINES = SINES_PER_FREQ * MAX_FREQ_BINS
+M_ATTEN_FACTOR = 0.5
+F_ATTEN_FACTOR = 0.4
+
+
+class SineTable3D(NamedTuple):
+    """The 60-entry 3-D sine table: magnitude, then per axis frequency and
+    phase, each [K]."""
+
+    mag: torch.Tensor
+    fx: torch.Tensor
+    px: torch.Tensor
+    fy: torch.Tensor
+    py: torch.Tensor
+    fz: torch.Tensor
+    pz: torch.Tensor
+
+
+def gen_sine_table_3d(mag: float = 1.0, freq: float = 1.0, rseed1: int = 1,
+                      rseed2: int = 1, device: torch.device | str = "cuda") -> SineTable3D:
+    """noise_gen_3d::gen_sines (upsurface.cpp:16-38) on the host: 5
+    frequency bins x 12 sines; per bin mag *= 0.5, freq /= 0.4.  float32
+    arithmetic in the reference's op order (rand_uniform's f32 lerp, f32
+    mag/freq iteration, phases as double randd * f32 TWO_PI narrowed on
+    store), so a seed pair gives the JAX package's table bit for bit."""
+    rg = RandGen(rseed1, rseed2)
+    out = np.zeros((TOT_NUM_SINES, 7), np.float32)
+    F = np.float32
+    two_pi_f = F(TWO_PI)
+
+    def ru(lo, hi):
+        return F(lo) + F(hi - lo) * F(rg.randd())
+
+    m, f = F(mag), F(freq)
+    for i in range(MAX_FREQ_BINS):
+        for j in range(SINES_PER_FREQ):
+            k = SINES_PER_FREQ * i + j
+            out[k, 0] = ru(0.2, 1.0) * m
+            out[k, 1] = ru(0.1, 1.0) * f
+            out[k, 2] = F(rg.randd() * np.float64(two_pi_f))
+            out[k, 3] = ru(0.1, 1.0) * f
+            out[k, 4] = F(rg.randd() * np.float64(two_pi_f))
+            out[k, 5] = ru(0.1, 1.0) * f
+            out[k, 6] = F(rg.randd() * np.float64(two_pi_f))
+        m = m * F(M_ATTEN_FACTOR)
+        f = f / F(F_ATTEN_FACTOR)
+    return SineTable3D(*(torch.as_tensor(out[:, i].copy(), device=device)
+                         for i in range(7)))
+
+
+def eval_sine3d_grid(table: SineTable3D, start, step, nx: int, ny: int, nz: int,
+                     num_sines: int | None = None) -> torch.Tensor:
+    """Separable 3-D sine sum on a regular grid -> [nz, ny, nx]
+    (gen_xyz_vals + get_val, upsurface.cpp:41-72): per-axis term tables,
+    val = sum_k mag_k * sin_x * sin_y * sin_z, the (z, y) pair table
+    contracted against the x table as one (nz*ny, K) @ (K, nx) product (a
+    plain float32 matmul: set TF32 off on the card)."""
+    sx, sy, sz = start
+    dx, dy, dz = step
+    dev = table.mag.device
+    ar = lambda n: torch.arange(n, dtype=torch.float32, device=dev)
+    xi, yi, zi = sx + dx * ar(nx), sy + dy * ar(ny), sz + dz * ar(nz)
+    mag = table.mag
+    if num_sines is not None and num_sines < TOT_NUM_SINES:
+        mag = mag * (torch.arange(TOT_NUM_SINES, device=dev) < num_sines).to(torch.float32)
+    xv = torch.sin(table.fx[None, :] * xi[:, None] + table.px[None, :]) * mag[None, :]
+    yv = torch.sin(table.fy[None, :] * yi[:, None] + table.py[None, :])      # [ny, K]
+    zv = torch.sin(table.fz[None, :] * zi[:, None] + table.pz[None, :])      # [nz, K]
+    zy = (zv[:, None, :] * yv[None, :, :]).reshape(nz * ny, -1)             # [nz*ny, K]
+    return (zy @ xv.T).reshape(nz, ny, nx)
+
+
+_F3 = 1.0 / 3.0
+_G3 = 1.0 / 6.0
+
+
+def _grad_hash3(ix: torch.Tensor, iy: torch.Tensor, iz: torch.Tensor,
+                seed: int) -> torch.Tensor:
+    """Hash an integer lattice point -> uint32 in int64: the x, y and z
+    indices wrap as int32 -> uint32 casts, y and z multiplied by odd
+    constants mod 2^32, xor-ed, then the xxHash chain."""
+    ux = ix.to(torch.int64) & _U32
+    uy = iy.to(torch.int64) & _U32
+    uz = iz.to(torch.int64) & _U32
+    return xxhash_u32(ux ^ _mul_u32(uy, 2654435761) ^ _mul_u32(uz, 0x9E3779B1), seed)
+
+
+def _grad_dot3(h: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+               z: torch.Tensor) -> torch.Tensor:
+    """Dot with one of 12 edge-vector gradients selected by hash bits."""
+    hb = h & 15
+    u = torch.where(hb < 8, x, y)
+    v = torch.where(hb < 4, y, torch.where((hb == 12) | (hb == 14), x, z))
+    return torch.where((hb & 1) == 0, u, -u) + torch.where((hb & 2) == 0, v, -v)
+
+
+def simplex3d(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor,
+              seed: int = 0) -> torch.Tensor:
+    """3-D simplex noise in approx [-1, 1] (Gustavson's construction; the
+    reference evaluates glm::simplex / gen_voxel_weights.comp)."""
+    s = (x + y + z) * _F3
+    i = torch.floor(x + s)
+    j = torch.floor(y + s)
+    k = torch.floor(z + s)
+    t = (i + j + k) * _G3
+    x0 = x - (i - t)
+    y0 = y - (j - t)
+    z0 = z - (k - t)
+    # the simplex's traversal order from the component ranking (the
+    # branch-free form of the 6-case decision tree)
+    c1 = x0 >= y0
+    c2 = y0 >= z0
+    c3 = x0 >= z0
+    f = lambda b: b.to(torch.float32)
+    i1 = f(c1 & (c2 | c3))
+    j1 = f(~c1 & c2)
+    k1 = 1.0 - i1 - j1
+    i2 = f(c1 | (c2 & c3))
+    j2 = f(~c1 | c2)
+    k2 = f(~c2 | (~c1 & ~c3))
+    x1 = x0 - i1 + _G3
+    y1 = y0 - j1 + _G3
+    z1 = z0 - k1 + _G3
+    x2 = x0 - i2 + 2.0 * _G3
+    y2 = y0 - j2 + 2.0 * _G3
+    z2 = z0 - k2 + 2.0 * _G3
+    x3 = x0 - 1.0 + 3.0 * _G3
+    y3 = y0 - 1.0 + 3.0 * _G3
+    z3 = z0 - 1.0 + 3.0 * _G3
+    ii = i.to(torch.int64)
+    jj = j.to(torch.int64)
+    kk = k.to(torch.int64)
+    n_ = lambda v: v.to(torch.int64)
+
+    def corner(cx, cy, cz, di, dj, dk):
+        t_ = torch.clamp(0.6 - cx * cx - cy * cy - cz * cz, min=0.0)
+        t2 = t_ * t_
+        g = _grad_dot3(_grad_hash3(ii + di, jj + dj, kk + dk, seed), cx, cy, cz)
+        return t2 * t2 * g
+
+    n = (corner(x0, y0, z0, 0, 0, 0)
+         + corner(x1, y1, z1, n_(i1), n_(j1), n_(k1))
+         + corner(x2, y2, z2, n_(i2), n_(j2), n_(k2))
+         + corner(x3, y3, z3, 1, 1, 1))
+    return 32.0 * n
+
+
+def fbm3d(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor, rx: float, ry: float,
+          octaves: int = 5, mag: float = 1.0, freq: float = 1.0,
+          seed: int = 0) -> torch.Tensor:
+    """3-D fBm over simplex noise (voxels.cpp:355-365 /
+    gen_voxel_weights.comp): lacunarity 1.92, gain 0.5, fixed offset
+    (rx, ry, rx - ry).  (The JAX function's `mode` argument selects
+    nothing, so the port has none.)"""
+    lacunarity, gain = 1.92, 0.5
+    val = torch.zeros_like(x)
+    m, f = mag, 0.25 * freq
+    for _ in range(octaves):
+        val = val + m * simplex3d(f * x + rx, f * y + ry, f * z + (rx - ry), seed)
+        m *= gain
+        f *= lacunarity
+    return val

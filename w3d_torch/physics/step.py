@@ -27,8 +27,10 @@ substep in place of `_substep`'s ~400 small ops, with the sort and the
 banded pair pass between the launches.
 
 `local_wind_field` is the batched local wind (plain PyTorch, as the JAX
-package leaves it to XLA).  Not ported: the Morton, grid, block and
-rowblock pair paths and `spatial_sort_repair` (ROADMAP: left out).
+package leaves it to XLA).  `morton_key` is the 2-D Z-order key the
+universe's asteroid field sorts by.  Not ported: the Morton sort of the
+object population, the grid, block and rowblock pair paths and
+`spatial_sort_repair` (ROADMAP: left out).
 """
 
 from __future__ import annotations
@@ -176,6 +178,29 @@ def spatial_sort(state: ObjectState) -> ObjectState:
 # banded window over the x-sorted order: must exceed the max occupancy of
 # an rsum-wide x slab (247 measured at 10K pile density in the JAX package)
 PAIR_WINDOW = 288
+
+
+def _part1by1(v: torch.Tensor) -> torch.Tensor:
+    """Interleave a 16-bit value with zeros (Morton helper), on int64
+    lanes holding uint32 values: the JAX package's uint32 shifts and masks,
+    which give the same bits."""
+    v = v & 0x0000FFFF
+    v = (v | (v << 8)) & 0x00FF00FF
+    v = (v | (v << 4)) & 0x0F0F0F0F
+    v = (v | (v << 2)) & 0x33333333
+    v = (v | (v << 1)) & 0x55555555
+    return v
+
+
+def morton_key(px: torch.Tensor, py: torch.Tensor, cell: float,
+               half_extent: float) -> torch.Tensor:
+    """2-D Morton (Z-order) cell key, a spatially local sort order: the
+    cell coordinates truncated toward zero as int32, clipped to [0, 0xFFFF]
+    and interleaved.  int64 values in [0, 2^32), equal to the JAX
+    package's uint32 keys, so the sort order is the same."""
+    cx = torch.clamp(((px + half_extent) / cell).to(torch.int32), 0, 0xFFFF).to(torch.int64)
+    cy = torch.clamp(((py + half_extent) / cell).to(torch.int32), 0, 0xFFFF).to(torch.int64)
+    return _part1by1(cx) | (_part1by1(cy) << 1)
 
 
 def banded_pair_collisions(px, py, pz, vx, vy, vz, radius, mass, elas, active,

@@ -62,7 +62,7 @@ class Tile:
     weights: torch.Tensor     # [5, stride, stride]
 
 
-def _upload(a: np.ndarray, device) -> torch.Tensor:
+def upload(a: np.ndarray, device) -> torch.Tensor:
     """A host array on `device` without waiting for the device: through
     pinned memory to a CUDA device."""
     t = torch.from_numpy(a)
@@ -197,7 +197,7 @@ class TileManager:
         txs = np.array([k[0] for k in keys] + [keys[-1][0]] * (pad - n), np.float32)
         tys = np.array([k[1] for k in keys] + [keys[-1][1]] * (pad - n), np.float32)
         out = gen_tile_batch(
-            self.table, _upload(txs, self.device), _upload(tys, self.device),
+            self.table, upload(txs, self.device), upload(tys, self.device),
             self._zmax_t, self._wpz_t, self.cfg, self.world, self.tile_size,
             self.erosion_iters_tt, self.sun_dir, angles=self.angles)
         if defer:   # adopted on the NEXT update

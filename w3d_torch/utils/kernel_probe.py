@@ -391,6 +391,138 @@ def write_ground_scene(dirname: str, name: str, platforms: bool = True,
                  f"load_coll_objs 1\ncoll_obj_file scene_{name}.txt\n")
 
 
+# The synthetic ship-defs file of the universe tests and chip_smoke.py's
+# phase 3h, in the reference's units (ship_config.cpp converts them):
+# class rows (reference field order, ship_config.SHIP_FIELDS), weapon rows
+# (WEAP_FIELDS) in an $INCLUDEd part, loadouts, one collision sphere and two
+# fleets (55 RED defenders against 101 BLUE attackers per multiplier, the
+# size of the reference's assault config)
+DEFS_SHIPS = {
+    # id: (name, fields, base color, explosion)
+    "USC_FIGHTER": ("Fighter", dict(kcost=1, ncrew=1, nengines=1, radius=0.4, mass=1,
+                                    accel=0.45, decel=0.45, roll_rate=2, max_speed=24,
+                                    max_turn=4, max_shields=100, max_armor=50,
+                                    shield_re=0.5, min_att_dist=4, stoppable=1),
+                    "LT_GRAY", "ETYPE_PART_CLOUD"),
+    # frigates regenerate no shields: a frigate whose shields fell stays
+    # open to boarding
+    "USC_FRIGATE": ("Frigate", dict(kcost=8, ncrew=12, nengines=2, radius=1.2, mass=20,
+                                    accel=0.3, decel=0.3, max_speed=14, max_turn=2,
+                                    max_shields=400, max_armor=300, min_att_dist=6,
+                                    can_board=1),
+                    "WHITE", "ETYPE_FIRE"),
+    "USC_DESTROYER": ("Destroyer", dict(kcost=15, ncrew=60, nengines=2, radius=1.6,
+                                        mass=50, accel=0.25, decel=0.25, max_speed=12,
+                                        max_turn=1.5, max_shields=600, max_armor=500,
+                                        shield_re=3, min_att_dist=8, can_board=1),
+                      "LT_BLUE", "ETYPE_FIRE"),
+    "USC_CARRIER": ("Carrier", dict(kcost=40, ncrew=200, nengines=4, radius=3.0,
+                                    mass=300, accel=0.15, decel=0.15, max_speed=9,
+                                    max_turn=0.8, max_shields=1200, max_armor=1000,
+                                    shield_re=4, min_att_dist=12, fire_dist=0.3,
+                                    regen_fighters=1),
+                    "GRAY", "ETYPE_NUCLEAR"),
+    "USC_ARMAGEDDON": ("Armageddon", dict(kcost=90, ncrew=500, nengines=6, radius=4.0,
+                                          mass=800, accel=0.12, decel=0.12, max_speed=8,
+                                          max_turn=0.5, max_shields=2000, max_armor=2000,
+                                          shield_re=6, min_att_dist=10),
+                       "DK_RED", "ETYPE_NUCLEAR"),
+    "USC_BSHUTTLE": ("Boarding Shuttle", dict(kcost=2, ncrew=10, nengines=1, radius=0.5,
+                                              mass=2, accel=0.5, decel=0.5, max_speed=20,
+                                              max_turn=3, max_shields=50, max_armor=60,
+                                              shield_re=0.5, for_boarding=1),
+                     "BROWN", "ETYPE_FIRE"),
+    "USC_ANTI_MISS": ("Anti-Missile", dict(kcost=6, ncrew=15, nengines=2, radius=1.0,
+                                           mass=15, accel=0.3, decel=0.3, max_speed=14,
+                                           max_turn=2, max_shields=300, max_armor=250,
+                                           shield_re=2, min_att_dist=5),
+                      "OLIVE", "ETYPE_FIRE"),
+}
+DEFS_WEAPONS = {
+    # id: (name, fields, ammo, explosion)
+    "UWEAP_PBEAM": ("Plasma Beam", dict(damage=1.5, fire_delay=0.1, range=25,
+                                        is_beam=1), "UWEAP_NONE", "ETYPE_NONE"),
+    "UWEAP_EBEAM": ("Energy Beam", dict(damage=4, range=40, is_beam=1),
+                    "UWEAP_NONE", "ETYPE_NONE"),
+    "UWEAP_TORPEDO": ("Torpedo", dict(radius=0.3, c_radius=2, bradius=3, damage=60,
+                                      fire_delay=1, firing_error=0.1, speed=4,
+                                      seek_dist=100, def_ammo=20, lifetime=12, armor=25,
+                                      hit_proj=1),
+                      "UWEAP_TORPEDO", "ETYPE_FIRE"),
+    "UWEAP_PT_DEF": ("Point Defense", dict(damage=15, fire_delay=0.25, range=30,
+                                           point_def=1), "UWEAP_NONE", "ETYPE_NONE"),
+    "UWEAP_FIGHTER": ("Fighter Bay", dict(fire_delay=2, def_ammo=6, is_fighter=1,
+                                          regen_time=20, do_regen=1),
+                      "USC_FIGHTER", "ETYPE_NONE"),
+    "UWEAP_B_BAY": ("Boarding Bay", dict(fire_delay=3, def_ammo=3, is_fighter=1),
+                    "USC_BSHUTTLE", "ETYPE_NONE"),
+}
+DEFS_LOADOUTS = """
+$SHIP_WEAP USC_FIGHTER
+$ADD UWEAP_PBEAM
+$SHIP_WEAP USC_FRIGATE
+$ADD UWEAP_EBEAM 1
+$ADD UWEAP_PT_DEF 1
+$SHIP_WEAP USC_DESTROYER
+$WEAP_PT 1.0 0.0 0.0  -0.5 0.0 0.0
+$ADD UWEAP_EBEAM 2
+$SHIP_WEAP USC_CARRIER
+$ADD UWEAP_FIGHTER 2 6
+$ADD UWEAP_B_BAY 1 3
+$ADD UWEAP_PT_DEF 2
+$SHIP_WEAP USC_ARMAGEDDON
+$WEAP_PT 0.8 0.0 0.0
+$ADD UWEAP_TORPEDO 2 20
+$ADD UWEAP_EBEAM 1
+$SHIP_WEAP USC_ANTI_MISS
+$ADD UWEAP_PT_DEF 3
+$SHIP_SPHERE USC_ARMAGEDDON  0.5 0.0 0.0  0.6
+"""
+# (fleet name, alignment, rgen_dist, position, {class: count}, flagship)
+DEFS_FLEETS = (
+    ("Defenders", "RED", 0.06, (0.0, 0.0, 0.0),
+     dict(USC_FIGHTER=20, USC_FRIGATE=10, USC_DESTROYER=10, USC_CARRIER=3,
+          USC_ARMAGEDDON=2, USC_BSHUTTLE=5, USC_ANTI_MISS=5), None),
+    ("Attackers", "BLUE", 0.08, (0.25, 0.0, 0.0),
+     dict(USC_FIGHTER=40, USC_FRIGATE=20, USC_DESTROYER=15, USC_CARRIER=4,
+          USC_ARMAGEDDON=6, USC_BSHUTTLE=8, USC_ANTI_MISS=8), "100 USC_ARMAGEDDON"),
+)
+
+
+def write_ship_defs(path: str, multiplier: int = 1) -> str:
+    """Write a `$`-sectioned ship-defs file to `path` (its weapons in a
+    part beside it, pulled in by `$INCLUDE`) and return `path`: seven ship
+    classes (fighter, frigate, destroyer, carrier, armageddon, boarding
+    shuttle, anti-missile; frigates and destroyers can be boarded), six
+    weapons (a beam, a plasma beam, a travelling and seeking torpedo with
+    projectile armor, point defence, a fighter bay with regenerating ammo
+    and a boarding-shuttle bay), loadouts with firing points, a collision
+    sphere, $SPEED_SCALE, $START_POS and two fleets of 55 and 101 ships
+    times `multiplier`."""
+    from w3d_torch.universe import ship_config as SC
+    part = os.path.splitext(path)[0] + "_weapons.txt"
+    row = lambda names, vals: " ".join(f"{vals.get(k, 0)}" for k in names)
+    with open(part, "w") as f:
+        f.write("# weapons of the synthetic ship defs\n")
+        for wid, (name, vals, ammo, exp) in DEFS_WEAPONS.items():
+            f.write(f'$WEAP {wid} "{name}" {row(SC.WEAP_FIELDS, vals)} {ammo} {exp}\n')
+        f.write("$WBEAM UWEAP_EBEAM  CYAN WHITE  0.2 0.8 1.0 1.0  BLUE  1.0  0 0 0 0 0\n")
+    counts = lambda d: " ".join(str(d.get(k, 0)) for k in SC.SHIP_IDS)
+    with open(path, "w") as f:
+        f.write(f"$INCLUDE {os.path.basename(part)}\n$SPEED_SCALE 1.0\n"
+                "$START_POS 0.1 0.0 0.0\n")
+        for sid, (name, vals, color, exp) in DEFS_SHIPS.items():
+            f.write(f'$SHIP {sid} "{name}" {row(SC.SHIP_FIELDS, vals)} {color} '
+                    f"WHITE {exp} ETYPE_NONE\n")
+        f.write(DEFS_LOADOUTS)
+        for name, align, dist, pos, cnt, flag in DEFS_FLEETS:
+            f.write(f'$FLEET "{name}" {multiplier} {align} AI_ATT_ENEMY TARGET_CLOSEST '
+                    f"{dist} {pos[0]} {pos[1]} {pos[2]}  {counts(cnt)}"
+                    f"{' ' + flag if flag else ''}\n")
+        f.write("$END\n")
+    return path
+
+
 def pair_work(px, py, pz, radius, active, window: int,
               i_limit: int | None = None) -> tuple[int, int]:
     """(valid pairs in the band, overlapping pairs): the pair tests and

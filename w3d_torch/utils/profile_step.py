@@ -20,7 +20,10 @@ by 1,024 droplets, 8 smileys): one whole game frame of
 last tiled mode at `bench.py`'s `bench_live_tiled` settings (`tiled_world`):
 one chunk of 32 frames (`TiledWorld.step_chunk`: tiles, the chained city
 frames, the reroute, as the bench times it) with the fauna's 32 frames,
-and its parts, the chained city frames alone and the fauna alone.
+and its parts, the chained city frames alone and the fauna alone; and
+universe mode on the fleets of `kernel_probe.write_ship_defs` (156 ships
+in 195 slots, a projectile pool of 1,024): one chunk of 32 frames of
+`UniverseWorld.step_chunk` through the full weapon model.
 For each it prints the host wall time per call, the device-busy time per call (the
 union of the CUDA kernel intervals in the trace) and its share of the
 wall, the kernels launched per call, and the kernels that take the most
@@ -113,6 +116,8 @@ def main() -> None:
     trace_frames(dev, world, gen, tables)
     trace_game(dev, tables)
     trace_tiled(dev, tables)
+    with tempfile.TemporaryDirectory() as tmp:
+        trace_universe(dev, tables, tmp)
     if args.table:
         with open(args.table, "w") as f:
             f.write("\n\n".join(tables) + "\n")
@@ -267,3 +272,31 @@ def trace_tiled(dev, tables: list, chunk: int = 32) -> dict:
                                          w.perches, chunk, d, rail=w.rail), 4, tables)
     trace(f"  its {chunk} fauna frames", lambda: fauna(cam[0] - 0.8 * chunk), 4, tables)
     return out
+
+
+def universe_world(dev, dirname: str, multiplier: int = 1):
+    """The world of `app.run_universe` on the ship defs that
+    `kernel_probe.write_ship_defs` writes into `dirname` (156 ships per
+    multiplier, padded by a quarter, a projectile pool of 1,024), before
+    its first frame."""
+    import contextlib
+    import io
+    import os
+    from .. import app as APP
+    from .kernel_probe import write_ship_defs
+    path = write_ship_defs(os.path.join(dirname, f"ship_defs_x{multiplier}.txt"), multiplier)
+    with contextlib.redirect_stdout(io.StringIO()):
+        return APP.run_universe(0, 1, ship_defs=path, device=dev)
+
+
+def trace_universe(dev, tables: list, dirname: str, chunk: int = 32) -> dict:
+    """A universe-mode chunk through the full weapon model; returns its
+    {"wall_ms", "busy_ms", "kernels"} (per chunk)."""
+    w = universe_world(dev, dirname)
+    pos = [0.0]
+
+    def step():
+        w.step_chunk((pos[0], 0.0, 0.0), frames=chunk)
+        pos[0] += 0.5 * chunk
+    return trace(f"universe chunk of {chunk} frames (156 ships, full weapon model)",
+                 step, 2, tables)
