@@ -116,6 +116,33 @@ Phases, each fatal on failure (no phase hides an error):
       card against the CPU on the same draws: 2 chunks of 8 combat frames
       of 68 slots, 16 default frames (rows and paging equal) and 8
       asteroid steps (floats 1e-5, integer and bool fields equal).
+   i. voxel landscapes: `kernel_probe.write_voxel_scene`'s config at the
+      shipped config_voxels.txt sizes (512x512x64 voxels over the default
+      128^2 x 32 mesh, the other `voxel` keys at their defaults): the
+      load's time (the field, the flood fills, the top surface fused into
+      the heightfield), the fused mesh's rise over the base terrain, and
+      `app.run_ground` at the app's defaults (2,000 balls, 2 chained calls
+      of 32 frames: ms per frame of the second call, launches per frame, B
+      and D every frame, live); `VoxelCollider.rebuild` over the whole
+      field (3,969 blocks) and a dirty rebuild, `marching_cubes_blocks`
+      (12^2 blocks, cap 4,096), a brush and `settle_unanchored`, each
+      timed; and a 32x32x16 landscape on a 32^2 mesh on the card against
+      the CPU (field 1e-5; solid and outside masks, top surface, fused
+      mesh and 8 frame rows equal).
+   j. lighting at scripts/lighting_bench.py's scene and sizes (a floor
+      cube and 60 spheres, the mesh at -0.6, the 32x128x128 light grid):
+      1,048,576 sky rays a bake with the default `TraceParams` (batch
+      65,536) and the production ones (compact, 8 then 4 samples a
+      segment, batch 131,072), rays per second, two bakes of one seed
+      bitwise equal, B in every bounce; one batch under the profiler (the
+      device-busy share); the sky sweep (32 directions and the bounce) and
+      the global sweep; 4 scene point lights of 65,536 rays; a platform
+      delta on 65,536 recorded rays, moved A->B (its time) and back: from
+      an empty volume the two deltas cancel to exactly 0, as does A->A;
+      `BuildingIndirManager.for_building` at res 32 over a port-built
+      3-floor interior, 8 slices of 8,192 rays; and a 32x32x16 grid on the
+      card against the CPU on the same draws, the default and production
+      parameters within rtol 3e-5, atol 1e-6, and the sky sweep 1e-5.
    Prints time to first result, tiles/s and frames/s, and fails if a
    kernel was never launched or a value is not finite.  D's launches in
    the kernels line include 3h's, and its entry carries a `universe` row
@@ -1305,6 +1332,315 @@ def run_universe_phase(dev, kernels: dict, reset_counts, read_counts) -> dict:
     return out
 
 
+VOXEL_SHAPE = (64, 512, 512)   # config_voxels.txt's grid (zsize, ysize, xsize)
+VOXEL_FRAMES = 64        # 2 chained calls of 32 at the app's defaults
+VOXEL_SMALL_FRAMES = 8   # the 32^2 card-vs-CPU run, frame by frame
+
+
+def run_voxel_phase(dev, kernels: dict, reset_counts, read_counts) -> dict:
+    """Phase 3i: a voxel landscape at the shipped config_voxels.txt sizes
+    (`kernel_probe.write_voxel_scene`: 512x512x64 voxels over the default
+    128^2 x 32 mesh) through `load_scene` and `app.run_ground` at the
+    app's defaults; the collider rebuild, the block marching cubes and a
+    brush edit with `settle_unanchored` over the same field; and the small
+    landscape on the card against the CPU.  Returns the metrics and the
+    kernel launches."""
+    from w3d_torch import app as APP
+    from w3d_torch.scene import loader as SL
+    from w3d_torch.terrain import mesh as TM
+    from w3d_torch.utils import kernel_probe as KP
+    from w3d_torch.voxel import collide as VC, edit as VE, grid as VG, mc256 as M256
+
+    out = {"launches": {n: 0 for n in kernels}}
+
+    def app_rows(path, frames, objects, chain, device):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            scene = APP.run_ground(path, frames, objects, chain=chain, device=device)
+        return scene, [json.loads(line) for line in buf.getvalue().splitlines()]
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t0
+
+    tmp = tempfile.mkdtemp()
+    try:
+        path = KP.write_voxel_scene(tmp, objects=GROUND_OBJS)
+        reset_counts()
+        scene, load_s = timed(lambda: SL.load_scene(path, device=dev))
+        load_c = read_counts("voxel scene load", ())
+        vox = scene.voxel
+        vp = SL.voxel_params_from_config(scene.cfg)
+        need(tuple(vox.shape) == VOXEL_SHAPE and bool(torch.isfinite(vox.values).all()),
+             "voxel scene: a finite 512x512x64 field")
+        solid = float((vox.values < vp.isolevel).float().mean())
+        tcfg = scene.cfg.terrain_config()._replace(mesh_seed=scene.cfg.rand_seed)
+        base = TM.gen_terrain(tcfg, scene.world, device=dev).mesh_height
+        rise = scene.terrain.mesh_height - base
+        need(float(rise.min()) >= 0.0 and float(rise.max()) > 0.0,
+             "voxel scene: the fused heightfield rises over the base terrain")
+        log(f"voxel scene: load_scene {load_s:.3f} s (512x512x64 voxels, solid share "
+            f"{solid:.3f}); fused mesh rise over the base terrain: max "
+            f"{float(rise.max()):.3f}, mean {float(rise.mean()):.3f}, columns raised "
+            f"{int((rise > 0).sum())} of {rise.numel()}")
+
+        # the app loop at its defaults: 2 chained calls of 32 frames
+        reset_counts()
+        (scene2, rows), _ = timed(lambda: app_rows(path, VOXEL_FRAMES, GROUND_OBJS,
+                                                   GROUND_CHAIN, dev))
+        c = read_counts("voxel app path (load + 64 frames)", ("sample", "pairs"))
+        per_frame = {n: (c[n] - load_c[n]) / VOXEL_FRAMES for n in c if c[n] - load_c[n]}
+        for n in c:
+            out["launches"][n] += c[n] + load_c[n]
+        st = scene2.objects
+        for name in ("px", "py", "pz", "vx", "vy", "vz"):
+            need(bool(torch.isfinite(getattr(st, name)).all()), f"voxel app: {name} finite")
+        live = int((st.status > 0).sum())
+        need(len(rows) == 2 and rows[-1]["live"] == live and live > GROUND_OBJS // 2
+             and per_frame.get("sample", 0) > 0 and per_frame.get("pairs", 0) > 0,
+             "voxel app: two chained calls, half the balls alive, B and D every frame")
+        ms = rows[1]["ms"]
+        log(f"voxel app: {ms:.3f} ms per frame (second chained call of {GROUND_CHAIN}), "
+            f"first call {rows[0]['ms']:.3f} ms per frame, launches per frame {per_frame}, "
+            f"live {live} of {GROUND_OBJS}, player z {rows[-1]['player_z']}")
+
+        # the collider over the whole field, then a dirty-block rebuild
+        vc = VC.VoxelCollider(vp, spacing=vox.vsz[0], origin=vox.lo_pos, device=dev)
+        _, rebuild_s = timed(lambda: vc.rebuild(vox.values))
+        ntri = vc.num_tris
+        dirty = vc.dirty_blocks_for_edit(0.0, 0.0, 0.2)
+        _, dirty_s = timed(lambda: vc.rebuild(vox.values, dirty))
+        nblocks = ((VOXEL_SHAPE[1] - 1) // 8) * ((VOXEL_SHAPE[2] - 1) // 8)
+        need(ntri > 0 and vc.num_tris == ntri and len(vc.tris) == nblocks,
+             "voxel collider: triangles in 3,969 blocks, a dirty rebuild keeps them")
+        (mv, mvalid, mcount), mc_s = timed(lambda: M256.marching_cubes_blocks(
+            vox.values.permute(2, 1, 0), vp.isolevel, num_blocks=vp.num_blocks,
+            tri_cap=4096))
+        kept = int(mvalid.sum())
+        need(kept > 0 and kept <= int(mcount.sum()) and bool(torch.isfinite(mv).all()),
+             "voxel marching cubes: finite triangles within the block budgets")
+        log(f"voxel collider: rebuild {1e3 * rebuild_s:.1f} ms, {ntri} triangles in "
+            f"{len(vc.tris)} blocks of 8^2 columns; dirty rebuild of {len(dirty)} blocks "
+            f"{1e3 * dirty_s:.1f} ms; marching_cubes_blocks ({vp.num_blocks}^2 blocks, cap "
+            f"4,096): {1e3 * mc_s:.1f} ms, {kept} triangles kept of {int(mcount.sum())} "
+            f"(blocks over budget {int((mcount > 4096).sum())})")
+
+        # a brush carves a hole, then the unanchored chunks settle
+        def edit():
+            v = VE.apply_brush(vox.values, vox.lo_pos, vox.vsz, (0.5, -0.5, 1.0), 0.6, -2.0,
+                               VE.VB_SHAPE_QUADRATIC)
+            return VE.settle_unanchored(v, vp.isolevel)
+        (settled, steps), edit_s = timed(edit)
+        left = int(VE.falling_mask(settled, vp.isolevel).sum())
+        need(bool(torch.isfinite(settled).all()) and (left == 0 or int(steps) == 64),
+             "voxel edit: settled (nothing left unanchored, or every tick used)")
+        log(f"voxel edit: brush + settle_unanchored {1e3 * edit_s:.1f} ms, {int(steps)} "
+            f"drop ticks, unanchored voxels left {left}")
+        out.update(voxel_scene_load_s=load_s, ground_ms_per_frame_voxel=ms,
+                   voxel_collider_rebuild_ms=1e3 * rebuild_s, voxel_collider_tris=ntri,
+                   voxel_marching_cubes_ms=1e3 * mc_s, voxel_brush_settle_ms=1e3 * edit_s)
+
+        # the small landscape on the card and on the CPU
+        small = KP.write_voxel_scene(tmp, small=True, objects=64)
+        sc, sg = SL.load_scene(small, device="cpu"), SL.load_scene(small, device=dev)
+        fd = float((sg.voxel.values.cpu() - sc.voxel.values).abs().max())
+        iso = SL.voxel_params_from_config(sc.cfg).isolevel
+        masks = (torch.equal(sg.voxel.values.cpu() < iso, sc.voxel.values < iso)
+                 and torch.equal(VG.classify_outside(sg.voxel.values, iso).cpu(),
+                                 VG.classify_outside(sc.voxel.values, iso)))
+        surf = (torch.equal(VG.top_surface(sg.voxel, iso).cpu(), VG.top_surface(sc.voxel, iso))
+                and torch.equal(sg.terrain.mesh_height.cpu(), sc.terrain.mesh_height))
+        _, rc = app_rows(small, VOXEL_SMALL_FRAMES, 64, 1, "cpu")
+        _, rg = app_rows(small, VOXEL_SMALL_FRAMES, 64, 1, dev)
+        strip = lambda rows: [{k: v for k, v in r.items() if k != "ms"} for r in rows]
+        log(f"voxel 32^2, card vs CPU: field max diff {fd:.3g}, solid and outside masks "
+            f"equal {masks}, top surface and fused mesh equal {surf}, "
+            f"{VOXEL_SMALL_FRAMES} frame rows equal {strip(rg) == strip(rc)}")
+        need(fd <= 1e-5 and masks and surf and strip(rg) == strip(rc),
+             "voxel 32^2, card vs CPU: field 1e-5; masks, surfaces and rows equal")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+LIGHT_RAYS = 1 << 20          # scripts/lighting_bench.py's rays per bake
+PLATFORM_RAYS = 65536         # recorded rays of the platform delta
+INDIR_SLICE = 8192            # rays per building-lighting slice
+
+
+def run_lighting_phase(dev, kernels: dict, reset_counts, read_counts) -> dict:
+    """Phase 3j: the lighting bakes at scripts/lighting_bench.py's scene and
+    sizes (the default world's 32x128x128 light grid, a floor cube and 60
+    spheres, the mesh at -0.6): 1,048,576 sky rays with the default
+    `TraceParams` and with the production ones, twice each from one seed
+    (bitwise equal), one batch under the profiler, both sweeps, the scene
+    lights, a platform delta and building lighting; and a small grid on
+    the card against the CPU.  Returns the metrics and the launches."""
+    from w3d_torch.city import floorplan as CF
+    from w3d_torch.lighting import accum as LA, building_indir as LB, lmap as LM
+    from w3d_torch.lighting import sweep as LS, trace as LT
+    from w3d_torch.scene import cobj as SC
+    from w3d_torch.utils import kernel_probe as KP
+    from w3d_torch.utils import profile_step as PROF
+    from w3d_torch.utils.constants import WorldConst
+
+    out = {"launches": {n: 0 for n in kernels}}
+    world = WorldConst()
+    cobjs = SC.pack_cobjs(KP.lighting_bench_scene(), device=dev)
+    mesh = torch.full((world.mesh_y, world.mesh_x), -0.6, dtype=torch.float32, device=dev)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t0
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    reset_counts()
+    rates = {}
+    for label, params, batch in (("default", LT.TraceParams(), 65536),
+                                 ("compact", LT.TraceParams(compact=True, samples_per_segment=8,
+                                                            samples_later=4), 131072)):
+        def bake(seed):
+            return LT.compute_sky_lighting(LM.make_light_grid(world, device=dev), cobjs, mesh,
+                                           LIGHT_RAYS, seed=seed, params=params, world=world,
+                                           batch=batch)
+        _, first_s = timed(lambda: bake(1))
+        (ga, ta), (gb, tb) = timed(lambda: bake(7)), timed(lambda: bake(7))
+        need(same(ga, gb), f"lighting {label} bake: two bakes of one seed bitwise equal")
+        need(all(bool(torch.isfinite(t).all()) for t in ga) and float(ga.sv.sum()) > 0,
+             f"lighting {label} bake: finite, lit")
+        rates[label] = LIGHT_RAYS / statistics.median([ta, tb])
+        log(f"lighting {label} bake ({batch} a batch): {rates[label] / 1e6:.3f} M rays/s "
+            f"({1e3 * ta:.1f} and {1e3 * tb:.1f} ms per 1,048,576 rays; first bake "
+            f"{first_s:.3f} s), two bakes of seed 7 bitwise equal; sky weight total "
+            f"{float(ga.sv.sum()):.1f}, lit cells {int((ga.sv > 0).sum())} of {ga.sv.numel()}")
+    c = read_counts("lighting bakes", ("sample",))
+    for n in c:
+        out["launches"][n] += c[n]
+    prof = PROF.trace_lighting_batch(dev, [])
+    busy = prof["busy_ms"] / prof["wall_ms"]
+    log(f"lighting batch under the profiler (65,536 rays, default params): "
+        f"{prof['wall_ms']:.2f} ms wall, device busy {prof['busy_ms']:.2f} ms "
+        f"({100 * busy:.1f}%), {prof['kernels']:.0f} kernels")
+
+    # the sweeps: 32 directions and the bounce, the global sun
+    grid = LM.make_light_grid(world, device=dev)
+    vox, vox_s = timed(lambda: LS.voxelize_for_grid(grid, cobjs, mesh, world))
+    sky = lambda: LS.compute_sky_lighting_sweep(grid, cobjs, mesh, ndirs=32, world=world,
+                                                vox=vox)
+    timed(sky)
+    gs, sweep_s = timed(sky)
+    gg, glob_s = timed(lambda: LS.compute_global_lighting_sweep(
+        grid, cobjs, mesh, (0.3, -0.2, -1.0), world=world, vox=vox))
+    need(all(bool(torch.isfinite(t).all()) for t in gs + gg) and float(gs.sv.max()) > 0.9
+         and float(gg.gv.max()) > 0.9, "sweeps: finite, open sky reaches weight 1")
+    log(f"sweeps: voxelize {1e3 * vox_s:.1f} ms, sky sweep (32 directions + bounce) "
+        f"{1e3 * sweep_s:.1f} ms, global sweep (+ bounce) {1e3 * glob_s:.1f} ms")
+
+    # scene lights: four point lights of 65,536 rays
+    specs = [SC.LightSpec(size=0.5, pos=p, color=(1.0, 0.9, 0.8, 1.0))
+             for p in ((0.0, 0.0, 0.5), (-2.0, 1.5, 0.8), (2.0, -1.0, 1.2), (1.0, 2.0, 0.3))]
+    reset_counts()
+    gl, scene_s = timed(lambda: LT.compute_scene_lighting(
+        LM.make_light_grid(world, device=dev), cobjs, mesh, specs, 65536, world=world))
+    c = read_counts("scene lighting", ("sample",))
+    for n in c:
+        out["launches"][n] += c[n]
+    need(bool(torch.isfinite(gl.lc_r).all()) and float(gl.lc_r.sum()) > 0,
+         "scene lighting: finite, lit")
+    log(f"scene lighting: 4 point lights x 65,536 rays {scene_s:.3f} s")
+
+    # a platform delta on 65,536 recorded rays, moved A -> B -> A
+    lo_a, hi_a = (-1.5, -1.5, 0.6), (1.5, 1.5, 0.8)
+    lo_b, hi_b = (0.0, 0.0, 0.6), (3.0, 3.0, 0.8)
+    rec = LA.record_platform_rays(LT.DrawSource(dev)(5), LIGHT_RAYS, lo_a, hi_a, world,
+                                  seed=3)
+    need(rec.ox.shape[0] >= PLATFORM_RAYS, "platform: 65,536 rays recorded")
+    rays = LA.AccumRays(*(a[:PLATFORM_RAYS].contiguous() for a in rec[:-1]), seed=3)
+    zero = LM.make_light_grid(world, device=dev)
+    upd = lambda g, a, b: LA.update_platform_lighting(g, rays, cobjs, mesh, *a, *b,
+                                                      world=world)
+    timed(lambda: upd(zero, (lo_a, hi_a), (lo_b, hi_b)))
+    ab, delta_s = timed(lambda: upd(zero, (lo_a, hi_a), (lo_b, hi_b)))
+    aba = upd(ab, (lo_b, hi_b), (lo_a, hi_a))
+    still = upd(zero, (lo_a, hi_a), (lo_a, hi_a))
+    moved = float(ab.sv.abs().sum())
+    need(moved > 0 and not any(bool(getattr(aba, f).any()) or bool(getattr(still, f).any())
+                               for f in LM.CHANNELS[LM.LIGHTING_SKY]),
+         "platform: A->B changes the volume, A->B->A and A->A add exactly zero")
+    log(f"platform delta: {PLATFORM_RAYS} recorded rays (of {rec.ox.shape[0]}), "
+        f"{1e3 * delta_s:.1f} ms; |A->B| weight {moved:.3f}; A->B->A and A->A exactly 0")
+
+    # building indirect lighting at res 32, sliced
+    bbox = (0.0, 0.0, 0.0, 1.2, 0.9, 0.4)
+    interior = CF.gen_interior(bbox, 3, 0.12, seed=3)
+    mgr = LB.BuildingIndirManager.for_building(interior, bbox, res=32,
+                                               rays_per_light=4 * INDIR_SLICE, device=dev)
+    mgr.slice_rays = INDIR_SLICE
+    last = len(interior.lights) - 1
+    mgr.prioritize(last)
+    slice_ms, order = [], []
+    for i in range(8):
+        ix, s = timed(lambda: mgr.process_one(mgr.cobjs, mgr.mesh, seed=i))
+        order.append(ix)
+        slice_ms.append(1e3 * s)
+    comp = mgr.composite()
+    need(order == [last] + list(range(7)) and len(mgr.volumes) == 8
+         and bool(torch.isfinite(comp.lc_r).all()) and float(comp.lc_r.sum()) > 0,
+         "building lighting: the prioritized light first, then the queue, lit")
+    indir_ms = statistics.median(slice_ms[1:])
+    log(f"building lighting: {len(interior.lights)} room lights, {len(interior.walls)} "
+        f"walls, res 32: {indir_ms:.2f} ms a slice of {INDIR_SLICE} rays (median of "
+        f"slices 2-8; first {slice_ms[0]:.1f} ms), lights sliced {order}")
+    out.update(sky_rays_per_sec=rates["default"], sky_rays_per_sec_compact=rates["compact"],
+               lighting_batch_device_busy_share=busy, sweep_ms=1e3 * sweep_s,
+               global_sweep_ms=1e3 * glob_s, scene_lighting_s=scene_s,
+               platform_delta_ms=1e3 * delta_s, building_indir_slice_ms=indir_ms)
+
+    # a small grid on the card against the CPU, on the same draws
+    sw_ = WorldConst(mesh_x=32, mesh_y=32, mesh_z=16)
+    sp = SC.SceneParse()
+    lay = SC.CobjLayer(color=(0.9, 0.9, 0.9, 1.0))
+    sp.cobjs.append(SC.RawCobj(SC.COLL_CUBE, (-4, -4, -0.6), (4, 4, -0.4), layer=lay))
+    sp.cobjs.append(SC.RawCobj(SC.COLL_SPHERE, (1.5, 0.0, 0.5), r1=0.6, layer=lay))
+    worst, outside, cells = 0.0, 0, 0
+    for params in (LT.TraceParams(max_bounces=3, samples_per_segment=6, line_length=16.0,
+                                  mesh_steps=12),
+                   LT.TraceParams(compact=True, samples_per_segment=8, samples_later=4)):
+        res = []
+        for d, src in (("cpu", LT.DrawSource("cpu")), (dev, LT.DrawSource(dev, "cpu"))):
+            res.append(LT.compute_sky_lighting(
+                LM.make_light_grid(sw_, device=d), SC.pack_cobjs(sp, device=d),
+                torch.full((32, 32), -3.5, device=d), 4096, seed=2, params=params,
+                world=sw_, batch=2048, draws=src))
+        for a, b in zip(res[0], res[1]):
+            b = b.cpu()
+            outside += int((~torch.isclose(b, a, rtol=3e-5, atol=1e-6)).sum())
+            cells += a.numel()
+            worst = max(worst, float(((b - a).abs() / (a.abs() + 1e-6)).max()))
+    cpu_sw = LS.compute_sky_lighting_sweep(LM.make_light_grid(sw_, device="cpu"),
+                                           SC.pack_cobjs(sp, device="cpu"), None, ndirs=12,
+                                           world=sw_)
+    gpu_sw = LS.compute_sky_lighting_sweep(LM.make_light_grid(sw_, device=dev),
+                                           SC.pack_cobjs(sp, device=dev), None, ndirs=12,
+                                           world=sw_)
+    sd = max(float((b.cpu() - a).abs().max()) for a, b in zip(cpu_sw, gpu_sw))
+    log(f"lighting 32x32x16, card vs CPU on the same draws (default and production "
+        f"params): worst relative difference {worst:.3g}, values outside rtol 3e-5, atol "
+        f"1e-6: {outside} of {cells}; sky sweep max diff {sd:.3g}")
+    need(outside == 0, "lighting 32x32x16, card vs CPU: rtol 3e-5, atol 1e-6")
+    need(sd <= 1e-5, "sweep 32x32x16, card vs CPU: 1e-5")
+    out.update(lighting_card_vs_cpu_max_rel=worst)
+    return out
+
+
 def _leaves(value) -> list:
     """The numpy arrays of a NamedTuple tree, in field order (None skipped)."""
     if value is None:
@@ -1784,6 +2120,22 @@ def main() -> int:
     for n, c in universe3h["launches"].items():
         launches[n] += c
 
+    # ---- 3i. voxel landscapes ---------------------------------------------
+    # load_scene and app.run_ground on the 512x512x64 landscape (B and D
+    # every frame), the collider, the block marching cubes, a brush edit
+    # and settle, and the small landscape on the card against the CPU
+    voxel3i = run_voxel_phase(dev, kernels, reset_counts, read_counts)
+    for n, c in voxel3i["launches"].items():
+        launches[n] += c
+
+    # ---- 3j. lighting ------------------------------------------------------
+    # the sky bakes at scripts/lighting_bench.py's sizes (B in every
+    # bounce), a profiled batch, the sweeps, scene lights, a platform delta
+    # (A->B->A exactly 0), building lighting, and a small grid card vs CPU
+    light3j = run_lighting_phase(dev, kernels, reset_counts, read_counts)
+    for n, c in light3j["launches"].items():
+        launches[n] += c
+
     # ---- 4. kernels vs plain versions, main-path shapes ------------------
     # Each kernel device-only (a CUDA graph of 20 launches replayed between
     # CUDA events), in turns with its plain version (CUDA events around
@@ -2190,7 +2542,9 @@ def main() -> int:
                     **{k: v for k, v in game3f.items() if k != "launches"},
                     **{k: v for k, v in tiled3g.items() if k != "launches"},
                     **{k: v for k, v in universe3h.items()
-                       if k not in ("launches", "pairs_universe")}},
+                       if k not in ("launches", "pairs_universe")},
+                    **{k: v for k, v in voxel3i.items() if k != "launches"},
+                    **{k: v for k, v in light3j.items() if k != "launches"}},
         "card": smi}))
     log(json.dumps({"kernels": [
         {"name": srcs[n][0], "route": "cuda", "source": srcs[n][1],

@@ -38,6 +38,9 @@ from w3d_torch.ops import noise as ON
 from w3d_torch.universe import asteroids as UA, combat as UCB, ship_config as USC
 from w3d_torch.universe import ships as USH, surface as USF
 from w3d_torch.utils.kernel_probe import write_ship_defs
+from w3d_torch.lighting import accum as LA, building_indir as LB, dlights as LD
+from w3d_torch.lighting import trace as LT
+from w3d_torch.voxel import collide as VC, grid as VG
 
 
 def _generator():
@@ -96,6 +99,28 @@ def _run_universe():
         return APP.run_universe(1, 1, ship_defs=os.path.join(d, "none.txt"), chunk=1).fleet.px
 
 
+def _load_npz():
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "g.npz")
+        LM.save_npz(LM.make_light_grid(WorldConst(mesh_x=4, mesh_y=4, mesh_z=2),
+                                       device="cpu"), path)
+        return LM.load_npz(path).sv
+
+
+def _voxel_collider():
+    """The collider extracts on its device (it keeps host triangles)."""
+    vc = VC.VoxelCollider(VG.VoxelParams())
+    vc.rebuild(np.ones((4, 9, 9), np.float32))
+    return torch.zeros(1, device=vc.device)
+
+
+def _building_setup():
+    interior = CF.gen_interior((0.0, 0.0, 0.0, 1.0, 0.8, 0.3), 1, 0.1, seed=3)
+    return LB.building_local_setup(interior, (0.0, 0.0, 0.0, 1.0, 0.8, 0.3), res=8)[3]
+
+
+_SMALL = WorldConst(mesh_x=4, mesh_y=4, mesh_z=2)
+
 MAKERS = {
     "spawn": lambda: PM.spawn(4, _generator())[0],
     "build_spheres_world": _spheres_world,
@@ -146,6 +171,19 @@ MAKERS = {
     "make_player_ship": lambda: USH.make_player_ship().px,
     "make_claims": lambda: USH.make_claims(2).owner,
     "make_combat_state": _combat_state,
+    "make_voxel_grid": lambda: VG.make_voxel_grid(
+        VG.VoxelParams(xsize=8, ysize=8, zsize=4), WorldConst()).values,
+    "create_procedural": lambda: VG.create_procedural(
+        VG.VoxelParams(xsize=4, ysize=4, zsize=4), (0.0, 0.0, 0.0), (1.0, 1.0, 1.0)),
+    "VoxelCollider": _voxel_collider,
+    "TraceDraws": lambda: LT.TraceDraws(1).rays(6, 0, (4,)),
+    "sky_rays": lambda: LT.sky_rays(LT.DrawSource()(1, 2), 4, WorldConst())[0],
+    "record_platform_rays": lambda: LA.record_platform_rays(
+        LT.TraceDraws(0), 8, (-9.0, -9.0, -9.0), (9.0, 9.0, 9.0)).ox,
+    "pack_dlights": lambda: LD.pack_dlights([]).x,
+    "load_npz": _load_npz,
+    "BuildingIndirManager": lambda: LB.BuildingIndirManager(world=_SMALL).composite().lc_r,
+    "building_local_setup": _building_setup,
     "gen_terrain": lambda: TM.gen_terrain(
         TM.TerrainConfig(mode=N.MGEN_SIMPLEX),
         WorldConst(mesh_x=8, mesh_y=8)).mesh_height,

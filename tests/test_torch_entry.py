@@ -124,8 +124,10 @@ def test_convert_round_trip():
 def test_import_leaves_jax_out():
     """Importing the port, its entry points, every module of scene loading,
     of ground physics and game mode, of tiled mode (tiles, the city,
-    the fauna, the event journal) and of universe mode (generation, names,
-    surfaces, asteroids, ship defs, fleets, combat) loads no jax, no
+    the fauna, the event journal), of universe mode (generation, names,
+    surfaces, asteroids, ship defs, fleets, combat), of lighting (volumes,
+    dlights, the tracer, platform and group volumes, the sweep, building
+    lighting) and of the voxel engine loads no jax, no
     module of the JAX package and nothing from its directory (its compiled
     `native/` parser included)."""
     code = ("import os, sys, w3d_torch, w3d_torch.entry, w3d_torch.convert, "
@@ -152,7 +154,12 @@ def test_import_leaves_jax_out():
             "w3d_torch.utils.assets, w3d_torch.utils.names, w3d_torch.universe, "
             "w3d_torch.universe.gen, w3d_torch.universe.surface, "
             "w3d_torch.universe.asteroids, w3d_torch.universe.ship_config, "
-            "w3d_torch.universe.ships, w3d_torch.universe.combat; "
+            "w3d_torch.universe.ships, w3d_torch.universe.combat, "
+            "w3d_torch.lighting, w3d_torch.lighting.dlights, w3d_torch.lighting.trace, "
+            "w3d_torch.lighting.accum, w3d_torch.lighting.sweep, "
+            "w3d_torch.lighting.building_indir, w3d_torch.voxel, w3d_torch.voxel.grid, "
+            "w3d_torch.voxel.mc256, w3d_torch.voxel.mc, w3d_torch.voxel.ao, "
+            "w3d_torch.voxel.edit, w3d_torch.voxel.collide, w3d_torch.ops.fmath; "
             "jaxdir = os.path.join(os.getcwd(), '3dworld_tpu'); "
             "bad = sorted(m for m, v in sys.modules.items() if m == 'jax' "
             "or m.startswith('jax.') or m == 'w3d' or m.startswith('w3d.') "

@@ -43,6 +43,7 @@ from w3d_torch import convert
 from w3d_torch.models import world as TWM
 from w3d_torch.physics import types as TT
 from w3d_torch.scene import loader as TL
+from w3d_torch.terrain import mesh as TM
 
 from torch_port_util import jax_angle_tables, np_tree
 
@@ -83,6 +84,8 @@ BASE = "mesh_size 32 32 8\nrand_seed 3\nmesh_seed 3\nnum_dodgeballs 16\n"
 # an fBm generator (bitwise in both packages) with the water plane raised
 # into the 32^2 map's height range: 30% of it under water
 FBM = "mesh_gen_mode 2\nwater_h_off 0.053 0\n"
+VOXEL = ("create_voxel_landscape 1\nvoxel xsize 32\nvoxel ysize 32\nvoxel zsize 16\n"
+         "voxel isolevel 0.13\nvoxel z_gradient 1.5\nvoxel atten_at_edges 2\n")
 CONFIGS = {
     "default": BASE,
     "ntrees": BASE + FBM + "ntrees 40\n",
@@ -90,6 +93,10 @@ CONFIGS = {
     "materials": BASE + FBM + "sphere_materials_fn mats.txt\n",
     "platforms": BASE + FBM + ("ntrees 12\nload_coll_objs 1\n"
                                "coll_obj_file scene.txt\nsphere_gen rand_seed 9\n"),
+    # a voxel landscape: isolevel 0.13 keeps every cell of this field more
+    # than 1e-4 from it (the field is held at 1e-5), so the masks, the top
+    # surface and the fused heightfield are exact
+    "voxel": BASE + FBM + VOXEL,
     "heightmap": ("mesh_size 32 32 8\nrand_seed 3\nnum_dodgeballs 16\n"
                   "read_heightmap 1\nmesh_height_image hm.png\n"
                   "read_hmap_modmap_filename hm.modmap\nerosion_iters 300\n"
@@ -161,7 +168,14 @@ def _check_scene(js, ts, height_tol):
     assert dataclasses.asdict(js.sphere_mats) == dataclasses.asdict(ts.sphere_mats)
     assert dataclasses.asdict(js.parse) == dataclasses.asdict(ts.parse)
     assert js.mat_first == ts.mat_first and js.smoke_active == ts.smoke_active
-    assert js.voxel is None and ts.voxel is None
+    if js.voxel is None:
+        assert ts.voxel is None
+    else:
+        iso = float(js.cfg.voxel["isolevel"])
+        jv = np.asarray(js.voxel.values)
+        assert ts.voxel.lo_pos == js.voxel.lo_pos and ts.voxel.vsz == js.voxel.vsz
+        _close(jv, ts.voxel.values.numpy(), 1e-5, "voxel.values")
+        _close(jv < iso, ts.voxel.values.numpy() < iso, 0.0, "voxel solid")
     if js.trees is None:
         assert ts.trees is None
     else:
@@ -208,14 +222,28 @@ def test_load_scene_matches_jax(tmp_path, monkeypatch, name):
         assert not ts.parse.skipped and live > 20
     elif name == "heightmap":
         assert float(ts.terrain.ztop - ts.terrain.zbottom) > 0.01
+    elif name == "voxel":
+        assert ts.voxel.shape == (16, 32, 32)
+        assert np.abs(np.asarray(js.voxel.values) - 0.13).min() > 1e-4
+        cfg = dataclasses.replace(ts.cfg, create_voxel_landscape=0)
+        base = TM.gen_terrain(cfg.terrain_config()._replace(mesh_seed=3), ts.world,
+                              device="cpu").mesh_height
+        rise = ts.terrain.mesh_height - base
+        assert float(rise.min()) == 0.0 and float(rise.max()) > 0.1   # fused surface
     if name != "scenery_off":
         assert bool(ts.scenery.valid.any())
 
 
 def test_voxel_landscape_raises(tmp_path):
+    """Voxel landscapes used to be refused with NotImplementedError; they
+    are ported now, so neither `load_scene` nor `convert.ground_scene`
+    raises for one, and a grid of the config's size rides on the scene."""
     (tmp_path / "cfg.txt").write_text(BASE + "create_voxel_landscape 1\nvoxel xsize 8\n")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        TL.load_scene(str(tmp_path / "cfg.txt"), device="cpu")
+    ts = TL.load_scene(str(tmp_path / "cfg.txt"), device="cpu")
+    assert ts.voxel.shape == (32, 64, 8)
+    with jax.disable_jit():
+        js = JL.load_scene(str(tmp_path / "cfg.txt"))
+    assert convert.ground_scene(_np_scene(js), "cpu").voxel.shape == (32, 64, 8)
 
 
 def _drop_objects(js):
@@ -394,3 +422,16 @@ def test_main_chains_ground_mode_whatever_the_chunk(tmp_path, monkeypatch):
     keys = ("frame", "mode", "chained", "player_z")
     assert [[r.get(k) for k in keys] for r in trows] == \
         [[r.get(k) for k in keys] for r in jrows] == [[5, "ground", 6, trows[0]["player_z"]]]
+
+
+def test_run_ground_voxel_rows_match_jax_app(tmp_path, monkeypatch):
+    """The app's ground mode on a voxel landscape: 12 frames of 16 balls
+    falling onto the fused voxel surface, per frame and chained in 4s,
+    print the JAX app's rows (every key but `ms`)."""
+    path = _write(tmp_path, "voxel")
+    jrows = _jax_app_rows(monkeypatch, JAPP.run_ground, path, 12, 16, chain=1)
+    _, trows = _run(TAPP.run_ground, path, 12, 16, chain=1, device="cpu")
+    assert [r["frame"] for r in trows] == list(range(12))
+    assert _no_ms(trows) == _no_ms(jrows)
+    _, crows = _run(TAPP.run_ground, path, 12, 16, chain=4, device="cpu")
+    assert [r["live"] for r in crows] == [trows[f]["live"] for f in (3, 7, 11)]

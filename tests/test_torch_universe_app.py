@@ -13,6 +13,7 @@ boolean fields equal; the app's printed rows equal in every key but
 import contextlib
 import io
 import json
+import sys
 
 import numpy as np
 import pytest
@@ -121,9 +122,14 @@ def test_run_universe_rows_match_jax_app(tmp_path, monkeypatch, kind, frames, ch
     config_universe.txt, and the ship_defs_assault.txt fallback."""
     path = _layout(tmp_path, kind)
     # op by op the JAX app's host-built combat state must be JAX arrays
-    # (compiled, the jit converts it)
-    make = JCB.make_combat_state
-    monkeypatch.setattr(JCB, "make_combat_state",
+    # (compiled, the jit converts it).  The app reads `combat` off its
+    # `universe` package at call time, which is another module object than
+    # JCB once a test has imported the package's modules again under the
+    # `w3d` name (tests/test_aux.py::test_import_every_module does), so
+    # patch the one the app will take
+    app_cb = sys.modules[JAPP.__package__ + ".universe"].combat
+    make = app_cb.make_combat_state
+    monkeypatch.setattr(app_cb, "make_combat_state",
                         lambda *a, **k: jax.tree.map(jnp.asarray, make(*a, **k)))
     with jax.disable_jit():
         jw, jrows = _rows(JAPP.run_universe, frames, 3, ship_defs=path, chunk=chunk)

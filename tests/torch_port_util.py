@@ -19,6 +19,19 @@ def cuda_device():
     return torch.device("cuda")
 
 
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One PyTorch intra-op thread for each test of a module that imports
+    this fixture: the Tier-1 run puts six test processes on the machine's
+    cores, and each process's spinning OpenMP threads oversubscribe them
+    (measured: two such processes ran 16 tests in 453 s, in 29 s with one
+    thread each)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def np_tree(value):
     """JAX arrays -> numpy through NamedTuples / GroupedCobjs / tuples."""
     import jax
@@ -414,3 +427,69 @@ def same_tree(port, ref, tol: float = 1e-5, what: str = "") -> None:
         np.testing.assert_allclose(a[fin], b[fin], rtol=0, atol=tol, err_msg=what)
     else:
         np.testing.assert_array_equal(a.astype(np.int64), b.astype(np.int64), err_msg=what)
+
+
+# ---------------------------------------------------------------------------
+# lighting: the JAX tracer's threefry draws as the port's TraceDraws
+# ---------------------------------------------------------------------------
+
+def jax_trace_draws(key, device="cpu"):
+    """A `lighting.trace.TraceDraws` that replays the draws the JAX
+    package takes from `key`: ray generation from its split (6 ways for
+    sky rays, 2 global, 3 local, 8 scene lights), bounce b from
+    `split(key, max_bounces)[b]` (`fold_in(key, b)` on the compact path),
+    then `fold_in(., 7)` for the branch pick, split 3 ways (the first
+    split again for the scatter pair, the others for the jitter, and
+    `fold_in(k3, 2)` for the specular pick); compaction after bounce b
+    from `fold_in(key, 0x707 + b)`."""
+    import jax
+    from w3d_torch.lighting.trace import TraceDraws, BounceDraws
+    r = jax.random
+    t = lambda a: torch.as_tensor(np.array(a)).to(device)
+
+    class JaxTraceDraws(TraceDraws):
+        def __init__(self):
+            self.device = torch.device(device)
+
+        def rays(self, splits, i, shape, kind="uniform", lo=0.0, hi=1.0):
+            k = r.split(key, splits)[i]
+            if kind == "uniform":
+                return t(r.uniform(k, shape, minval=lo, maxval=hi))
+            if kind == "normal":
+                return t(r.normal(k, shape))
+            return t(r.randint(k, shape, 0, hi)).to(torch.int64)
+
+        def bounce(self, b, n, params):
+            kd = r.fold_in(key, b) if params.compact else r.split(key, params.max_bounces)[b]
+            u_t = t(r.uniform(r.fold_in(kd, 7), (n,))) if params.transmission else None
+            k1, k2, k3 = r.split(kd, 3)
+            ku, kv = r.split(k1)
+            u, v = t(r.uniform(ku, (n,))), t(r.uniform(kv, (n,)))
+            if not params.specular_enabled:
+                return BounceDraws(u_t, u, v, None, None, None)
+            return BounceDraws(u_t, u, v, t(r.uniform(k2, (n,))), t(r.uniform(k3, (n,))),
+                               t(r.uniform(r.fold_in(k3, 2), (n,))))
+
+        def compact(self, b, n):
+            return t(r.uniform(r.fold_in(key, 0x707 + b), (n,)))
+
+    return JaxTraceDraws()
+
+
+def jax_draw_source(device="cpu"):
+    """A `lighting.trace.DrawSource` that replays the JAX key of each
+    stream: `key(s)` for a one-integer stream (platform deltas, dlight
+    groups, building lights), `fold_in(w3d_rng.key(seed, tag, i), part)`
+    for a driver's (seed, tag, i, part)."""
+    import jax
+    from w3d.utils import rng as w3d_rng
+    from w3d_torch.lighting.trace import DrawSource
+
+    class JaxDrawSource(DrawSource):
+        def __call__(self, *parts):
+            if len(parts) == 1:
+                return jax_trace_draws(jax.random.key(parts[0]), device)
+            return jax_trace_draws(jax.random.fold_in(w3d_rng.key(*parts[:3]), parts[3]),
+                                   device)
+
+    return JaxDrawSource(device)

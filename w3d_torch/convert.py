@@ -13,8 +13,10 @@ across field by field, and so do the tiled mode's values: the city state
 graph, the pedestrian nav, building people, animals, butterflies and
 tiles; and the universe's: fleets, combat tables, projectile pools and
 combat states, asteroid fields, the player ship, planet claims and 3-D
-sine tables.  `to_numpy` goes the other way, for comparisons and round
-trips; it needs neither jax nor the JAX package.
+sine tables; and the lighting and voxel values: light grids, dlights,
+recorded platform rays and voxel grids.  `to_numpy` goes the other way,
+for comparisons and round trips; it needs neither jax nor the JAX
+package.
 
 JAX keeps per-object and per-type flags as uint32; the port keeps them as
 int32 bit masks (every flag bit fits).
@@ -38,6 +40,9 @@ from .terrain.mesh import TerrainState
 from .physics.platforms import PlatformSet, TriggerSet
 from .veg.scenery import ScenerySet
 from .lighting.lmap import LightGrid
+from .lighting.dlights import DLights
+from .lighting.accum import AccumRays
+from .voxel.grid import VoxelGrid
 from .physics.destroy import DestroyState, SurfaceDamage
 from .physics.groups import GroupSpec
 from .physics.particles import BubblePool, CloudPool, FirePool, DecalPool
@@ -227,12 +232,27 @@ def host_spec(src):
     return src
 
 
+def voxel_grid(src, device) -> VoxelGrid:
+    """A VoxelGrid (its density tensor; the geometry tuples as floats)."""
+    return VoxelGrid(values=array(src.values, device),
+                     lo_pos=tuple(float(v) for v in src.lo_pos),
+                     vsz=tuple(float(v) for v in src.vsz))
+
+
+def dlights(src, device) -> DLights:
+    return _named(DLights, src, device)
+
+
+def accum_rays(src, device) -> AccumRays:
+    """A recorded platform ray set (its integer seed kept)."""
+    return AccumRays(**{f: array(getattr(src, f), device) for f in AccumRays._fields
+                        if f != "seed"}, seed=int(src.seed))
+
+
 def ground_scene(src, device) -> GroundScene:
     """A loaded GroundScene, its arrays as numpy: tensors on `device`,
-    host specs as the port's dataclasses, the trees as numpy."""
-    if src.voxel is not None:
-        raise NotImplementedError("voxel landscapes are not ported "
-                                  "(ROADMAP Queue 1, item 9)")
+    host specs as the port's dataclasses, the trees as numpy, a voxel
+    landscape's grid as a VoxelGrid."""
     opt = lambda f, v: None if v is None else f(v, device)
     w = src.world
     return GroundScene(
@@ -249,7 +269,7 @@ def ground_scene(src, device) -> GroundScene:
         parse=host_spec(src.parse),
         platforms=opt(platform_set, src.platforms),
         triggers=opt(trigger_set, src.triggers),
-        smoke_active=src.smoke_active,
+        smoke_active=src.smoke_active, voxel=opt(voxel_grid, src.voxel),
         trees=None if src.trees is None else tuple(np.asarray(a) for a in src.trees),
         scenery=opt(scenery_set, src.scenery))
 

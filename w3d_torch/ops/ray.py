@@ -22,7 +22,9 @@ families is a `torch.where` chain, and the nearest slot a gather at
 the index replaces the JAX one-hot output.  The JAX scans over ray steps
 become a Python loop (the cell walk) or one [N, S] sample (the stepped
 intersector); the threefry draws of `cosine_hemisphere_dirs` become
-inputs.
+inputs.  Square roots, sines, cosines and divisions by a number round as
+`ops/fmath`'s, the same on the card and the CPU, so a ray takes the same
+path on both.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ import math
 import torch
 
 from .cuda import sample_kernel as SK
+from .fmath import cos32, div32, sin32, sqrt32
 from ..physics.cobjs import (
     CobjSet, COLL_NULL, COLL_CUBE, COLL_SPHERE, COLL_CYLINDER,
     COLL_CYLINDER_ROT, COLL_POLYGON, COLL_CAPSULE, COLL_TORUS,
@@ -87,13 +90,13 @@ def _isect_sphere(c, OX, OY, OZ, DX, DY, DZ, a):
     b = 2.0 * (LX * DX + LY * DY + LZ * DZ)
     cc = LX * LX + LY * LY + LZ * LZ - c.r1 * c.r1
     disc = b * b - 4.0 * a * cc
-    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    sq = sqrt32(torch.clamp(disc, min=0.0))
     t_s = (-b - sq) / (2.0 * a)
     t_sph = _where_big((disc > 0.0) & (t_s > _EPS), t_s)
     hx = OX + t_s * DX - c.p1[:, 0]
     hy = OY + t_s * DY - c.p1[:, 1]
     hz = OZ + t_s * DZ - c.p1[:, 2]
-    hl = torch.clamp(torch.sqrt(hx * hx + hy * hy + hz * hz), min=_EPS)
+    hl = torch.clamp(sqrt32(hx * hx + hy * hy + hz * hz), min=_EPS)
     # exit: the far root whenever it lies ahead (an origin inside the
     # sphere still needs an exit for transmission)
     t_s2 = (-b + sq) / (2.0 * a)
@@ -113,7 +116,7 @@ def _isect_tapered(c, OX, OY, OZ, DX, DY, DZ, a, want_caps, want_rcyl):
     ux_ = c.p2[:, 0] - c.p1[:, 0]
     uy_ = c.p2[:, 1] - c.p1[:, 1]
     uz_ = c.p2[:, 2] - c.p1[:, 2]
-    Lax = torch.sqrt(torch.clamp(ux_ * ux_ + uy_ * uy_ + uz_ * uz_, min=_EPS))
+    Lax = sqrt32(torch.clamp(ux_ * ux_ + uy_ * uy_ + uz_ * uz_, min=_EPS))
     ux_, uy_, uz_ = ux_ / Lax, uy_ / Lax, uz_ / Lax
     kslope = (c.r2 - c.r1) / Lax
     wx_ = OX - c.p1[:, 0]
@@ -128,7 +131,7 @@ def _isect_tapered(c, OX, OY, OZ, DX, DY, DZ, a, want_caps, want_rcyl):
     Cc = (wx_ * wx_ + wy_ * wy_ + wz_ * wz_) - s_w * s_w * one_k2 \
         - 2.0 * c.r1 * kslope * s_w - c.r1 * c.r1
     discc = Bc * Bc - 4.0 * Ac * Cc
-    sqc = torch.sqrt(torch.clamp(discc, min=0.0))
+    sqc = sqrt32(torch.clamp(discc, min=0.0))
     Ac_s = torch.where(torch.abs(Ac) < _EPS, _EPS, Ac)
     tc1 = (-Bc - sqc) / (2.0 * Ac_s)
     tc2 = (-Bc + sqc) / (2.0 * Ac_s)
@@ -153,7 +156,7 @@ def _isect_tapered(c, OX, OY, OZ, DX, DY, DZ, a, want_caps, want_rcyl):
         gx = px_ - coef * ux_
         gy = py_ - coef * uy_
         gz = pz_ - coef * uz_
-        gl = torch.clamp(torch.sqrt(gx * gx + gy * gy + gz * gz), min=_EPS)
+        gl = torch.clamp(sqrt32(gx * gx + gy * gy + gz * gz), min=_EPS)
         return gx / gl, gy / gl, gz / gl
 
     out = {}
@@ -199,7 +202,7 @@ def _isect_tapered(c, OX, OY, OZ, DX, DY, DZ, a, want_caps, want_rcyl):
             bb = 2.0 * (lx * DX + ly * DY + lz * DZ)
             cc2 = lx * lx + ly * ly + lz * lz - rr * rr
             dd = bb * bb - 4.0 * a * cc2
-            sq = torch.sqrt(torch.clamp(dd, min=0.0))
+            sq = sqrt32(torch.clamp(dd, min=0.0))
             tt = ((-bb + sq) if far else (-bb - sq)) / (2.0 * a)
             return torch.where((dd > 0.0) & (tt > _EPS), tt, -_BIG if far else _BIG)
 
@@ -220,7 +223,7 @@ def _isect_tapered(c, OX, OY, OZ, DX, DY, DZ, a, want_caps, want_rcyl):
             sx_ = OX + tbest * DX - exc
             sy_ = OY + tbest * DY - eyc
             sz_ = OZ + tbest * DZ - ezc
-            sl_ = torch.clamp(torch.sqrt(sx_ * sx_ + sy_ * sy_ + sz_ * sz_), min=_EPS)
+            sl_ = torch.clamp(sqrt32(sx_ * sx_ + sy_ * sy_ + sz_ * sz_), min=_EPS)
             return (torch.where(on_side, gx, sx_ / sl_),
                     torch.where(on_side, gy, sy_ / sl_),
                     torch.where(on_side, gz, sz_ / sl_))
@@ -247,7 +250,7 @@ def _isect_torus(c, OX, OY, OZ, DX, DY, DZ, a):
     b = 2.0 * (LX * DX + LY * DY + LZ * DZ)
     cc = LX * LX + LY * LY + LZ * LZ - rs * rs
     disc = b * b - 4.0 * a * cc
-    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    sq = sqrt32(torch.clamp(disc, min=0.0))
     t_s = (-b - sq) / (2.0 * a)
     au, av, aw = c.p2[:, 0], c.p2[:, 1], c.p2[:, 2]
 
@@ -288,7 +291,7 @@ def _isect_torus(c, OX, OY, OZ, DX, DY, DZ, a):
         gx = 4.0 * K * qx_ - 8.0 * c.r1 * c.r1 * (qx_ - qu * au)
         gy = 4.0 * K * qy_ - 8.0 * c.r1 * c.r1 * (qy_ - qu * av)
         gz = 4.0 * K * qz_ - 8.0 * c.r1 * c.r1 * (qz_ - qu * aw)
-        gl = torch.clamp(torch.sqrt(gx * gx + gy * gy + gz * gz), min=_EPS)
+        gl = torch.clamp(sqrt32(gx * gx + gy * gy + gz * gz), min=_EPS)
         return gx / gl, gy / gl, gz / gl
 
     # torus exit: the bounding-sphere far root as a chord upper bound
@@ -307,7 +310,7 @@ def _isect_vcyl(c, OX, OY, OZ, DX, DY, DZ, iz):
     b2 = 2.0 * (LXc * DX + LYc * DY)
     c2 = LXc * LXc + LYc * LYc - rc * rc
     disc2 = b2 * b2 - 4.0 * a2 * c2
-    sq2 = torch.sqrt(torch.clamp(disc2, min=0.0))
+    sq2 = sqrt32(torch.clamp(disc2, min=0.0))
     den = torch.clamp(2.0 * a2, min=_EPS)
     t_side = (-b2 - sq2) / den
     z_at = OZ + t_side * DZ
@@ -329,7 +332,7 @@ def _isect_vcyl(c, OX, OY, OZ, DX, DY, DZ, iz):
     from_side = cyl_hit & (t_cyl == side_t)
     hxc = OX + t_cyl * DX - c.p1[:, 0]
     hyc = OY + t_cyl * DY - c.p1[:, 1]
-    hlc = torch.clamp(torch.sqrt(hxc * hxc + hyc * hyc), min=_EPS)
+    hlc = torch.clamp(sqrt32(hxc * hxc + hyc * hyc), min=_EPS)
     ncyx = torch.where(from_side, hxc / hlc, 0.0)
     ncyy = torch.where(from_side, hyc / hlc, 0.0)
     ncyz = torch.where(from_side, 0.0, -torch.sign(DZ))
@@ -490,8 +493,8 @@ def ray_heightfield(ox, oy, oz, dx, dy, dz, tmax, mesh, world: WorldConst,
     t0m = torch.clamp(torch.maximum(t0x, t0y), min=0.0)
     t1m = torch.minimum(torch.minimum(t1x, t1y), tmax)
     span = torch.clamp(t1m - t0m, min=0.0)
-    ts = (torch.arange(1, num_steps + 1, dtype=torch.float32, device=ox.device)
-          / num_steps)
+    ts = div32(torch.arange(1, num_steps + 1, dtype=torch.float32, device=ox.device),
+               num_steps)
     t_grid = t0m[:, None] + ts[None, :] * span[:, None]                # [N,S]
     z = oz[:, None] + t_grid * dz[:, None]
     h = SK.sample_mesh(mesh, (ox[:, None] + t_grid * dx[:, None]).reshape(-1),
@@ -513,11 +516,11 @@ def cosine_hemisphere_dirs(u, v, nx, ny, nz):
     angle = 2 pi v), which the JAX package draws from a threefry key."""
     z = 2.0 * u - 1.0
     ang = (2.0 * math.pi) * v
-    r = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
-    vx = nx + r * torch.cos(ang)
-    vy = ny + r * torch.sin(ang)
+    r = sqrt32(torch.clamp(1.0 - z * z, min=0.0))
+    vx = nx + r * cos32(ang)
+    vy = ny + r * sin32(ang)
     vz = nz + z
-    vl = torch.sqrt(vx * vx + vy * vy + vz * vz) + _EPS
+    vl = sqrt32(vx * vx + vy * vy + vz * vz) + _EPS
     return vx / vl, vy / vl, vz / vl
 
 
@@ -570,7 +573,7 @@ def ray_heightfield_dda(ox, oy, oz, dx, dy, dz, tmax, mesh,
         c2 = -a_h * gdx * gdy
         smax = torch.clamp(t_exit - t, min=0.0)
         disc = c1 * c1 - 4.0 * c2 * c0
-        sq = torch.sqrt(torch.clamp(disc, min=0.0))
+        sq = sqrt32(torch.clamp(disc, min=0.0))
         is_quad = torch.abs(c2) > 1e-12
         s_lin = torch.where(torch.abs(c1) > 1e-12, -c0 / safe(c1), math.inf)
         q = -0.5 * (c1 + torch.sign(c1) * sq)

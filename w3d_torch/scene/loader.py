@@ -51,12 +51,44 @@ class GroundScene:
     parse: SC.SceneParse = None
     platforms: PP.PlatformSet = None
     triggers: PP.TriggerSet = None
-    voxel: object = None        # always None: voxel landscapes are not ported
+    voxel: object = None        # VoxelGrid for voxel-landscape scenes
     smoke_active: bool = False  # host flag: smoke exists in light_grid
     trees: object = None        # (x, y, z, trunk_r, height) numpy arrays
     scenery: object = None      # veg.scenery.ScenerySet
     # (smoke_active is set by the code that injects smoke; it gates
     # per-frame diffusion without a device probe)
+
+
+def voxel_params_from_config(cfg):
+    """`voxel <param> <val>` sub-config rows -> VoxelParams
+    (voxel_params_t keyword block, 3DWorld.cpp voxel kwm)."""
+    from ..voxel import grid as VG
+    v = cfg.voxel
+
+    def num(k, d):
+        try:
+            return float(v[k])
+        except (KeyError, ValueError):
+            return d
+
+    return VG.VoxelParams(
+        xsize=int(num("xsize", 64)), ysize=int(num("ysize", 64)),
+        zsize=int(num("zsize", 32)),
+        num_blocks=int(num("num_blocks", 12)),
+        isolevel=num("isolevel", 0.0),
+        elasticity=num("elasticity", 0.5),
+        mag=num("mag", 1.0), freq=num("freq", 1.0),
+        atten_thresh=num("atten_thresh", 1.0),
+        z_gradient=num("z_gradient", 0.0),
+        radius_val=num("radius_val", 0.5),
+        invert=bool(int(num("invert", 0))),
+        normalize_to_1=bool(int(num("normalize_to_1", 1))),
+        make_closed_surface=bool(int(num("make_closed_surface", 1))),
+        remove_unconnected=int(num("remove_unconnected", 1)),
+        atten_at_edges=int(num("atten_at_edges", 0)),
+        atten_top_mode=int(num("atten_top_mode", 0)),
+        geom_rseed=int(num("geom_rseed", 123)),
+    )
 
 
 def erosion_angles(erosion_iters: int,
@@ -86,10 +118,6 @@ def load_scene(config_path: str, num_objects: int = 0, search_dirs: tuple = (),
     """Load a config_*.txt scene end to end onto `device`.  An eroded
     terrain erodes with `erosion_angles`' draws."""
     cfg = load_config(config_path)
-    if cfg.create_voxel_landscape and cfg.voxel:
-        raise NotImplementedError(
-            "create_voxel_landscape: voxel landscapes are not ported "
-            "(ROADMAP Queue 1, item 9)")
     world = cfg.world_const()
     tcfg = cfg.terrain_config()
     if cfg.rand_seed and tcfg.mesh_seed == 0:
@@ -117,6 +145,22 @@ def load_scene(config_path: str, num_objects: int = 0, search_dirs: tuple = (),
                 break
     if terrain is None:
         terrain = TM.gen_terrain(tcfg, world, angles=angles, device=device)
+
+    # voxel landscape (create_voxel_landscape, 3DWorld.cpp:2178 +
+    # gen_voxel_landscape): the procedural voxel terrain generates from the
+    # scene's `voxel` sub-config and its top surface fuses into the physics
+    # heightfield before trees and scenery are placed on it (the reference
+    # adds voxel cobjs; the ball/mesh interaction collides with the
+    # column-top surface, and VoxelCollider serves triangle queries)
+    voxel = None
+    if cfg.create_voxel_landscape and cfg.voxel:
+        from ..voxel import grid as VG
+        vp = voxel_params_from_config(cfg)
+        voxel = VG.make_voxel_grid(vp, world, device=device)
+        vsurf = VG.top_surface(voxel, vp.isolevel, out_shape=terrain.mesh_height.shape)
+        mh = terrain.mesh_height
+        terrain = terrain._replace(mesh_height=torch.maximum(
+            mh, torch.where(torch.isfinite(vsurf), vsurf, mh)))
 
     # the host's one copy of the finished mesh and water plane
     hm_np = terrain.mesh_height.cpu().numpy()
@@ -232,5 +276,5 @@ def load_scene(config_path: str, num_objects: int = 0, search_dirs: tuple = (),
         sphere_mats=sphere_mats,
         mat_first=mat_first,
         parse=parse, platforms=platforms, triggers=triggers,
-        trees=trees, scenery=scenery,
+        voxel=voxel, trees=trees, scenery=scenery,
     )

@@ -28,7 +28,7 @@ import torch
 from ..ops import noise as NZ
 from ..ops.cuda import pairs_kernel as PK
 from ..physics.step import morton_key
-from .ships import sqrt32
+from ..ops.fmath import sqrt32
 
 AST_VEL_SCALE = 0.002
 AST_ROT_MAX = 0.02

@@ -48,8 +48,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..ops.fmath import sqrt32
 from .ships import FleetState, AI_IGNORE, AI_NONE, AI_ATT_WAIT, AI_RETREAT, \
-    AI_ATT_ENEMY, gram_d2, nearest_enemy, sqrt32, fleet_to, _filled
+    AI_ATT_ENEMY, gram_d2, nearest_enemy, fleet_to, _filled
 
 # ---------------------------------------------------------------------------
 # weapon-table columns (values from us_weapon after ship_config's unit

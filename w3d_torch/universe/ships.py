@@ -30,6 +30,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..ops.fmath import sqrt32
+
 # ship class subset (us_class: accel, max_speed, turn_r, armor, shields,
 # weapon range/damage/cooldown) — config-overridable like ship_def_file
 SHIP_CLASSES = np.array([
@@ -99,14 +101,6 @@ class FleetState(NamedTuple):
     dy: torch.Tensor = None
     dz: torch.Tensor = None
     state_val: torch.Tensor = None
-
-
-def sqrt32(x: torch.Tensor) -> torch.Tensor:
-    """float32 square root, correctly rounded on every device, as the JAX
-    package's is: CUDA's sqrtf is, PyTorch's vectorized CPU sqrt is not
-    (about 6 in 1,000 results round the other way), so on the CPU it goes
-    through float64 and rounds back once."""
-    return torch.sqrt(x) if x.device.type != "cpu" else torch.sqrt(x.double()).to(x.dtype)
 
 
 _TABLES: dict = {}

@@ -391,6 +391,44 @@ def write_ground_scene(dirname: str, name: str, platforms: bool = True,
                  f"load_coll_objs 1\ncoll_obj_file scene_{name}.txt\n")
 
 
+def write_voxel_scene(dirname: str, small: bool = False, objects: int = 2000) -> str:
+    """Write a voxel-landscape config into `dirname` and return its path:
+    the shipped `config_voxels.txt` sizes (a 512x512x64 voxel grid, its
+    other `voxel` keys at `voxel_params_from_config`'s defaults) over the
+    default 128^2 x 32 sine mesh; or, `small`, a 32x32x16 grid over a 32^2
+    fBm mesh with the isolevel (0.13), z gradient and edge attenuation of
+    tests/test_torch_scene_loader.py, where no cell lies within 1e-4 of
+    the isolevel, so the solid mask is the same on every device."""
+    if small:
+        text = ("mesh_size 32 32 8\nmesh_gen_mode 2\nwater_h_off 0.053 0\n"
+                "voxel xsize 32\nvoxel ysize 32\nvoxel zsize 16\nvoxel isolevel 0.13\n"
+                "voxel z_gradient 1.5\nvoxel atten_at_edges 2\n")
+    else:
+        text = "mesh_size 128 128 32\nvoxel xsize 512\nvoxel ysize 512\nvoxel zsize 64\n"
+    path = os.path.join(dirname, "config_voxels_small.txt" if small else "config_voxels.txt")
+    with open(path, "w") as f:
+        f.write(text + f"create_voxel_landscape 1\nrand_seed 1\nmesh_seed 1\n"
+                f"num_dodgeballs {objects}\n")
+    return path
+
+
+def lighting_bench_scene(SC=None):
+    """The scene of scripts/lighting_bench.py, built with `SC`'s classes
+    (default: the port's): a floor cube and 60 spheres of radius 0.1-0.4,
+    one material."""
+    if SC is None:
+        from ..scene import cobj as SC
+    sp = SC.SceneParse()
+    lay = SC.CobjLayer(elasticity=0.5, color=(0.7, 0.6, 0.5, 1.0))
+    sp.cobjs.append(SC.RawCobj(SC.COLL_CUBE, (-4, -4, -0.8), (4, 4, -0.55), layer=lay))
+    rng = np.random.default_rng(3)
+    for _ in range(60):
+        p = rng.uniform(-2.5, 2.5, 3) * [1, 1, 0.3]
+        sp.cobjs.append(SC.RawCobj(SC.COLL_SPHERE, tuple(p),
+                                   r1=float(rng.uniform(0.1, 0.4)), layer=lay))
+    return sp
+
+
 # The synthetic ship-defs file of the universe tests and chip_smoke.py's
 # phase 3h, in the reference's units (ship_config.cpp converts them):
 # class rows (reference field order, ship_config.SHIP_FIELDS), weapon rows

@@ -23,7 +23,11 @@ frames, the reroute, as the bench times it) with the fauna's 32 frames,
 and its parts, the chained city frames alone and the fauna alone; and
 universe mode on the fleets of `kernel_probe.write_ship_defs` (156 ships
 in 195 slots, a projectile pool of 1,024): one chunk of 32 frames of
-`UniverseWorld.step_chunk` through the full weapon model.
+`UniverseWorld.step_chunk` through the full weapon model; a voxel-scene
+frame (`ground_frame` on `kernel_probe.write_voxel_scene`'s 512x512x64
+landscape, 2,000 balls); and one lighting batch (`trace_batch`: 65,536
+sky rays with the default `TraceParams` on scripts/lighting_bench.py's
+scene, the default light grid).
 For each it prints the host wall time per call, the device-busy time per call (the
 union of the CUDA kernel intervals in the trace) and its share of the
 wall, the kernels launched per call, and the kernels that take the most
@@ -118,6 +122,8 @@ def main() -> None:
     trace_tiled(dev, tables)
     with tempfile.TemporaryDirectory() as tmp:
         trace_universe(dev, tables, tmp)
+        trace_voxel_frame(dev, tables, tmp)
+    trace_lighting_batch(dev, tables)
     if args.table:
         with open(args.table, "w") as f:
             f.write("\n\n".join(tables) + "\n")
@@ -216,10 +222,6 @@ def trace_frames(dev, world, gen, tables: list) -> None:
               f"{box[0].cobjs.size} slots, two platforms)", frame, 4, tables)
 
 
-if __name__ == "__main__":
-    main()
-
-
 def tiled_world(dev, seed: int = 1, chunk: int = 32):
     """The world of `bench.py`'s `bench_live_tiled` (and of `app.run_tiled`):
     64^2 tiles, one 128^2 city with 64 cars and 128 pedestrians, a
@@ -300,3 +302,42 @@ def trace_universe(dev, tables: list, dirname: str, chunk: int = 32) -> dict:
         pos[0] += 0.5 * chunk
     return trace(f"universe chunk of {chunk} frames (156 ships, full weapon model)",
                  step, 2, tables)
+
+
+def trace_voxel_frame(dev, tables: list, dirname: str) -> dict:
+    """`ground_frame` on the voxel landscape of
+    `kernel_probe.write_voxel_scene` (512x512x64, 2,000 balls); returns its
+    {"wall_ms", "busy_ms", "kernels"} (per frame)."""
+    from .kernel_probe import write_voxel_scene
+    box = [SL.load_scene(write_voxel_scene(dirname), device=dev)]
+
+    def frame():
+        box[0] = WM.ground_frame(box[0])
+    return trace("voxel-scene ground_frame (512x512x64 landscape, 2,000 balls)",
+                 frame, 4, tables)
+
+
+def trace_lighting_batch(dev, tables: list, params=None, n: int = 65536) -> dict:
+    """One `trace_batch` of `n` sky rays (default `TraceParams`, the
+    drivers' scene gates) on scripts/lighting_bench.py's scene over the
+    default light grid; returns its {"wall_ms", "busy_ms", "kernels"}."""
+    from ..lighting import lmap as LM, trace as LT
+    from .kernel_probe import lighting_bench_scene
+    world = WorldConst()
+    cobjs = SC.pack_cobjs(lighting_bench_scene(), device=dev)
+    mesh = torch.full((world.mesh_y, world.mesh_x), -0.6, dtype=torch.float32, device=dev)
+    grid = LM.make_light_grid(world, device=dev)
+    params = LT._auto_gates(params or LT.TraceParams(), cobjs)
+    src = LT.DrawSource(dev)
+    rays = LT.sky_rays(src(0, LT.SKY_STREAM, 0, 1), n, world, ray_weight=float(n))
+    draws = [0]
+
+    def batch():
+        draws[0] += 1
+        LT.trace_batch(grid, cobjs, mesh, *rays, src(draws[0]), params=params, world=world)
+    return trace(f"lighting trace_batch, {n} sky rays, {params.max_bounces} bounces, "
+                 f"{cobjs.size} slots", batch, 2, tables)
+
+
+if __name__ == "__main__":
+    main()
