@@ -143,8 +143,43 @@ Phases, each fatal on failure (no phase hides an error):
       3-floor interior, 8 slices of 8,192 rays; and a 32x32x16 grid on the
       card against the CPU on the same draws, the default and production
       parameters within rtol 3e-5, atol 1e-6, and the sky sweep 1e-5.
-   Prints time to first result, tiles/s and frames/s, and fails if a
-   kernel was never launched or a value is not finite.  D's launches in
+   k. the full-world build (`w3d_torch.full_world`, the port's counterpart
+      of the JAX package's examples/full_world.py) at the example's sizes:
+      `main` end to end (a 128^2 world eroded by 20,000 droplets through A,
+      `num_cities` 2 of size 20 with interiors, walkers and a basement
+      tunnel network, 32 cars over 30 steps, `trains` 2, 4 helicopters, a
+      16-frame chained city frame with instanced models, trees, 2,000 balls
+      over 5 frames of 4 substeps through B, C and D, a 512-ray bake
+      through B, an 8-direction sweep at nz 16, a named star system, both
+      PNGs read back): each section's time and launches and the stats line.
+      The eroded map of the default draws holds one city site, so one
+      city, no connector road and no trains are built; the city and
+      traffic sections then run again on the uneroded map, where both
+      cities, a connector route, the rail and both trains are built, card
+      vs CPU.  A against its plain walk at the terrain's shape (20 batches
+      of 1,024 droplets x 256 steps, bitwise); the uneroded terrain card vs
+      CPU (bitwise); and `main` again on the CPU on the same draws, held
+      against the card's own build: the stats, terrain, city, tunnels,
+      first building, trees, star system and map image equal; walkers,
+      traffic and the city frame 1e-5; physics 1e-5 with status equal; the
+      bake per cell within rtol 3e-5, atol 1e-6, the sweep per cell 1e-5,
+      sky energy and mean visibility within rtol 3e-5.
+   l. a building session at the tiled app's city size (`build_city` on a
+      128^2 flat map, one city, with interiors): tunnels and manholes and
+      the walk-area clamp; street objects, perches on them and 32 chained
+      city frames with 16 birds; a `BuildingPeopleSim` of 48 people for 64
+      steps with its elevator calls; clocks; a furnished mall and a
+      backrooms basement walked; a flooded basement; light switches feeding
+      `BuildingIndirManager` (B in its bakes); pickups, a throw and 64
+      ticks of zombie mode; spiders, snakes, flies and tank fish for 64
+      ticks; model instances from config rows written to a temporary
+      directory; grass and flowers on every resident tile of a phase-3g
+      tile manager (64^2 tiles, 4 blades a cell) over tile (12, 8).  Each
+      part timed and held on the card against the CPU (host results equal,
+      floats 1e-5).
+   Prints time to first result, tiles/s and frames/s, each phase's seconds
+   and the script's total, and fails if a kernel was never launched or a
+   value is not finite.  D's launches in
    the kernels line include 3h's, and its entry carries a `universe` row
    (8,192 asteroids, window 32: device-only and plain ms, bound).
 4. Each kernel against its plain PyTorch version on the card, at its
@@ -1641,6 +1676,533 @@ def run_lighting_phase(dev, kernels: dict, reset_counts, read_counts) -> dict:
     return out
 
 
+# ---- 3k / 3l: the full-world build and a building session ---------------
+
+def _same_dataclasses(a, b) -> bool:
+    import dataclasses
+    return [dataclasses.asdict(x) for x in a] == [dataclasses.asdict(x) for x in b]
+
+
+def _max_diff(a, b) -> float:
+    """Largest float difference over two NamedTuple trees of tensors (None
+    fields skipped); inf if an integer or bool field differs, or if the
+    trees differ in shape (a field None on one side only)."""
+    from w3d_torch import convert
+    xs, ys = _leaves(convert.to_numpy(a)), _leaves(convert.to_numpy(b))
+    if len(xs) != len(ys) or any(x.shape != y.shape for x, y in zip(xs, ys)):
+        return float("inf")
+    worst = 0.0
+    for x, y in zip(xs, ys):
+        if x.dtype.kind == "f":
+            worst = max(worst, float(np.abs(x - y).max()) if x.size else 0.0)
+        elif not np.array_equal(x, y):
+            return float("inf")
+    return worst
+
+
+def run_full_world_phase(tmp: str, dev, kernels: dict, reset_counts, read_counts) -> dict:
+    """Phase 3k: `w3d_torch.full_world` at the JAX example's sizes on the
+    card: `main` end to end (each section's time and launches: A in the
+    terrain; B, C and D in the physics; B in the bake; the stats line,
+    both PNGs read back); A against its plain walk at the terrain's own
+    shape, bitwise; the uneroded terrain card vs CPU, bitwise, and the
+    city and traffic sections on it (both cities, a connector route, the
+    rail and the trains) card vs CPU; then `main` on the CPU on the
+    same draws, held against the card's build: the terrain, city, tunnels,
+    first building, trees, star system and map image equal; walkers,
+    traffic and the city frame within 1e-5; the physics state within 1e-5
+    with status equal; the bake per cell within rtol 3e-5, atol 1e-6; the
+    sweep per cell within 1e-5, sky energy and mean visibility within
+    rtol 3e-5."""
+    from w3d_torch import convert, full_world as FW
+    from w3d_torch.export import heightmap_io as HIO
+    from w3d_torch.ops import erosion as E
+    from w3d_torch.ops.cuda import erosion_kernel as EK
+    from w3d_torch.utils.constants import WorldConst
+
+    sizes = FW.WorldSizes()
+    out = {"launches": {n: 0 for n in kernels}}
+    draws = FW.WorldDraws()
+    world = WorldConst(mesh_x=sizes.mesh, mesh_y=sizes.mesh)
+    cpu = torch.device("cpu")
+
+    by_section = {}
+
+    def after_section(name):         # the launches of each section of main
+        by_section[name] = {n: k.launches for n, k in kernels.items() if k.launches}
+        reset_counts()
+
+    fw_dir = os.path.join(tmp, "full_world")
+    reset_counts()
+    t0 = time.perf_counter()
+    stats, fw = FW.main(fw_dir, sizes=sizes, draws=draws, device=dev,
+                        after_section=after_section)           # prints the stats line
+    wall = time.perf_counter() - t0
+    log(f"full-world launches by section of main: {by_section}")
+    for name, need_k in (("terrain", ("erosion",)), ("physics", ("sample", "narrow", "pairs")),
+                         ("lighting", ("sample",))):
+        missing = [n for n in need_k if not by_section[name].get(n)]
+        need(not missing, f"full world: kernels {missing} launched in main's {name} section")
+    for c in by_section.values():
+        for n, v in c.items():
+            out["launches"][n] += v
+    keys = {"terrain", "first_building", "city", "traffic", "city_frame", "vegetation",
+            "physics", "lighting", "sweep_lighting", "universe", "artifacts", "seconds"}
+    need(keys <= set(stats), f"full world: the example's keys {sorted(keys - set(stats))}")
+    need(stats["physics"]["live"] > 0 and stats["lighting"]["sky_energy"] > 0
+         and stats["vegetation"]["trees"] > 0 and stats["city"]["buildings"] >= 1,
+         "full world: live balls, a lit bake, trees, buildings")
+    sizes_png = {n: os.path.getsize(os.path.join(fw_dir, n)) for n in stats["artifacts"]}
+    png_h = HIO.read_png_gray(os.path.join(fw_dir, "world_height.png"))
+    png_map = HIO.read_image_rgb(os.path.join(fw_dir, "world_map.png"))
+    need(np.array_equal(png_h, HIO.heights_to_pixels(fw.city.hm.cpu().numpy()))
+         and np.array_equal(png_map, fw.map_rgb)
+         and fw.map_rgb.shape == (sizes.mesh, sizes.mesh, 3),
+         "full world: both PNGs read back equal to the heightmap's pixels and the map")
+    secs = stats["section_seconds"]
+    log(f"full world on the card: {wall:.2f} s wall, sections (s): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in secs.items()) + f"; PNG bytes {sizes_png}, "
+        f"height pixels {int(png_h.min())}..{int(png_h.max())}; city plots "
+        f"{stats['city']['plots']} of {sizes.num_cities}, trains {stats['traffic']['trains']}")
+    out.update(full_world_s=wall, full_world_section_s=secs)
+
+    # A against its plain walk at the terrain's shape, on the card
+    walk = EK.erosion_walk
+    EK.erosion_walk = E._walk_batch
+    try:
+        ts_plain, _ = FW.terrain_section(sizes, draws, world, dev)
+    finally:
+        EK.erosion_walk = walk
+    same_walk = all(torch.equal(a, b) for a, b in zip(fw.terrain, ts_plain))
+    # the uneroded terrain, card vs CPU
+    flat = sizes._replace(erosion_iters=0)
+    flat_g, _ = FW.terrain_section(flat, draws, world, dev)
+    flat_c, _ = FW.terrain_section(flat, draws, world, cpu)
+    flat_cells = int((flat_g.mesh_height.cpu() != flat_c.mesh_height).sum())
+    same_flat = flat_cells == 0 and all(torch.equal(a.cpu(), b) for a, b in zip(flat_g, flat_c))
+    shape = (f"{-(-sizes.erosion_iters // FW.EROSION_BATCH)} batches of "
+             f"{FW.EROSION_BATCH} x {FW.EROSION_STEPS} steps on {sizes.mesh}^2")
+    log(f"full-world terrain: A vs plain walk on the card, {shape}, bitwise {same_walk}; "
+        f"uneroded card vs CPU bitwise {same_flat} ({flat_cells} of "
+        f"{flat_c.mesh_height.numel()} cells differ)")
+    need(same_walk, f"full world: A equals its plain walk bitwise, {shape}")
+    need(same_flat, "full world: the uneroded terrain equal on the card and the CPU")
+    # the city and its traffic on the uneroded map, where both cities fit
+    # (the eroded one of these draws holds one): the connector road, the
+    # rail and the trains on the card, against the CPU
+    cb2, cs2 = FW.city_section(flat_g.mesh_height, flat_g.water_plane_z, sizes, world, dev)
+    tr2, trs2 = FW.traffic_section(cb2, sizes, draws, dev)
+    cb2c, cs2c = FW.city_section(flat_c.mesh_height, flat_c.water_plane_z, sizes, world, cpu)
+    tr2c, trs2c = FW.traffic_section(cb2c, sizes, draws, cpu)
+    same2 = (cs2 == cs2c and trs2 == trs2c
+             and [tuple(p) for p in cb2.plots] == [tuple(p) for p in cb2c.plots]
+             and cb2.net.segs == cb2c.net.segs and cb2.routes == cb2c.routes
+             and torch.equal(cb2.hm.cpu(), cb2c.hm)
+             and _same_dataclasses(cb2.buildings, cb2c.buildings))
+    d2 = max(_max_diff(getattr(tr2, f), getattr(tr2c, f))
+             for f in ("cars", "trains", "rail", "helis"))
+    log(f"full-world city on the uneroded map: {cs2['city']}, traffic {trs2}, "
+        f"{len(cb2.routes)} connector routes; card vs CPU host results equal {same2}, "
+        f"cars, rail, trains and helicopters max diff {d2:.3g}")
+    need(cs2["city"]["plots"] == sizes.num_cities and trs2["trains"] == sizes.trains > 0
+         and len(cb2.routes) > 0,
+         f"full world, uneroded map: {sizes.num_cities} cities, a connector route and "
+         f"{sizes.trains} trains")
+    need(same2 and d2 <= 1e-5,
+         "full world, uneroded map, card vs CPU: city equal, traffic 1e-5")
+
+    # main on the CPU, on the same draws, against the card's build
+    t0 = time.perf_counter()
+    stats_c, fc = FW.main(os.path.join(tmp, "full_world_cpu"), sizes=sizes, draws=draws,
+                          device=cpu)
+    cpu_s = time.perf_counter() - t0
+    timing = ("seconds", "section_seconds")
+    same_stats = ({k: v for k, v in stats.items() if k not in timing}
+                  == {k: v for k, v in stats_c.items() if k not in timing})
+    ter_cells = int((fw.terrain.mesh_height.cpu() != fc.terrain.mesh_height).sum())
+    same_ter = ter_cells == 0 and all(torch.equal(a.cpu(), b)
+                                      for a, b in zip(fw.terrain, fc.terrain))
+    cb, cbc = fw.city, fc.city
+    same_city = ([tuple(p) for p in cb.plots] == [tuple(p) for p in cbc.plots]
+                 and cb.net.segs == cbc.net.segs and cb.routes == cbc.routes
+                 and cb.bridges == cbc.bridges and cb.tunnels == cbc.tunnels
+                 and torch.equal(cb.hm.cpu(), cbc.hm)
+                 and _same_dataclasses(cb.buildings, cbc.buildings)
+                 and _same_dataclasses(cb.bsegs, cbc.bsegs))
+    same_trees = all(torch.equal(a.cpu(), b) for a, b in zip(fw.trees, fc.trees))
+    same_sky = repr(fw.system) == repr(fc.system)
+    same_map = bool(np.array_equal(fw.map_rgb, fc.map_rgb))
+    walk_d = _max_diff(cb.people, cbc.people)
+    tr, trc = fw.traffic, fc.traffic
+    traffic = max(_max_diff(tr.cars, trc.cars), _max_diff(tr.trains, trc.trains),
+                  _max_diff(tr.helis, trc.helis), _max_diff(fw.city_state, fc.city_state))
+    inst_d = (max((float(np.abs(a.transforms - b.transforms).max())
+                   for a, b in zip(fw.instances, fc.instances)), default=0.0)
+              if [(a.kind, a.transforms.shape) for a in fw.instances]
+              == [(b.kind, b.transforms.shape) for b in fc.instances] else float("inf"))
+    st, stc = convert.to_numpy(fw.spheres.state), convert.to_numpy(fc.spheres.state)
+    phys = max(float(np.abs(getattr(st, f) - getattr(stc, f)).max())
+               for f in ("px", "py", "pz", "vx", "vy", "vz"))
+    same_status = bool(np.array_equal(st.status, stc.status))
+    bake_out, bake_rel = 0, 0.0
+    for f in ("sc_r", "sc_g", "sc_b", "sv"):
+        g, c = getattr(fw.bake, f).cpu().numpy(), getattr(fc.bake, f).numpy()
+        bake_out += int((np.abs(g - c) > 1e-6 + 3e-5 * np.abs(c)).sum())
+        bake_rel = max(bake_rel, float((np.abs(g - c) / np.maximum(np.abs(c), 1e-30)).max()))
+    sweep_d = float((fw.sweep.sv.cpu() - fc.sweep.sv).abs().max())
+    sky_g, sky_c = float(fw.bake.sc_r.sum()), float(fc.bake.sc_r.sum())
+    vis_g, vis_c = float(fw.sweep.sv.mean()), float(fc.sweep.sv.mean())
+    sky_rel = abs(sky_g - sky_c) / max(abs(sky_c), 1e-30)
+    vis_rel = abs(vis_g - vis_c) / max(abs(vis_c), 1e-30)
+    log(f"full world on the CPU, same draws: {cpu_s:.1f} s; card vs CPU: stats equal "
+        f"{same_stats}, eroded terrain equal {same_ter} ({ter_cells} cells differ), "
+        f"city/tunnels/first building equal {same_city}, trees equal {same_trees}, star "
+        f"system equal {same_sky}, map image equal {same_map}; walkers max diff "
+        f"{walk_d:.3g}, traffic and city frame {traffic:.3g}, instances {inst_d:.3g}; "
+        f"physics max diff {phys:.3g}, status equal {same_status}; bake cells outside rtol "
+        f"3e-5, atol 1e-6: {bake_out} (max rel {bake_rel:.3g}), sweep max diff "
+        f"{sweep_d:.3g}; sky energy {sky_g!r} vs {sky_c!r} (rel {sky_rel:.3g}), sweep mean "
+        f"visibility {vis_g!r} vs {vis_c!r} (rel {vis_rel:.3g})")
+    need(same_stats and same_ter and same_city and same_trees and same_sky and same_map,
+         "full world, card vs CPU: stats, terrain, city, tunnels, first building, trees, "
+         "star system and map image equal")
+    need(max(walk_d, traffic, inst_d) <= 1e-5,
+         "full world, card vs CPU: walkers, traffic, city frame 1e-5")
+    need(phys <= 1e-5 and same_status, "full world, card vs CPU: physics 1e-5, status equal")
+    need(bake_out == 0 and sweep_d <= 1e-5,
+         "full world, card vs CPU: the bake per cell within rtol 3e-5, atol 1e-6, the "
+         "sweep per cell 1e-5")
+    need(sky_rel <= 3e-5 and vis_rel <= 3e-5,
+         "full world, card vs CPU: sky energy and sweep visibility within rtol 3e-5")
+    out.update(full_world_card_vs_cpu_physics_max_diff=phys, full_world_cpu_s=cpu_s)
+    return out
+
+
+GRASS_BLADES = 4       # blades a cell, as the tile manager's default
+GRASS_CAMERA = (100.0, 68.0)   # over tile (12, 8): the tiled app's terrain
+# (mesh seed 1) is beach sand around the origin, grass here
+
+
+def run_building_phase(tmp: str, dev, kernels: dict, reset_counts, read_counts) -> dict:
+    """Phase 3l: a building session at the tiled app's city size
+    (`build_city` on a 128^2 flat map, one city, with interiors):
+    tunnels, manholes and walk-area clamps; street objects and perches,
+    32 chained city frames with birds on them; a `BuildingPeopleSim` of
+    48 people for 64 steps; clocks; a furnished mall and a backrooms
+    basement walked; a flooded basement; light switches feeding
+    `BuildingIndirManager`; pickups and 64 ticks of zombie mode; spiders,
+    snakes, flies and tank fish for 64 ticks; model instances from config
+    rows written here; grass and flowers on every resident tile of a
+    phase-3g-size tile manager.  Each part timed, and held on the card
+    against the CPU on the same draws (host results equal, floats 1e-5)."""
+    from w3d_torch.city import assemble as CA, buildings as CB, bldg_gameplay as BG, bldg_interact as BX
+    from w3d_torch.city import building_water as BW, city_step as CST, clocks as CK
+    from w3d_torch.city import floorplan as CF, mall_backrooms as MB
+    from w3d_torch.city import model_instances as MI, objects as CO, people as PE
+    from w3d_torch.city import room_content as RC, traffic as CT, tunnels as TN
+    from w3d_torch.lighting import building_indir as LB, trace as LT
+    from w3d_torch.physics import step as PS, types as PT
+    from w3d_torch.scene import cobj as SC
+    from w3d_torch.terrain import mesh as TM, tiles as TL
+    from w3d_torch.utils.constants import WorldConst
+    from w3d_torch.utils.rng import RandGen
+    from w3d_torch.veg import animals as VA
+
+    cpu = torch.device("cpu")
+    out = {"launches": {n: 0 for n in kernels}}
+    times = {}
+
+    def timed(name, fn):
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t
+        return r
+
+    reset_counts()
+    # the city with interiors, tunnels and manholes
+    kw = dict(num_cities=1, num_cars=64, num_peds=128, seed=1, interiors=True)
+    cw = timed("build_city", lambda: CA.build_city(np.zeros((128, 128), np.float32),
+                                                    device=dev, **kw))
+    cwc = CA.build_city(np.zeros((128, 128), np.float32), device=cpu, **kw)
+    segs_all = [s for _, s in cw.tunnels]
+    need(len(segs_all) > 0 and len(cw.manholes) > 0, "building: tunnels and manholes grown")
+    need([(i, [vars(t) for t in s]) for i, s in cw.tunnels]
+         == [(i, [vars(t) for t in s]) for i, s in cwc.tunnels]
+         and cw.manholes == cwc.manholes and _same_dataclasses(cw.buildings, cwc.buildings),
+         "building: interiors, tunnels and manholes equal card vs CPU")
+    fh = CB.BuildingParams().floor_height
+    timed("tunnel_gen", lambda: [TN.gen_tunnels(b, cw.buildings, fh, seed=1 + bi)
+                                 for bi, b in enumerate(cw.buildings)])
+    tunnel_gen_ms = 1e3 * times["tunnel_gen"] / max(len(cw.buildings), 1)
+    segs = max(segs_all, key=len)
+    rng = np.random.default_rng(5)
+    lo = np.min([s.bcube()[:3] for s in segs], axis=0)
+    hi = np.max([s.bcube()[3:] for s in segs], axis=0)
+    pts = (lo + (hi - lo) * rng.random((4096, 3))).astype(np.float32)
+    packed = TN.pack_tunnels(segs, device=dev)
+    clamp = lambda: TN.clamp_to_walk_area(torch.as_tensor(pts, device=dev), 0.02, packed)
+    timed("clamp", clamp)
+    cl_g = timed("clamp", clamp)
+    cl_c = TN.clamp_to_walk_area(torch.as_tensor(pts), 0.02, TN.pack_tunnels(segs, device="cpu"))
+    clamp_d = float((cl_g.cpu() - cl_c).abs().max())
+    moved = int(((cl_c - torch.as_tensor(pts)).abs().amax(1) > 1e-6).sum())
+    log(f"building: build_city with interiors {times['build_city']:.3f} s, "
+        f"{len(cw.buildings)} buildings, {len(cw.tunnels)} tunnel networks "
+        f"({sum(len(s) for s in segs_all)} segments), {len(cw.manholes)} manholes; "
+        f"gen_tunnels {tunnel_gen_ms:.3f} ms a building; walk-area clamp of 4,096 points "
+        f"over {len(segs)} segments {1e3 * times['clamp']:.3f} ms ({moved} clamped), card "
+        f"vs CPU max diff {clamp_d:.3g}")
+    need(clamp_d <= 1e-6 and moved > 0, "walk-area clamp, card vs CPU: 1e-6")
+
+    # street objects, perches on them, 32 chained frames with birds
+    objs = CO.place_city_objects(cw.net, cw.buildings, seed=1)
+    perches = CT.bird_perches(objs, cw.buildings)
+    need(len(perches) > len(cw.buildings), "building: perches on street objects")
+    g = torch.Generator().manual_seed(31)
+    n_birds = 16
+    draws = CST.draw_city(32, 128, 0, 0, n_birds, len(perches), g, device="cpu")
+
+    def city_run(w, device):
+        st = CST.CityState(stoplights=w.stoplights, cars=w.cars, peds=w.peds, people=None,
+                           elev=CST.make_elevator_bank(1, device=device), helis=None,
+                           birds=CT.make_birds(n_birds, perches, seed=2, device=device))
+        d = CST.CityDraws(*(None if v is None else v.to(device) for v in draws))
+        return CST.city_frames_chained(st, w.graph, w.ped_nav, None,
+                                       torch.as_tensor(perches, device=device), 32, d)
+    cs_g = timed("city_birds", lambda: city_run(cw, dev))
+    cs_c = city_run(cwc, cpu)
+    birds_d = _max_diff(cs_g, cs_c)
+    log(f"street objects: {len(objs.x)} placed, {len(perches)} perches; 32 chained city "
+        f"frames with {n_birds} birds {1e3 * times['city_birds'] / 32:.3f} ms a frame, card "
+        f"vs CPU max diff {birds_d:.3g}")
+    need(birds_d <= 1e-5, "city frames with birds, card vs CPU: 1e-5")
+
+    # a tower's people with elevators: 48 people, 64 host-driven steps
+    part = (0.0, 0.0, 0.0, 1.2, 0.9, 0.4)
+    tower = CF.gen_interior(part, 3, 0.08, seed=7)
+    tobjs = RC.furnish_rooms(tower, 0.08, seed=7)
+    sims = [PE.BuildingPeopleSim(tower, 48, seed=5, room_objs=tobjs, device=d)
+            for d in (dev, cpu)]
+    calls = 0
+    step_ms = []
+    for _ in range(64):
+        t = time.perf_counter()
+        sims[0].step()
+        step_ms.append(1e3 * (time.perf_counter() - t))
+        sims[1].step()
+        calls += sum(len(c) for c in PE.elevator_calls(sims[0].people, len(sims[0].cars)))
+    ppl_d = _max_diff(sims[0].people, sims[1].people)
+    same_cars = [(c.z, c.state) for c in sims[0].cars] == [(c.z, c.state) for c in sims[1].cars]
+    building_people_step_ms = statistics.median(step_ms)
+    log(f"BuildingPeopleSim: 48 people, {len(sims[0].cars)} elevator cars, 64 steps, "
+        f"{building_people_step_ms:.3f} ms a step (median), {calls} elevator calls; card vs "
+        f"CPU max diff {ppl_d:.3g}, cars equal {same_cars}")
+    need(ppl_d <= 1e-5 and same_cars and calls > 0,
+         "building people, card vs CPU: 1e-5, cars equal; elevator calls made")
+
+    # clocks: every second of a day on a 7-segment display
+    secs = torch.arange(86400, dtype=torch.int32)
+    disp = timed("clocks", lambda: CK.display_state(secs.to(dev), show_seconds=True))
+    disp_c = CK.display_state(secs, show_seconds=True)
+    need(torch.equal(disp[0].cpu(), disp_c[0]) and torch.equal(disp[1].cpu(), disp_c[1]),
+         "clocks: display state equal card vs CPU")
+    log(f"clocks: 86,400 displays {1e3 * times['clocks']:.3f} ms, equal card vs CPU")
+
+    # a furnished mall and a backrooms basement, walked by people
+    mall = MB.gen_mall((0.0, 0.0, 4.0, 2.0), 2, 0.12, seed=4)
+    mobjs, names = MB.furnish_mall(mall, 0.12, seed=4)
+    back = MB.gen_backrooms((0.0, 0.0, 3.0, 2.0), 0.12, seed=3)
+    walked = []
+    for inter in (mall, back):
+        runs = []
+        for d in (dev, cpu):
+            p = PE.make_people(PE.build_nav_graph(inter), 24, seed=1, device=d)
+            for _ in range(64):
+                p = PE.step_people(p)
+            runs.append(p)
+        walked.append(_max_diff(*runs))
+    log(f"mall: {len(mall.rooms)} rooms, {len(mobjs.kinds)} objects, "
+        f"{sum(1 for n in names if n)} named stores; backrooms: {len(back.walls)} walls; "
+        f"24 people 64 steps in each, card vs CPU max diff {max(walked):.3g}")
+    need(max(walked) <= 1e-5, "mall and backrooms walkers, card vs CPU: 1e-5")
+
+    # a flooded basement
+    base = CF.gen_interior(part, 2, 0.08, seed=7, has_basement=True)
+    bw = BW.BasementWater(floor_height=0.08, basement_z1=-0.08, num_levels=1, leak_rate=0.002)
+    sm = BW.SplashManager()
+    splashes = 0
+    for _ in range(48):
+        bw.step()
+        splashes += bool(BW.check_for_water_splash(base, bw, sm, 0.3, 0.3, -0.06))
+        sm.next_frame(1.0)
+    vols = BW.room_fill_geometry(base, bw)
+    need(len(vols) > 0 and bw.is_underwater(-0.06), "flooded basement: rooms filled")
+    log(f"flooded basement: level {bw.level:.4f}, floor below water {bw.floor_below_water()}, "
+        f"{len(vols)} filled room volumes, {splashes} splashes, wade factor "
+        f"{bw.wade_factor(-0.07, 0.02):.3f}")
+
+    # light switches feeding building lighting
+    kinds = np.asarray(tobjs.kinds)
+    lw = WorldConst(mesh_x=16, mesh_y=16, mesh_z=8)
+    mgrs = []
+    for d in (dev, cpu):
+        m = LB.BuildingIndirManager(world=lw, rays_per_light=2048, device=d,
+                                    draws=LT.DrawSource(d, "cpu"))
+        mgrs.append(m)
+    lights = np.where(kinds == RC.F_CEIL_LIGHT)[0][:8]
+    for li in lights:
+        c = np.asarray(tobjs.cubes[li], np.float32)
+        pos = tuple(float(v) for v in 0.5 * (c[:3] + c[3:]))
+        for m in mgrs:
+            m.register_light(int(li), pos, (1.0, 0.9, 0.8))
+    empty = [SC.pack_cobjs(SC.SceneParse(), device=d) for d in (dev, cpu)]
+    mesh = [torch.full((16, 16), -5.0, device=d) for d in (dev, cpu)]
+
+    def bake(k):
+        while mgrs[k].process_one(empty[k], mesh[k]) is not None:
+            pass
+    timed("indir", lambda: bake(0))
+    bake(1)
+    st = BX.make_interact_state(tobjs, len(tower.rooms))
+    cent = BX._centers(tobjs)
+    changed = 0
+    for i in np.where(kinds == RC.F_LIGHT_SWITCH)[0][:6]:
+        BX.interact_at(tobjs, st, *(float(v) for v in cent[i]), reach=0.01)
+        for m in mgrs:
+            changed += BX.apply_room_lights(m, tobjs, st)
+    comp = [m.composite() for m in mgrs]
+    indir_d = float((comp[0].lc_r.cpu() - comp[1].lc_r).abs().max())
+    need(mgrs[0].enabled == mgrs[1].enabled and changed > 0 and indir_d <= 1e-5,
+         "light switches: enabled maps equal, composite 1e-5 card vs CPU")
+    log(f"light switches: {len(lights)} room lights baked ({1e3 * times['indir']:.1f} ms on "
+        f"the card), 6 switches toggled, {changed // 2} lights changed state; composite card "
+        f"vs CPU max diff {indir_d:.3g}")
+
+    # pickups, a throw and 64 ticks of zombie mode
+    def zombie_run(d):
+        inv = BG.PlayerInventory()
+        taken = sum(BG.loot_room(tobjs, r, inv) for r in sorted(set(tobjs.rooms))[:8])
+        tab = PT.make_type_table(device=d)
+        z3 = torch.zeros((8, 3), device=d)
+        ost = PS.make_state(z3, z3, torch.full((8,), PT.type_id("BALL"), dtype=torch.int32), tab)
+        ost, ok = BG.throw_object(inv, ost, tab, (0.5, 0.5, 0.15), (1, 0, 0.2), 3)
+        graph = PE.build_nav_graph(tower)
+        ppl = PE.make_people(graph, 24, seed=2, device=d)
+        rg = RandGen(3, 7)
+        ai, alert, pinv = BG.ZombieAI(), BG.SoundAlert(), BG.PlayerInventory()
+        px, py, pf = (float(v) for v in graph.centers[2])
+        hits, tick_ms = 0, []
+        for k in range(64):
+            t = time.perf_counter()
+            if k % 16 == 0:
+                alert.register(0.3, (px, py, 0.0))
+                xs, ys, fs = (v.cpu().numpy() for v in (ppl.x, ppl.y, ppl.floor))
+                cur = [int(np.argmin((graph.centers[:, 0] - x) ** 2 + (graph.centers[:, 1] - y) ** 2
+                                     + 1e6 * (graph.centers[:, 2] - round(float(f))) ** 2))
+                       for x, y, f in zip(xs, ys, fs)]
+                ppl = ai.update(ppl, graph, cur, 2, (px, py), pf, alert, 1, rg)
+            ppl = PE.step_people(ppl)
+            hits += BG.zombie_attack_tick(ppl, pinv, (px, py), pf)
+            alert.tick()
+            pinv.tick(1.0)
+            tick_ms.append(1e3 * (time.perf_counter() - t))
+            if k == 48:
+                px, py, pf = float(ppl.x[0]), float(ppl.y[0]), float(ppl.floor[0])
+        return taken, ok, ost, ppl, hits, pinv, ai.states, tick_ms
+    zg, zc = zombie_run(dev), zombie_run(cpu)
+    zombie_tick_ms = statistics.median(zg[7])
+    zd = max(_max_diff(zg[2], zc[2]), _max_diff(zg[3], zc[3]))
+    same_z = zg[0] == zc[0] and zg[4] == zc[4] and zg[6] == zc[6] and \
+        vars(zg[5]) == vars(zc[5])
+    log(f"zombie mode: {zg[0]} objects looted, throw {zg[1]}, 64 ticks of 24 zombies "
+        f"{zombie_tick_ms:.3f} ms a tick (median), {zg[4]} attacks, player health "
+        f"{zg[5].health:.3f}; card vs CPU max diff {zd:.3g}, host state equal {same_z}")
+    need(zg[1] and zd <= 1e-5 and same_z, "zombie mode, card vs CPU: 1e-5, host state equal")
+
+    # building animals, 64 ticks
+    room = (0.0, 0.0, 1.2, 0.9)
+    tank = (0.2, 0.1, 0.0, 0.7, 0.6, 0.4)
+
+    def animals(d):
+        gg = torch.Generator().manual_seed(41)
+        sp = VA.make_spiders(VA.draw_spiders(64, room, gg).to(d))
+        sn = VA.make_snakes(VA.draw_snakes(16, room, gg).to(d))
+        fl = VA.make_flies(VA.draw_animals(64, gg, spread=0.05).to(d), (0.6, 0.4, 0.3))
+        fi = VA.make_animals(VA.draw_animals(32, gg, spread=0.1).to(d), VA.A_FISH,
+                             center=(0.45, 0.35, 0.2))
+        dr = VA.draw_building_animals(64, 64, 16, 64, gg, device=d)
+        return VA.step_building_animals(sp, sn, fl, fi, dr, room, (0.6, 0.4, 0.3), tank, 64)
+    ag = timed("animals", lambda: animals(dev))
+    ad = max(_max_diff(a, b) for a, b in zip(ag, animals(cpu)))
+    log(f"building animals: 64 spiders, 16 snakes, 64 flies, 32 tank fish, 64 ticks "
+        f"{1e3 * times['animals']:.1f} ms; card vs CPU max diff {ad:.3g}")
+    need(ad <= 1e-5, "building animals, card vs CPU: 1e-5")
+
+    # model instances from config rows written here
+    mdir = os.path.join(tmp, "models")
+    os.makedirs(os.path.join(mdir, "cars"), exist_ok=True)
+    with open(os.path.join(mdir, "cars", "box.obj"), "w") as f:
+        f.write("v -1 -0.5 0\nv 1 -0.5 0\nv 1 0.5 0\nv -1 0.5 0\nv 0 0 0.8\n"
+                "f 1 2 3 4\nf 1 2 5\nf 2 3 5\nf 3 4 5\nf 4 1 5\n")
+    cfg = os.path.join(mdir, "config_city.txt")
+    with open(cfg, "w") as f:
+        f.write("city car_model cars/box.obj 1 0 0  22 -1 90  1 1.0 1.0  20 22\n"
+                "city car_model cars/missing.obj 1 0 5  3 -2 0.1 0.3 0.3 1.0  0  3 1.5 1.0\n"
+                "city ped_model people/missing.obj 1 0 1  -1 -1 0  1 1.0 1.0  0.7 1\n"
+                "city toilet_model cars/box.obj 1 0 0  -1 -1 0  1 1.0 1.0\n")
+    specs = MI.parse_city_models(cfg)
+    inst = [MI.city_instances(cars=w.cars, graph=w.graph, peds=w.peds, helis=w.helis,
+                              specs=specs, base_dir=mdir, seed=4) for w in (cw, cwc)]
+    rinst = MI.room_object_instances(tobjs, specs=specs, base_dir=mdir)
+    inst_d = max(float(np.abs(a.transforms - b.transforms).max())
+                 for a, b in zip(*inst))
+    log(f"model instances: {len(inst[0])} sets, "
+        f"{sum(s.transforms.shape[0] for s in inst[0])} instances, {len(rinst)} room "
+        f"object sets; card vs CPU max diff {inst_d:.3g}")
+    need(len(inst[0]) == len(inst[1]) and inst_d <= 1e-5, "model instances, card vs CPU: 1e-5")
+
+    # grass and flowers on every resident tile of a phase-3g-size manager
+    tm = TL.TileManager(cfg=TM.TerrainConfig(mesh_seed=1), world=WorldConst(mesh_x=64, mesh_y=64),
+                        tile_size=64, device=dev)
+    tm.update(*GRASS_CAMERA)
+    tm.flush()
+    tile_ms, blades, flowers, worst = [], 0, 0, 0.0
+    cpu_tm = TL.TileManager(cfg=TM.TerrainConfig(mesh_seed=1),
+                            world=WorldConst(mesh_x=64, mesh_y=64), tile_size=64, device="cpu")
+    for k in sorted(tm.tiles):
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        gb = tm.grass_for_tile(k, blades_per_cell=GRASS_BLADES)
+        fs = tm.flowers_for_tile(k)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        tile_ms.append(1e3 * (time.perf_counter() - t))
+        blades += int((gb.height > 0).sum())
+        flowers += int(fs.alive.sum())
+        tl = tm.tiles[k]
+        cpu_tm.tiles[k] = TL.Tile(tx=tl.tx, ty=tl.ty, zvals=tl.zvals.cpu(), ao=tl.ao.cpu(),
+                                  smask_sun=tl.smask_sun.cpu(), weights=tl.weights.cpu())
+        worst = max(worst, _max_diff(gb, cpu_tm.grass_for_tile(k, GRASS_BLADES)),
+                    _max_diff(fs, cpu_tm.flowers_for_tile(k)))
+    grass_tile_ms = statistics.median(tile_ms)
+    log(f"grass and flowers: {len(tm.tiles)} resident 64^2 tiles, {GRASS_BLADES} blades a "
+        f"cell: {grass_tile_ms:.3f} ms a tile (median), {blades} blades standing, {flowers} "
+        f"flowers; card vs CPU on the card's tiles max diff {worst:.3g}")
+    need(worst <= 1e-5 and blades > 0 and flowers > 0,
+         "grass and flowers, card vs CPU: 1e-5, masks equal; blades and flowers standing")
+    c = read_counts("building session", ())
+    for n in c:
+        out["launches"][n] += c[n]
+    out.update(tunnel_gen_ms=tunnel_gen_ms, building_people_step_ms=building_people_step_ms,
+               zombie_tick_ms=zombie_tick_ms, grass_tile_ms=grass_tile_ms)
+    return out
+
+
 def _leaves(value) -> list:
     """The numpy arrays of a NamedTuple tree, in field order (None skipped)."""
     if value is None:
@@ -1655,6 +2217,15 @@ def main() -> int:
         raise SystemExit("chip_smoke: no CUDA device; the port runs its "
                          "kernels only on the GPU")
     dev = torch.device("cuda")
+    t_script = time.perf_counter()
+    phase = {"name": None, "t": t_script}
+
+    def mark(name):
+        """Print the seconds of the phase that ends here."""
+        now = time.perf_counter()
+        if phase["name"] is not None:
+            log(f"phase {phase['name']}: {now - phase['t']:.1f} s")
+        phase.update(name=name, t=now)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -1685,6 +2256,7 @@ def main() -> int:
     from w3d_torch.water import ripples as WR
     from w3d_torch.water import smoke as WS
 
+    mark("1")
     # ---- 1. device --------------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -1693,6 +2265,7 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
 
+    mark("2")
     # ---- 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
     lib = build.build(verbose=True)
@@ -1718,6 +2291,7 @@ def main() -> int:
             raise RuntimeError(f"kernels never launched on the {path}: {missing}")
         return c
 
+    mark("3a")
     # ---- 3a. main path ----------------------------------------------------
     reset_counts()
     mcfg = TMOD.TileModelConfig(tile_size=128, erosion_iters_tt=512,
@@ -1809,6 +2383,7 @@ def main() -> int:
 
     launches = read_counts("main path", ("erosion", "sample", "narrow", "pairs"))
 
+    mark("3b")
     # ---- 3b. fused frame path ----------------------------------------------
     def fused_frame(st):
         return PS.step_objects_fused(st, sw0.env, sw0.cobjs, sw0.table,
@@ -1845,6 +2420,7 @@ def main() -> int:
         f"unfused {fps[5]:.1f} / {fps[1]:.1f} at pair_every 5 / 1), "
         f"alive {alive}, resting {int((fst.status == 4).sum())}")
 
+    mark("3c")
     # ---- 3c. tile noise and smoke stencil paths ----------------------------
     reset_counts()
     cfg = mcfg.cfg
@@ -1878,6 +2454,7 @@ def main() -> int:
     launches["tile_noise"] = ec["tile_noise"]
     launches["diffuse_smoke"] = ec["diffuse_smoke"]
 
+    mark("3d")
     # ---- 3d. ground mode: generated terrain, chained ground frames --------
     # gen_terrain in three configurations (the simplex one erodes 512
     # droplets through A and raises its water as the config keyword
@@ -2075,6 +2652,7 @@ def main() -> int:
             f"CPU: max diff {pw:.3g}, final z {float(pc.z[0]):.4f}")
         need(pw <= 1e-5, "player, card vs CPU: 1e-5")
 
+    mark("3e")
     # ---- 3e. scene loading and the ground app loop ------------------------
     # at app.py's defaults (2,000 objects, 32 frames a chained call, the
     # 128^2 x 32 mesh): scene P (a DSL scene with a continuous and a
@@ -2088,6 +2666,7 @@ def main() -> int:
     for n, c in scene3e["launches"].items():
         launches[n] += c
 
+    mark("3f")
     # ---- 3f. game mode and valley water -----------------------------------
     # FPS game mode at the app's defaults (2,000 objects, 8 smileys, 64
     # frames) on scene P eroded at load (A); a scripted rocket-against-m16
@@ -2100,6 +2679,7 @@ def main() -> int:
     for n, c in game3f["launches"].items():
         launches[n] += c
 
+    mark("3g")
     # ---- 3g. tiled mode --------------------------------------------------
     # app.run_tiled at the app's and bench_live_tiled's settings (B twice a
     # frame), bench_live_tiled's own loop, a profiled chunk, record and
@@ -2110,6 +2690,7 @@ def main() -> int:
     for n, c in tiled3g["launches"].items():
         launches[n] += c
 
+    mark("3h")
     # ---- 3h. universe mode -----------------------------------------------
     # app.run_universe without defs and on the written ship defs (the full
     # weapon model) and at 8 times their fleets, a profiled chunk and one
@@ -2120,6 +2701,7 @@ def main() -> int:
     for n, c in universe3h["launches"].items():
         launches[n] += c
 
+    mark("3i")
     # ---- 3i. voxel landscapes ---------------------------------------------
     # load_scene and app.run_ground on the 512x512x64 landscape (B and D
     # every frame), the collider, the block marching cubes, a brush edit
@@ -2128,6 +2710,7 @@ def main() -> int:
     for n, c in voxel3i["launches"].items():
         launches[n] += c
 
+    mark("3j")
     # ---- 3j. lighting ------------------------------------------------------
     # the sky bakes at scripts/lighting_bench.py's sizes (B in every
     # bounce), a profiled batch, the sweeps, scene lights, a platform delta
@@ -2136,6 +2719,27 @@ def main() -> int:
     for n, c in light3j["launches"].items():
         launches[n] += c
 
+    mark("3k")
+    # ---- 3k. the full-world build ------------------------------------------
+    # w3d_torch.full_world at the JAX example's sizes: main end to end (A,
+    # B, C, D, read per section), A against its plain walk at this shape,
+    # and main on the CPU on the same draws against the card's build
+    with tempfile.TemporaryDirectory() as tmp:
+        world3k = run_full_world_phase(tmp, dev, kernels, reset_counts, read_counts)
+    for n, c in world3k["launches"].items():
+        launches[n] += c
+
+    mark("3l")
+    # ---- 3l. a building session and tiled vegetation ----------------------
+    # the tiled app's city with interiors: tunnels, objects and birds,
+    # building people, clocks, mall and backrooms, water, light switches,
+    # zombies, building animals, model instances, grass and flowers
+    with tempfile.TemporaryDirectory() as tmp:
+        build3l = run_building_phase(tmp, dev, kernels, reset_counts, read_counts)
+    for n, c in build3l["launches"].items():
+        launches[n] += c
+
+    mark("4")
     # ---- 4. kernels vs plain versions, main-path shapes ------------------
     # Each kernel device-only (a CUDA graph of 20 launches replayed between
     # CUDA events), in turns with its plain version (CUDA events around
@@ -2463,6 +3067,7 @@ def main() -> int:
         "clamp, so it is no conv3d",
         floor=lambda: FK.diffuse_smoke_open(tiny), floor_at=f"a {SMOKE_FLOOR} grid")
 
+    mark("5")
     # ---- 5. small combined step: card vs CPU ------------------------------
     sworld = WorldConst(mesh_x=32, mesh_y=32)
     scfg = TMOD.TileModelConfig(tile_size=32, erosion_iters_tt=128,
@@ -2505,6 +3110,8 @@ def main() -> int:
     need(ok_f.mean() >= 0.99 and same_f.mean() >= 0.99,
          "small fused frame: 99% of objects within 1e-4 and same status")
 
+    mark(None)
+    log(f"chip_smoke total: {time.perf_counter() - t_script:.1f} s")
     # ---- results ----------------------------------------------------------
     srcs = {"erosion": ("erosion_walk", "w3d_torch/csrc/erosion.cu",
                         "3dworld_tpu/ops/pallas/erosion_kernel.py:226"),
@@ -2544,7 +3151,9 @@ def main() -> int:
                     **{k: v for k, v in universe3h.items()
                        if k not in ("launches", "pairs_universe")},
                     **{k: v for k, v in voxel3i.items() if k != "launches"},
-                    **{k: v for k, v in light3j.items() if k != "launches"}},
+                    **{k: v for k, v in light3j.items() if k != "launches"},
+                    **{k: v for k, v in world3k.items() if k != "launches"},
+                    **{k: v for k, v in build3l.items() if k != "launches"}},
         "card": smi}))
     log(json.dumps({"kernels": [
         {"name": srcs[n][0], "route": "cuda", "source": srcs[n][1],

@@ -273,7 +273,8 @@ def test_city_frames_chained_match(city, tower):
 
 def test_build_city_matches(city):
     """`build_city` field by field: the layout, buildings, structures and
-    every device table."""
+    every device table; with interiors, the floorplans, tunnels and
+    manholes too."""
     hm = np.zeros((96, 96), np.float32)
     jw = JCA.build_city(hm, num_cities=1, num_cars=16, num_peds=24, num_helis=2, seed=3)
     tw = TCA.build_city(hm, num_cities=1, num_cars=16, num_peds=24, num_helis=2, seed=3,
@@ -286,8 +287,18 @@ def test_build_city_matches(city):
     assert tw.skyways == jw.skyways and tw.ug_elevators == jw.ug_elevators
     for f in ("poles", "wires"):
         np.testing.assert_array_equal(getattr(tw.power, f), getattr(jw.power, f))
-    with pytest.raises(NotImplementedError):
-        TCA.build_city(hm, num_cities=1, interiors=True, device="cpu")
+    # with interiors: floorplans, tunnel networks and manholes equal too
+    jw = JCA.build_city(hm, num_cities=1, num_cars=16, num_peds=24, num_helis=2, seed=3,
+                        interiors=True)
+    tw = TCA.build_city(hm, num_cities=1, num_cars=16, num_peds=24, num_helis=2, seed=3,
+                        interiors=True, device="cpu")
+    assert [dataclasses.asdict(b) for b in tw.buildings] == \
+        [dataclasses.asdict(b) for b in jw.buildings]
+    assert [(i, [dataclasses.asdict(t) for t in s]) for i, s in tw.tunnels] == \
+        [(i, [dataclasses.asdict(t) for t in s]) for i, s in jw.tunnels]
+    assert tw.manholes == jw.manholes
+    for name in ("graph", "stoplights", "cars", "peds", "helis", "helipads"):
+        _same(getattr(tw, name), getattr(jw, name), 0.0, name)
 
 
 def test_spectate_follows_the_same_agent(city):

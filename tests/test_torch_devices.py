@@ -41,6 +41,23 @@ from w3d_torch.utils.kernel_probe import write_ship_defs
 from w3d_torch.lighting import accum as LA, building_indir as LB, dlights as LD
 from w3d_torch.lighting import trace as LT
 from w3d_torch.voxel import collide as VC, grid as VG
+from w3d_torch.city import objects as CO, people as CPE, tunnels as CTN
+from w3d_torch.veg import animals as VA, grass as VGR, trees as VT
+from w3d_torch.export import map_view as MV
+from w3d_torch import full_world as FW
+
+
+def _city_objects():
+    z = np.zeros(1, np.float32)
+    return CO.objects_to_cobjs(CO.CityObjects(z, z, np.zeros(1, np.int32), z)).r1
+
+
+def _people_sim():
+    interior = CF.gen_interior((0.0, 0.0, 0.0, 4.0, 4.0, 2.4), 3, 0.8, seed=1)
+    return CPE.BuildingPeopleSim(interior, 2).people.x
+
+
+_TINY = FW.WorldSizes(mesh=8, erosion_iters=8, balls=4)
 
 
 def _generator():
@@ -187,6 +204,21 @@ MAKERS = {
     "gen_terrain": lambda: TM.gen_terrain(
         TM.TerrainConfig(mode=N.MGEN_SIMPLEX),
         WorldConst(mesh_x=8, mesh_y=8)).mesh_height,
+    "pack_tunnels": lambda: CTN.pack_tunnels([]).get("x1"),
+    "tunnels_to_cobjs": lambda: CTN.tunnels_to_cobjs(
+        [CTN.TunnelSeg((0.0, 0.0, 0.0), (1.0, 0.0, 0.0), 0.1, 0)]).r1,
+    "objects_to_cobjs": _city_objects,
+    "BuildingPeopleSim": _people_sim,
+    "draw_trees": lambda: VT.draw_trees(2, torch.Generator()).height,
+    "draw_small_trees": lambda: VT.draw_small_trees(2, torch.Generator()).height,
+    "make_ground_fire": lambda: VGR.make_ground_fire(np.zeros((4, 4))).fuel,
+    "mandelbrot": lambda: MV.mandelbrot(0.0, 0.0, 1.0, n=4, max_iter=2),
+    "draw_building_animals": lambda: VA.draw_building_animals(
+        1, 2, 2, 2, torch.Generator()).spider_turn,
+    "full_world.terrain_section": lambda: FW.terrain_section(
+        _TINY, FW.WorldDraws(), WorldConst(mesh_x=8, mesh_y=8))[0].mesh_height,
+    "full_world.physics_section": lambda: FW.physics_section(
+        _TINY, FW.WorldDraws(), WorldConst(mesh_x=8, mesh_y=8))[0].state.px,
 }
 
 

@@ -127,7 +127,10 @@ def test_import_leaves_jax_out():
     the fauna, the event journal), of universe mode (generation, names,
     surfaces, asteroids, ship defs, fleets, combat), of lighting (volumes,
     dlights, the tracer, platform and group volumes, the sweep, building
-    lighting) and of the voxel engine loads no jax, no
+    lighting), of the voxel engine, of the rest of the city (objects,
+    tunnels, model instances, malls and backrooms, basement water,
+    interaction, building gameplay), of trees and grass, of the map view
+    and of the full-world build loads no jax, no
     module of the JAX package and nothing from its directory (its compiled
     `native/` parser included)."""
     code = ("import os, sys, w3d_torch, w3d_torch.entry, w3d_torch.convert, "
@@ -159,7 +162,12 @@ def test_import_leaves_jax_out():
             "w3d_torch.lighting.accum, w3d_torch.lighting.sweep, "
             "w3d_torch.lighting.building_indir, w3d_torch.voxel, w3d_torch.voxel.grid, "
             "w3d_torch.voxel.mc256, w3d_torch.voxel.mc, w3d_torch.voxel.ao, "
-            "w3d_torch.voxel.edit, w3d_torch.voxel.collide, w3d_torch.ops.fmath; "
+            "w3d_torch.voxel.edit, w3d_torch.voxel.collide, w3d_torch.ops.fmath, "
+            "w3d_torch.city.objects, w3d_torch.city.tunnels, "
+            "w3d_torch.city.model_instances, w3d_torch.city.mall_backrooms, "
+            "w3d_torch.city.building_water, w3d_torch.city.bldg_interact, "
+            "w3d_torch.city.bldg_gameplay, w3d_torch.veg.trees, w3d_torch.veg.grass, "
+            "w3d_torch.export.map_view, w3d_torch.full_world; "
             "jaxdir = os.path.join(os.getcwd(), '3dworld_tpu'); "
             "bad = sorted(m for m, v in sys.modules.items() if m == 'jax' "
             "or m.startswith('jax.') or m == 'w3d' or m.startswith('w3d.') "

@@ -35,7 +35,7 @@ from w3d_torch.terrain import tiles as TTL, mesh as TM, biomes as TB
 from w3d_torch.ops import ao as TAO, shadows as TSH
 from w3d_torch.utils.constants import WorldConst as TWorld
 
-from torch_port_util import jax_angle_tables
+from torch_port_util import jax_angle_tables, same_tree
 
 JW, TW = JWorld(mesh_x=64, mesh_y=64), TWorld(mesh_x=64, mesh_y=64)
 TILE = 32
@@ -159,7 +159,8 @@ def test_tile_manager_matches_jax(iters):
 def test_tile_budget_priority_and_deferred_batch():
     """Nearest-first creation under a per-call budget, the deferred batch
     adopted on the next call, `flush`, then an unbudgeted fill: the same
-    keys at every step as the JAX manager, heights within 1e-5."""
+    keys at every step as the JAX manager, heights within 1e-5; then the
+    grass and flowers of two resident tiles."""
     jm, tm = _managers(seed=7)
     for budget in (3, 3, None):
         a = jm.update(0.0, 0.0, max_tiles_per_frame=budget) if budget else None
@@ -179,5 +180,8 @@ def test_tile_budget_priority_and_deferred_batch():
     for k in tm.tiles:
         np.testing.assert_allclose(tm.tiles[k].zvals.numpy(), np.asarray(jm.tiles[k].zvals),
                                    rtol=0, atol=1e-5)
-    with pytest.raises(NotImplementedError):
-        tm.grass_for_tile((0, 0))
+    # per-tile vegetation on the managers' own tiles: blades and flowers
+    # within 1e-5 of the JAX manager's, masks equal
+    for k in ((0, 0), (1, -1)):
+        same_tree(tm.grass_for_tile(k), jm.grass_for_tile(k), 1e-5, f"grass {k}")
+        same_tree(tm.flowers_for_tile(k), jm.flowers_for_tile(k), 1e-5, f"flowers {k}")

@@ -493,3 +493,124 @@ def jax_draw_source(device="cpu"):
                                    device)
 
     return JaxDrawSource(device)
+
+
+# ---------------------------------------------------------------------------
+# vegetation and building animals: the JAX threefry draws as the port's inputs
+# ---------------------------------------------------------------------------
+
+def jax_tree_draws(key, t: int):
+    """`veg/trees.gen_trees`' draws for t trees from `key` (split 8 ways;
+    the branch keys 3 and 4 split 4 ways, the leaf key 5 three ways), as
+    the port's `TreeDraws` on the CPU."""
+    import jax
+    from w3d_torch.veg.trees import (TreeDraws, TREE_DRAW_RANGES, _tree_draw_shapes)
+    r = jax.random
+    ks = r.split(key, 8)
+    keys = [ks[0], ks[1], ks[2], *r.split(ks[3], 4), *r.split(ks[4], 4), *r.split(ks[5], 3)]
+    out = []
+    for k, shape, rng in zip(keys, _tree_draw_shapes(t), TREE_DRAW_RANGES):
+        v = r.normal(k, shape) if rng is None else r.uniform(k, shape, minval=rng[0],
+                                                              maxval=rng[1])
+        out.append(torch.as_tensor(np.array(v)))
+    return TreeDraws(*out)
+
+
+def jax_small_tree_draws(key, n: int):
+    """`gen_small_trees`' draws from `key` (split 3 ways) as `SmallTreeDraws`."""
+    import jax
+    from w3d_torch.veg.trees import SmallTreeDraws
+    r = jax.random
+    k1, k2, k3 = r.split(key, 3)
+    return SmallTreeDraws(*(torch.as_tensor(np.array(v)) for v in (
+        r.uniform(k1, (n,), minval=0.8, maxval=1.4), r.uniform(k2, (n,), minval=0.8, maxval=1.2),
+        r.uniform(k3, (n,)))))
+
+
+def jax_uniform_rows(key, splits: int, n: int, ranges) -> torch.Tensor:
+    """A spawner's [len(ranges), n] uniform rows from `key` split `splits`
+    ways (`make_spiders`: 6 ways, 5 used; `make_snakes`: 4; `make_animals`:
+    6)."""
+    import jax
+    ks = jax.random.split(key, splits)
+    return torch.as_tensor(np.stack([np.asarray(jax.random.uniform(k, (n,), minval=lo,
+                                                                   maxval=hi))
+                                     for k, (lo, hi) in zip(ks, ranges)]))
+
+
+def jax_building_animal_draws(keys, n_spiders: int, n_snakes: int, n_flies: int,
+                              ceil_z: float = 0.5):
+    """The building animals' step draws from one key a tick
+    (`step_spiders`: split 3 ways; `step_snakes`: 2; `step_flies`: 3
+    normals), as the port's `BuildingAnimalDraws` [K, ...]: `keys` is a
+    list of (spider_key, snake_key, fly_key) per tick."""
+    import jax
+    from w3d_torch.veg.animals import BuildingAnimalDraws
+    r = jax.random
+    rows = {f: [] for f in BuildingAnimalDraws._fields}
+    for ks, kn, kf in keys:
+        k1, k2, k3 = r.split(ks, 3)
+        rows["spider_turn"].append(r.uniform(k1, (n_spiders,)))
+        rows["spider_ang"].append(r.uniform(k2, (n_spiders,), minval=0.0, maxval=2.0 * np.pi))
+        rows["spider_tz"].append(r.uniform(k3, (n_spiders,), minval=0.0, maxval=ceil_z))
+        k1, k2 = r.split(kn)
+        rows["snake_turn"].append(r.uniform(k1, (n_snakes,)))
+        rows["snake_dth"].append(r.uniform(k2, (n_snakes,), minval=-0.8, maxval=0.8))
+        rows["fly_jitter"].append(np.stack([np.asarray(r.normal(k, (n_flies,)))
+                                            for k in r.split(kf, 3)]))
+    return BuildingAnimalDraws(**{f: torch.as_tensor(np.stack([np.asarray(x) for x in v]))
+                                  for f, v in rows.items()})
+
+
+def jax_world_draws():
+    """A `full_world.WorldDraws` that replays the JAX example's keys: the
+    erosion's key 0 (`jax_angle_tables`), `fold_in(key(0), 100 + i)` for
+    helicopter step i, the city state's key(4), the spheres world's
+    key(1) (split 3 ways for the positions, `fold_in(., 9)` for the
+    velocities) and key(0) for the bake (`jax_trace_draws`, and its sky
+    rays as the JAX package makes them)."""
+    import jax
+    from w3d_torch.full_world import WorldDraws, EROSION_BATCH, EROSION_STEPS
+    r = jax.random
+
+    class JaxWorldDraws(WorldDraws):
+        def erosion_angles(self, iters, device):
+            return torch.as_tensor(jax_angle_tables(iters, EROSION_BATCH,
+                                                    EROSION_STEPS)).to(device)
+
+        def helis(self, steps, n_helis, n_pads, device):
+            pad, wait = [], []
+            for i in range(steps):
+                k = r.fold_in(r.key(0), 100 + i)
+                pad.append(np.asarray(r.randint(k, (n_helis,), 0, n_pads)))
+                wait.append(np.asarray(r.randint(r.fold_in(k, 1), (n_helis,), 30, 120)))
+            return (torch.as_tensor(np.stack(pad)).to(device),
+                    torch.as_tensor(np.stack(wait)).to(device))
+
+        def city(self, frames, n_peds, device):
+            d, _ = jax_city_draws(r.key(4), frames, n_peds)
+            return type(d)(*(None if v is None else v.to(device) for v in d))
+
+        def spawn(self, n, device):
+            k = r.key(1)
+            k1, k2, k3 = r.split(k, 3)
+            pos = np.stack([np.asarray(r.uniform(k1, (n,), np.float32, -3.0, 3.0)),
+                            np.asarray(r.uniform(k2, (n,), np.float32, -3.0, 3.0)),
+                            np.asarray(r.uniform(k3, (n,), np.float32, 0.5, 3.5))], axis=-1)
+            vel = np.asarray(r.normal(r.fold_in(k, 9), (n, 3))) * np.float32(0.5)
+            return torch.as_tensor(pos).to(device), torch.as_tensor(vel).to(device)
+
+        def trace(self, device):
+            return jax_trace_draws(r.key(0), device)
+
+        def bake_rays(self, td, n, world):
+            # the JAX rays, made op by op: the port's sines and cosines round
+            # an ulp from XLA's, which moves a sample into the next cell
+            from w3d.lighting import trace as JT
+            from w3d.utils.constants import WorldConst as JWorld
+            with jax.disable_jit():
+                rays = JT.sky_rays(r.key(0), n, JWorld(mesh_x=world.mesh_x,
+                                                       mesh_y=world.mesh_y))
+            return tuple(torch.as_tensor(np.asarray(v)).to(td.device) for v in rays)
+
+    return JaxWorldDraws()

@@ -5,9 +5,10 @@ ped_manager_t::init, city_gen.cpp).
 
 `city_frame` advances everything one frame — the reference's
 next_city_frame 3-thread OMP split (cars / peds / birds+details,
-display_world.cpp:1295-1309) as sequential steps.  Not ported yet:
-`build_city(interiors=True)`, which needs `city/tunnels` (ROADMAP
-Queue 1), raises NotImplementedError.
+display_world.cpp:1295-1309) as sequential steps.  With
+`interiors=True` every building gets its floorplan and the buildings
+with basements grow tunnel networks with street manholes
+(`city/tunnels`, host code).
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ import torch
 
 from . import plots as CP, roads as CR, traffic as CT, buildings as CB
 from . import structures as CS
+from . import floorplan as CF
+from . import tunnels as TN
 
 
 @dataclass
@@ -45,12 +48,9 @@ def build_city(heightmap, water_z: float = -0.5, num_cities: int = 2,
                num_helis: int = 4, seed: int = 0,
                interiors: bool = False,
                device: torch.device | str = "cuda") -> CityWorld:
-    """The city's host layout (plots, roads, buildings, structures) and its
-    device state (graph, stoplights, cars, peds, helicopters) on
-    `device`."""
-    if interiors:
-        raise NotImplementedError("build_city(interiors=True) needs city/tunnels, "
-                                  "which is not ported (ROADMAP Queue 1)")
+    """The city's host layout (plots, roads, buildings, structures; with
+    `interiors`, floorplans, basement tunnels and manholes) and its device
+    state (graph, stoplights, cars, peds, helicopters) on `device`."""
     _hm, plots = CP.gen_cities(heightmap, water_z, num_cities=num_cities, seed=seed)
     net = CR.gen_city_roads(plots)
     graph = CT.build_road_graph(net, device=device)
@@ -62,6 +62,8 @@ def build_city(heightmap, water_z: float = -0.5, num_cities: int = 2,
     params = CB.BuildingParams()
     bl = CB.place_buildings_in_blocks(net.blocks, lambda x, y: 0.0, params,
                                       seed=seed)
+    if interiors and bl:
+        CF.gen_building_interiors(bl, params, seed=seed)
     helis = None
     pads = None
     if bl and num_helis > 0:
@@ -75,10 +77,24 @@ def build_city(heightmap, water_z: float = -0.5, num_cities: int = 2,
     skyways = CS.place_skyways(bl)
     power = CS.place_power_lines(net)
     ug = CS.place_ug_elevators(net.blocks, seed=seed)
+    # basement tunnel networks under buildings with basements
+    # (building_tunnels.cpp; grown off the basement room's end wall)
+    tunnels, manholes = [], []
+    if interiors:
+        for bi, b in enumerate(bl):
+            segs = TN.gen_tunnels(b, bl, params.floor_height, seed=seed + bi)
+            if segs:
+                p0 = b.parts[0]
+                _, mh = TN.add_tunnel_objects(
+                    segs, (p0[0], p0[1], p0[3], p0[4]), seed=seed + bi,
+                    ground_z=p0[2])
+                tunnels.append((bi, segs))
+                manholes.extend(mh)
     return CityWorld(net=net, graph=graph, stoplights=sl, cars=cars,
                      peds=peds, ped_nav=nav, buildings=bl,
                      helis=helis, helipads=pads,
-                     skyways=skyways, power=power, ug_elevators=ug)
+                     skyways=skyways, power=power, ug_elevators=ug,
+                     tunnels=tunnels, manholes=manholes)
 
 
 def city_frame(cw: CityWorld, ped_draws: CT.PedDraws,

@@ -206,6 +206,13 @@ def city_frames_chained(cs: CityState, graph: CT.RoadGraph, nav: CT.PedNav,
     return cs
 
 
+def city_frame_single(cs: CityState, graph, nav, pads, perches, draws: CityDraws,
+                      rail=None) -> CityState:
+    """One un-chained frame (host-stepping debug path): row 0 of
+    `draws`."""
+    return city_frames_chained(cs, graph, nav, pads, perches, 1, draws, rail=rail)
+
+
 def people_probe(st: CPE.PeopleState) -> torch.Tensor:
     """ONE packed [N, 5] float32 tensor (x, y, floor, path_pos, activity):
     the only device->host transfer the per-chunk host phase needs."""

@@ -13,9 +13,10 @@ door-keyed: each room-to-room edge carries the connecting door's position
 (stair edges carry the stair center), and routes expand to door-waypoint
 paths.  The step adds pairwise separation avoidance (ai_room_update's
 person-person collision, building_navigation.cpp:2689).  The JAX step's
-one-hot row reads are indexed gathers here (the same values).  Not
-ported: the host-stepped `BuildingPeopleSim` and its helpers, and
-`person_name` (it needs `utils/names`).
+one-hot row reads are indexed gathers here (the same values).
+`BuildingPeopleSim` drives one building from the host, reading the people
+back every step as the JAX package's does; the fused city step
+(`city_step`) is the batched form.
 """
 
 from __future__ import annotations
@@ -392,3 +393,120 @@ def step_people(st: PeopleState, elev_z: torch.Tensor | None = None) -> PeopleSt
 
     return st._replace(x=x, y=y, floor=floor, path_pos=pos,
                        activity=act, timer=timer, end_act=end_act)
+
+
+def _host(a: torch.Tensor) -> np.ndarray:
+    return a.detach().cpu().numpy()
+
+
+def people_need_goals(st: PeopleState) -> np.ndarray:
+    """Host check: who finished their path AND isn't resting or riding
+    (triggers re-routing).  'Finished' requires ARRIVAL at the final
+    waypoint, not merely walking toward it — rerouting at path_pos ==
+    path_len-1 would preempt the device-side rest transition (start_rest
+    in step_people) every time, so queued SIT/SLEEP would never start."""
+    pos = _host(st.path_pos)
+    plen = _host(st.path_len)
+    last = np.maximum(plen - 1, 0)
+    wx = np.take_along_axis(_host(st.path_x), last[:, None], 1)[:, 0]
+    wy = np.take_along_axis(_host(st.path_y), last[:, None], 1)[:, 0]
+    dx = _host(st.x) - wx
+    dy = _host(st.y) - wy
+    arrived = (pos >= plen - 1) & (dx * dx + dy * dy < 1e-4)
+    idle = _host(st.activity) == ACT_WALK
+    return arrived & idle
+
+
+def elevator_calls(st: PeopleState, num_elevators: int) -> list:
+    """Host: per-shaft floor requests from waiting/riding people — the
+    call-button presses (nearest-waiter floor first) and the riders'
+    destination floors."""
+    act = _host(st.activity)
+    floors = _host(st.floor)
+    pe = _host(st.path_e)
+    pf = _host(st.path_f)
+    pos = np.minimum(_host(st.path_pos), MAX_PATH - 1)
+    calls = [[] for _ in range(num_elevators)]
+    for i in range(len(act)):
+        eid = int(pe[i, pos[i]])
+        if eid < 0 or eid >= num_elevators:
+            continue
+        if act[i] == ACT_WAIT_ELEVATOR:
+            calls[eid].append(int(round(floors[i])))
+        elif act[i] == ACT_RIDE_ELEVATOR:
+            nxt = min(pos[i] + 1, MAX_PATH - 1)
+            calls[eid].append(int(round(pf[i, nxt])))
+    return calls
+
+
+class BuildingPeopleSim:
+    """Host loop: people + elevator cars for one building (the
+    per-building slice of ai_room_update / elevator_t updates).  The
+    people live on `device`; the elevator cars and the goal choice stay
+    on the host, which reads the people back every step."""
+
+    def __init__(self, interior, n_people: int, seed: int = 0,
+                 room_objs=None, device: torch.device | str = "cuda"):
+        from .floorplan import ElevatorCar
+        self.device = torch.device(device)
+        self.graph = build_nav_graph(interior)
+        self.room_objs = room_objs
+        self.rg = RandGen(seed + 17, seed * 5 + 3)
+        self.people = make_people(self.graph, n_people, seed=seed, device=device)
+        self.cars = [ElevatorCar()
+                     for _ in (getattr(interior, "elevators", ()) or ())]
+
+    def step(self):
+        for car in self.cars:
+            car.step()
+        calls = elevator_calls(self.people, max(len(self.cars), 1))
+        for eid, car in enumerate(self.cars):
+            if calls[eid] and car.state == 0:
+                want = calls[eid][0]
+                if want != round(car.z):
+                    car.call(want)
+        elev_z = torch.as_tensor(np.asarray([c.z for c in self.cars] or [0.0], np.float32),
+                                 device=self.device)
+        self.people = step_people(self.people, elev_z)
+        need = people_need_goals(self.people)
+        if need.any():
+            # re-route finished walkers from their current room
+            idx = np.where(need)[0]
+            cx = _host(self.people.x)
+            cy = _host(self.people.y)
+            cf = _host(self.people.floor)
+            cur = [self._room_at(cx[i], cy[i], cf[i]) for i in idx]
+            sub = assign_goals(
+                _take(self.people, idx), self.graph, cur, self.rg,
+                room_objs=self.room_objs)
+            self.people = _put(self.people, idx, sub)
+        return self.people
+
+    def _room_at(self, x, y, fl):
+        c = self.graph.centers
+        d = (c[:, 0] - x) ** 2 + (c[:, 1] - y) ** 2 \
+            + 1e6 * (c[:, 2] - round(float(fl))) ** 2
+        return int(np.argmin(d))
+
+
+def _take(st: PeopleState, idx) -> PeopleState:
+    i = torch.as_tensor(np.asarray(idx), dtype=torch.int64, device=st.x.device)
+    return PeopleState(*(f[i] for f in st))
+
+
+def _put(st: PeopleState, idx, sub: PeopleState) -> PeopleState:
+    i = torch.as_tensor(np.asarray(idx), dtype=torch.int64, device=st.x.device)
+    out = []
+    for f, g in zip(st, sub):
+        a = f.clone()
+        a[i] = g.to(a.dtype)
+        out.append(a)
+    return PeopleState(*out)
+
+
+def person_name(person_id: int) -> str:
+    """Display name for a person, seeded by their id like the
+    reference's ssn-seeded person_name_gen (pedestrians.cpp:130-151);
+    gender alternates by id as the reference's person gen rolls it."""
+    from ..utils.names import gen_person_name
+    return gen_person_name(int(person_id), bool(person_id & 1))

@@ -20,6 +20,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..ops.fmath import div32, sqrt32
+
 
 class CityPlot(NamedTuple):
     x1: int
@@ -43,15 +45,16 @@ def city_score_map(heightmap: torch.Tensor, w: int, h: int, water_z,
                    used: torch.Tensor, border: int = 0) -> torch.Tensor:
     """Score (RMS height deviation) of every (h, w) placement; invalid
     (underwater or overlapping `used`) positions = +inf.  Returns
-    [my-h+1, mx-w+1] scores."""
-    hm = heightmap.to(torch.float32)
+    [my-h+1, mx-w+1] float64 scores: the integral images sum in float64,
+    so the card's and the CPU's summation orders pick the same placement."""
+    hm = heightmap.to(torch.float64)
     n = float(w * h)
     s1 = _box_sum(_integral(hm), w, h)
     s2 = _box_sum(_integral(hm * hm), w, h)
     rms = torch.sqrt(torch.clamp(s2 / n - (s1 / n) ** 2, min=0.0))
     # validity: no underwater cell, no used cell in the window
-    has_wet = _box_sum(_integral((hm < water_z).to(torch.float32)), w, h) > 0.5
-    has_used = _box_sum(_integral(used.to(torch.float32)), w, h) > 0.5
+    has_wet = _box_sum(_integral((hm < water_z).to(torch.float64)), w, h) > 0.5
+    has_used = _box_sum(_integral(used.to(torch.float64)), w, h) > 0.5
     score = torch.where(has_wet | has_used, torch.inf, rms)
     if border > 0:
         my, mx = score.shape
@@ -72,8 +75,8 @@ def flatten_region(heightmap: torch.Tensor, x1, y1, x2, y2, elevation,
     # distance outside the rect (0 inside)
     dx = torch.clamp(torch.maximum(x1 - xi, xi - x2), min=0)
     dy = torch.clamp(torch.maximum(y1 - yi, yi - y2), min=0)
-    d = torch.sqrt((dx ** 2 + dy ** 2).to(torch.float32))
-    t = torch.clamp(1.0 - d / max(slope_width, 1), 0.0, 1.0)  # 1 inside -> 0 far
+    d = sqrt32((dx ** 2 + dy ** 2).to(torch.float32))
+    t = torch.clamp(1.0 - div32(d, max(slope_width, 1)), 0.0, 1.0)  # 1 inside -> 0 far
     return heightmap * (1.0 - t) + elevation * t
 
 
@@ -97,7 +100,8 @@ def gen_cities(heightmap, water_z, num_cities: int = 2, city_size: int = 24,
             break
         x1, y1 = sx, sy
         x2, y2 = sx + city_size - 1, sy + city_size - 1
-        elev = float(torch.mean(hm[y1:y2 + 1, x1:x2 + 1]))
+        # the region's mean on the host in float64: one value on every device
+        elev = float(hm[y1:y2 + 1, x1:x2 + 1].to("cpu", torch.float64).mean())
         hm = flatten_region(hm, x1, y1, x2, y2, elev, slope_width)
         pad = slope_width + city_size // 2  # keep cities apart
         used[max(0, y1 - pad):y2 + pad, max(0, x1 - pad):x2 + pad] = True

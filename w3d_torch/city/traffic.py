@@ -796,14 +796,19 @@ BIRD_CRUISE = 0.35
 
 
 def bird_perches(objs, buildings, max_perches: int = 64):
-    """Perch points: building roof centers.  The perchable city objects
-    (benches, mailboxes, streetlights: add_bird_loc,
-    city_obj_placer.cpp:671) need `city/objects`, which is not ported:
-    `objs` must be None."""
-    if objs is not None:
-        raise NotImplementedError("bird perches on city objects need city/objects, "
-                                  "which is not ported (ROADMAP Queue 1)")
+    """Perch points: tops of perchable city objects (benches, mailboxes,
+    streetlights — add_bird_loc, city_obj_placer.cpp:671; `objs` an
+    `objects.CityObjects` or None) + building roof centers."""
+    from . import objects as CO
     pts = []
+    if objs is not None and len(objs.x):
+        perchable = {CO.KIND_INDEX[k] for k in
+                     ("bench", "mailbox", "streetlight", "hydrant",
+                      "power_pole", "statue")}
+        for i in range(len(objs.x)):
+            if int(objs.kind[i]) in perchable:
+                pts.append((float(objs.x[i]), float(objs.y[i]),
+                            float(CO.KIND_HEIGHT[objs.kind[i]])))
     for b in buildings or []:
         (x1, y1, _z1, x2, y2, z2) = b.parts[-1]
         pts.append((0.5 * (x1 + x2), 0.5 * (y1 + y2), z2))

@@ -213,10 +213,11 @@ __global__ void erosion_walk_kernel(const float* __restrict__ hm,
       float ndx = (dx - gx) * KI + gx;
       float ndz = (dz - gz) * KI + gz;
       const float dl = sqrtf(ndx * ndx + ndz * ndz);
-      if (dl <= FLT_EPS) {   // flat spot: random direction
-        const float ang = angles[t * B + d];
-        ndx = cosf(ang);
-        ndz = sinf(ang);
+      if (dl <= FLT_EPS) {   // flat spot: random direction, its cosine and
+        // sine in double and rounded once, as ops/fmath does on every device
+        const double ang = (double)angles[t * B + d];
+        ndx = (float)cos(ang);
+        ndz = (float)sin(ang);
       } else {
         const float inv = 1.0f / fmaxf(dl, FLT_EPS);
         ndx = ndx * inv;

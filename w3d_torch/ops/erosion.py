@@ -18,7 +18,9 @@ bilinear deposit and the 4x4 erosion stencil.  Each step's writes are
 summed in 64-bit fixed point (FIXED_BITS) and added to the float delta
 once, so the sum does not depend on the order of the writes: the walk is
 deterministic, and the kernel's atomics reproduce it bit for bit.  (The
-JAX package sums in float32 in matmul order; the two agree to rounding.)  It is the CPU path of
+JAX package sums in float32 in matmul order; the two agree to rounding.)
+Its square roots and the flat-spot cosines and sines go through
+`ops/fmath`, so the CPU walks the card's paths too.  It is the CPU path of
 `ops/cuda/erosion_kernel.erosion_walk`, whose CUDA kernel runs the same
 walk per tile in shared memory.  `erode` is the batch driver, the
 counterpart of the JAX `erode`: with `pad` (PAD = 4 by default) the maps
@@ -49,6 +51,7 @@ import torch
 
 from ..utils import rng as w3d_rng
 from .cuda import erosion_kernel as EK
+from .fmath import cos32, sin32, sqrt32
 
 # erosion.cpp:24
 KQ = 10.0
@@ -189,12 +192,12 @@ def _walk_batch(hm: torch.Tensor, xi0: torch.Tensor, zi0: torch.Tensor,
         gz = h00 + h10 - h01 - h11
         ndx = (dx - gx) * KI + gx
         ndz = (dz - gz) * KI + gz
-        dl = torch.sqrt(ndx * ndx + ndz * ndz)
+        dl = sqrt32(ndx * ndx + ndz * ndz)
         ang = angles[t]
         small = dl <= FLT_EPSILON
         inv = torch.where(small, 1.0, 1.0 / torch.clamp(dl, min=FLT_EPSILON))
-        ndx = torch.where(small, torch.cos(ang), ndx * inv)
-        ndz = torch.where(small, torch.sin(ang), ndz * inv)
+        ndx = torch.where(small, cos32(ang), ndx * inv)
+        ndz = torch.where(small, sin32(ang), ndz * inv)
         nxp = xp + ndx
         nzp = zp + ndz
         nxi = torch.floor(nxp).long()
@@ -259,7 +262,7 @@ def _walk_batch(hm: torch.Tensor, xi0: torch.Tensor, zi0: torch.Tensor,
         delta = _apply(delta, net)
 
         # velocity update (erosion.cpp:149, sqrt guarded)
-        nv = torch.sqrt(torch.clamp(nv * nv + KG * dh, min=0.0))
+        nv = sqrt32(torch.clamp(nv * nv + KG * dh, min=0.0))
         nw = w * (1.0 - KW)
         keep = ~go_on
         sel = lambda new, old: torch.where(keep, old, new)

@@ -34,6 +34,7 @@ import torch
 
 from ..utils.rng import RandGen, xxhash_u32, _mul_u32, _U32
 from ..utils.constants import WorldConst, DEFAULT_WORLD
+from .fmath import sin32
 
 # mesh_gen.cpp:14-34
 NUM_FREQ_COMP = 9
@@ -143,12 +144,15 @@ def sine_term_tables(
     mesh_scale: float = 1.0,
     mesh_scale_z_inv: float = 1.0,
     start_sin: int = 0,
+    exact: bool = False,
 ):
     """Per-axis sine term tables (mesh_xy_grid_cache_t::build_arrays,
     mesh_gen.cpp:604-626).
 
     Returns (xterms[..., nx, F], yterms[..., ny, F]); `x0`, `y0` may carry
     leading batch dims, so one call builds the tables for a tile batch.
+    With `exact` the sines go through `fmath.sin32`, which rounds the same
+    on every device.
     """
     dev = table.mag.device
     msx = mesh_scale * world.dx_inv
@@ -167,19 +171,31 @@ def sine_term_tables(
 
     xi = torch.arange(nx, dtype=torch.float32, device=dev)[:, None]  # [nx, 1]
     yi = torch.arange(ny, dtype=torch.float32, device=dev)[:, None]
-    xterms = torch.sin(x_mult * dx * xi + x_const[..., None, :])      # [..., nx, F]
-    yterms = y_scale * torch.sin(y_mult * dy * yi + y_const[..., None, :])
+    sin = sin32 if exact else torch.sin
+    xterms = sin(x_mult * dx * xi + x_const[..., None, :])            # [..., nx, F]
+    yterms = y_scale * sin(y_mult * dy * yi + y_const[..., None, :])
     if start_sin > 0:
         mask = (torch.arange(F_TABLE_SIZE, device=dev) >= start_sin).to(xterms.dtype)
         xterms = xterms * mask
     return xterms, yterms
 
 
-def eval_sine_grid(xterms: torch.Tensor, yterms: torch.Tensor) -> torch.Tensor:
+def eval_sine_grid(xterms: torch.Tensor, yterms: torch.Tensor,
+                   exact: bool = False) -> torch.Tensor:
     """height[..., y, x] = sum_k X[x,k] * Y[y,k] — one float32 matrix
     product per tile (the hot loop of mesh_gen.cpp:754-770).  Callers keep
-    TF32 off, so the product runs in full float32."""
-    return torch.einsum("...xk,...yk->...yx", xterms, yterms)
+    TF32 off, so the product runs in full float32.
+
+    With `exact` the products (exact in float64) are summed in float64 in
+    term order and rounded once: the card and the CPU then give the same
+    bits, where their matrix products sum in other orders."""
+    if not exact:
+        return torch.einsum("...xk,...yk->...yx", xterms, yterms)
+    x, y = xterms.double(), yterms.double()
+    z = y[..., :, None, 0] * x[..., None, :, 0]
+    for k in range(1, x.shape[-1]):
+        z = z + y[..., :, None, k] * x[..., None, :, k]
+    return z.float()
 
 
 def tile_noise(table: SineTable, x0: torch.Tensor, y0: torch.Tensor, n: int,

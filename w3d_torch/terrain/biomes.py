@@ -16,6 +16,7 @@ import torch
 
 from ..terrain import mesh as TM
 from ..ops import noise as N
+from ..ops.fmath import div32
 
 # sthresh (mesh_gen.cpp:44): {grass, snow} x {lo, hi} surface-slope bands
 STHRESH_GRASS = (0.68, 0.86)
@@ -36,8 +37,10 @@ def biome_weights(zvals: torch.Tensor, norm_z: torch.Tensor, zmin, zmax,
     """
     zv = TM.lttex_dirt_zvals(cfg)           # [5] relative-height thresholds
     span = zmax - zmin
-    span = torch.clamp(span, min=1e-9) if isinstance(span, torch.Tensor) else max(span, 1e-9)
-    relh = (zvals - zmin) / span
+    if isinstance(span, torch.Tensor):
+        relh = (zvals - zmin) / torch.clamp(span, min=1e-9)
+    else:
+        relh = div32(zvals - zmin, max(span, 1e-9))
     if biome_noise is not None:
         relh = relh + 0.05 * biome_noise     # biome drift
 
@@ -49,9 +52,9 @@ def biome_weights(zvals: torch.Tensor, norm_z: torch.Tensor, zmin, zmax,
     for i in range(5):
         t_lo = prev_t
         t_hi = zv[i]
-        lo_edge = torch.clamp((relh - (t_lo - blend_w)) / (2 * blend_w), 0.0, 1.0) \
+        lo_edge = torch.clamp(div32(relh - (t_lo - blend_w), 2 * blend_w), 0.0, 1.0) \
             if i > 0 else torch.ones_like(relh)
-        hi_edge = torch.clamp(((t_hi + blend_w) - relh) / (2 * blend_w), 0.0, 1.0) \
+        hi_edge = torch.clamp(div32((t_hi + blend_w) - relh, 2 * blend_w), 0.0, 1.0) \
             if i < 4 else torch.ones_like(relh)
         ws.append(lo_edge * hi_edge)
         prev_t = t_hi
@@ -59,14 +62,14 @@ def biome_weights(zvals: torch.Tensor, norm_z: torch.Tensor, zmin, zmax,
     # slope modulation: steep surfaces lose grass and snow to rock
     g_lo, g_hi = STHRESH_GRASS
     s_lo, s_hi = STHRESH_SNOW
-    ws[GRASS] = ws[GRASS] * torch.clamp((norm_z - g_lo) / (g_hi - g_lo), 0.0, 1.0)
-    ws[SNOW] = ws[SNOW] * torch.clamp((norm_z - s_lo) / (s_hi - s_lo), 0.0, 1.0)
-    # removed grass/snow becomes rock
-    w = torch.stack(ws, dim=-3)               # [..., 5, ny, nx]
-    total = torch.sum(w, dim=-3)
+    ws[GRASS] = ws[GRASS] * torch.clamp(div32(norm_z - g_lo, g_hi - g_lo), 0.0, 1.0)
+    ws[SNOW] = ws[SNOW] * torch.clamp(div32(norm_z - s_lo, s_hi - s_lo), 0.0, 1.0)
+    # removed grass/snow becomes rock (the five planes summed in order, so
+    # every device rounds the total alike)
+    total = ws[0] + ws[1] + ws[2] + ws[3] + ws[4]
     ws[ROCK] = ws[ROCK] + torch.clamp(1.0 - total, min=0.0)
-    w = torch.stack(ws, dim=-3)
-    total = torch.sum(w, dim=-3, keepdim=True)
+    w = torch.stack(ws, dim=-3)               # [..., 5, ny, nx]
+    total = (ws[0] + ws[1] + ws[2] + ws[3] + ws[4]).unsqueeze(-3)
     return w / torch.clamp(total, min=1e-9)
 
 

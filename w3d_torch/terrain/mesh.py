@@ -174,9 +174,9 @@ def raw_height_grid(cfg: TerrainConfig, world: WorldConst,
         xt, yt = N.sine_term_tables(
             table, x0, y0, world.dx * dx_mult, world.dy * dy_mult, nx, ny,
             world=world, mesh_scale=cfg.mesh_scale, mesh_scale_z_inv=mszi,
-            start_sin=start,
+            start_sin=start, exact=True,
         )
-        z = N.eval_sine_grid(xt, yt)
+        z = N.eval_sine_grid(xt, yt, exact=True)
         z = N.apply_noise_shape_final(z, cfg.shape)
         return postproc_noise_zval(z, cfg.hmap)
     # fBm modes: eval_index computes xval = (x*mdx + mx0)*DX_VAL_INV

@@ -25,8 +25,8 @@ CPU generator seeded with 0 unless given (the JAX `erode`
 draws them from key 0, so every tile of every batch walks the same
 angles there too).
 
-Not ported yet: `grass_for_tile` and `flowers_for_tile` (they need
-`veg/grass`, ROADMAP Queue 1) raise NotImplementedError.
+`grass_for_tile` and `flowers_for_tile` hash a resident tile's blades and
+flowers (`veg/grass`) on the tile's device.
 """
 
 from __future__ import annotations
@@ -182,12 +182,29 @@ class TileManager:
     # -- per-tile vegetation (grass_tile_manager_t, grass.cpp:58) --
 
     def grass_for_tile(self, key, blades_per_cell: int = 4):
-        raise NotImplementedError("grass_for_tile needs veg/grass, which is not "
-                                  "ported (ROADMAP Queue 1)")
+        """Per-blade grass block for a resident tile, density-gated by
+        its GRASS biome weight (the reference generates per-tile grass
+        blocks on demand from the tile's weight texture)."""
+        from ..veg import grass as VG
+        t = self.tiles[key]
+        seed = (t.tx * 73856093) ^ (t.ty * 19349663) ^ 0x9A55
+        return VG.gen_grass_block(
+            seed & 0x7FFFFFFF, float(t.tx * self.tile_size),
+            float(t.ty * self.tile_size), t.zvals,
+            t.weights[B.GRASS], self.world,
+            blades_per_cell=blades_per_cell)
 
     def flowers_for_tile(self, key, flower_density: float = 1.0):
-        raise NotImplementedError("flowers_for_tile needs veg/grass, which is not "
-                                  "ported (ROADMAP Queue 1)")
+        """Per-tile flowers where the grass is dense
+        (flower_tile_manager_t::gen_flowers, grass.cpp:859)."""
+        from ..veg import grass as VG
+        t = self.tiles[key]
+        seed = (t.tx * 83492791) ^ (t.ty * 2654435761) ^ 0xF10E
+        return VG.gen_flowers(
+            seed & 0x7FFFFFFF, float(t.tx * self.tile_size),
+            float(t.ty * self.tile_size), t.zvals,
+            t.weights[B.GRASS], self.world,
+            flower_density=flower_density)
 
     # -- batched generation --
 

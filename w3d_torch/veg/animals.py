@@ -10,9 +10,11 @@ through `ops/cuda/sample_kernel` (kernel B on the card).
 The JAX steps draw threefry values; here they are inputs: `draw_*` make
 them from a CPU generator, `FaunaDraws` carries a chunk's per-frame
 draws, and the spawners take their uniform values ([k, n], each row
-already in its range).  Not ported yet: the building animals (spiders,
-snakes, flies, tank fish; `:425-605`), which wait for
-`city/bldg_gameplay` (ROADMAP Queue 1).
+already in its range).  The building animals (`:425-605`: spiders,
+snakes, flies, tank fish) follow the same rule: their spawners take
+uniform rows (`draw_spiders`, `draw_snakes`) and their steps a tick's
+rows of `BuildingAnimalDraws`; their sines, cosines and square roots go
+through `ops/fmath`.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops.cuda import sample_kernel as SK
+from ..ops.fmath import cos32, sin32, sqrt32
 
 A_BIRD, A_FISH, A_BUTTERFLY, A_RAT, A_SPIDER, A_SNAKE, A_FLY = range(7)
 
@@ -73,29 +76,32 @@ def step_flock(a: AnimalState, zmin, zmax, sep_r: float = 0.08, coh_r: float = 0
     not_self = ~torch.eye(n, dtype=torch.bool, device=a.px.device)
     near = (d2 < coh_r ** 2) & not_self
     nn = torch.clamp(near.sum(1), min=1).to(torch.float32)
-    w = near.to(torch.float32)
+    # neighbour sums in float64, rounded once: the card's and the CPU's
+    # matmul orders then give the same float32 sums
+    w = near.to(torch.float64)
+    nsum = lambda m, v: (m @ v.to(torch.float64)).to(torch.float32)
     # cohesion: toward local center
-    cx = (w @ a.px) / nn - a.px
-    cy = (w @ a.py) / nn - a.py
-    cz = (w @ a.pz) / nn - a.pz
+    cx = nsum(w, a.px) / nn - a.px
+    cy = nsum(w, a.py) / nn - a.py
+    cz = nsum(w, a.pz) / nn - a.pz
     # alignment: toward local mean velocity
-    ax_ = (w @ a.vx) / nn - a.vx
-    ay_ = (w @ a.vy) / nn - a.vy
-    az_ = (w @ a.vz) / nn - a.vz
+    ax_ = nsum(w, a.vx) / nn - a.vx
+    ay_ = nsum(w, a.vy) / nn - a.vy
+    az_ = nsum(w, a.vz) / nn - a.vz
     # separation: away from too-close neighbors
     close = (d2 < sep_r ** 2) & not_self
-    cw = torch.where(close, 1.0 / torch.clamp(d2, min=1e-5), 0.0)
-    ones = torch.ones(n, dtype=torch.float32, device=a.px.device)
-    sx = (cw @ ones) * a.px - cw @ a.px
-    sy = (cw @ ones) * a.py - cw @ a.py
-    sz = (cw @ ones) * a.pz - cw @ a.pz
+    cw = torch.where(close, 1.0 / torch.clamp(d2, min=1e-5), 0.0).to(torch.float64)
+    cw_sum = cw.sum(1).to(torch.float32)
+    sx = cw_sum * a.px - nsum(cw, a.px)
+    sy = cw_sum * a.py - nsum(cw, a.py)
+    sz = cw_sum * a.pz - nsum(cw, a.pz)
     # homing: weak pull toward the flock's home region
     hx = home[0] - a.px
     hy = home[1] - a.py
     vx = a.vx + 0.02 * cx + 0.05 * ax_ + 0.002 * sx + 0.001 * hx
     vy = a.vy + 0.02 * cy + 0.05 * ay_ + 0.002 * sy + 0.001 * hy
     vz = a.vz + 0.01 * cz + 0.05 * az_ + 0.002 * sz
-    sp = torch.sqrt(vx * vx + vy * vy + vz * vz) + 1e-9
+    sp = sqrt32(vx * vx + vy * vy + vz * vz) + 1e-9
     lim = torch.clamp(max_speed / sp, max=1.0)
     vx, vy, vz = vx * lim, vy * lim, vz * lim
     px = a.px + vx
@@ -425,3 +431,222 @@ def step_tiled_fauna(birds: AnimalState, bfly: ButterflyState, fish: AnimalState
         fish = step_fish(fish, draws.fish_rnd[k], draws.fish_jx[k], draws.fish_jy[k],
                          draws.fish_ang[k], mesh, world, (player_x, player_y, water_z))
     return birds, bfly, fish
+
+
+# ---------------------------------------------------------------------------
+# building spiders (building_animals.cpp:1005-1140 update_spiders)
+# ---------------------------------------------------------------------------
+
+class SpiderState(NamedTuple):
+    """Wall/floor walkers: xy position + heading, z climbs toward a target
+    height on walls; squished spiders stop moving."""
+
+    px: torch.Tensor
+    py: torch.Tensor
+    pz: torch.Tensor
+    hx: torch.Tensor       # unit heading (xy)
+    hy: torch.Tensor
+    tz: torch.Tensor       # climb target height
+    speed: torch.Tensor
+    squished: torch.Tensor  # bool
+
+
+def draw_spiders(n: int, bounds, g: torch.Generator, size_range=(0.5, 1.0)) -> torch.Tensor:
+    """`make_spiders`' five [n] uniform rows: heading angle, x, y, climb
+    target and speed factor, each in its range."""
+    x1, y1, x2, y2 = bounds
+    r = ((0.0, 2.0 * math.pi), (x1, x2), (y1, y2), (0.0, 0.5), tuple(size_range))
+    return torch.stack([_uniform(g, (n,), lo, hi) for lo, hi in r])
+
+
+def make_spiders(u5: torch.Tensor, base_speed: float = 0.004) -> SpiderState:
+    """add_animals_on_floor + set_spider_speed (speed = base * U(0.5,1)),
+    from `draw_spiders`' rows (on their device)."""
+    n = u5.shape[1]
+    z = torch.zeros((n,), dtype=torch.float32, device=u5.device)
+    return SpiderState(px=u5[1], py=u5[2], pz=z, hx=cos32(u5[0]), hy=sin32(u5[0]),
+                       tz=u5[3], speed=base_speed * u5[4],
+                       squished=torch.zeros((n,), dtype=torch.bool, device=u5.device))
+
+
+def step_spiders(s: SpiderState, turn_u: torch.Tensor, ang: torch.Tensor,
+                 new_tz: torch.Tensor, bounds, turn_prob: float = 0.02) -> SpiderState:
+    """One spider tick: walk the heading, bounce off the room bounds,
+    occasionally retarget heading and climb height (update_spider's
+    direction-change logic, batched).  Draws, [n] each: `turn_u` uniform
+    [0, 1), `ang` uniform [0, 2 pi), `new_tz` uniform [0, ceil_z)."""
+    x1, y1, x2, y2 = bounds
+    alive = ~s.squished
+    mv = s.speed * alive
+    near_wall = (s.px - x1 < 0.05) | (x2 - s.px < 0.05) | \
+                (s.py - y1 < 0.05) | (y2 - s.py < 0.05)
+    climbing = near_wall & (s.pz < s.tz - 0.01)
+    # wall climbers hold xy and ascend; others walk the heading
+    px = s.px + torch.where(climbing, 0.0, mv * s.hx)
+    py = s.py + torch.where(climbing, 0.0, mv * s.hy)
+    # wall bounce (reflect heading) only when not climbing
+    hx = torch.where(((px < x1) | (px > x2)) & ~climbing, -s.hx, s.hx)
+    hy = torch.where(((py < y1) | (py > y2)) & ~climbing, -s.hy, s.hy)
+    px = torch.clamp(px, x1, x2)
+    py = torch.clamp(py, y1, y2)
+    pz = torch.where(climbing, s.pz + mv,
+                     torch.where(near_wall, s.pz, torch.clamp(s.pz - mv, min=0.0)))
+    # random retarget
+    turn = turn_u < turn_prob
+    hx = torch.where(turn, cos32(ang), hx)
+    hy = torch.where(turn, sin32(ang), hy)
+    tz = torch.where(turn, new_tz, s.tz)
+    return s._replace(px=px, py=py, pz=pz, hx=hx, hy=hy, tz=tz)
+
+
+def squish_spiders(s: SpiderState, x, y, radius: float = 0.05) -> SpiderState:
+    """Player steps at (x, y): nearby floor spiders squish (they stop
+    being updated, as the reference's `squished` flag)."""
+    d2 = (s.px - x) ** 2 + (s.py - y) ** 2
+    hit = (d2 < radius * radius) & (s.pz < 0.02)
+    return s._replace(squished=s.squished | hit)
+
+
+# ---------------------------------------------------------------------------
+# building snakes (building_animals.cpp:1653-1900 update_snakes)
+# ---------------------------------------------------------------------------
+
+class SnakeState(NamedTuple):
+    """Segmented bodies: the head wanders; each segment follows the one
+    ahead of it (the reference stores per-snake segment chains)."""
+
+    sx: torch.Tensor       # [N, S] segment x (segment 0 = head)
+    sy: torch.Tensor
+    hx: torch.Tensor       # [N] head heading
+    hy: torch.Tensor
+    speed: torch.Tensor
+
+
+def draw_snakes(n: int, bounds, g: torch.Generator) -> torch.Tensor:
+    """`make_snakes`' four [n] uniform rows: heading angle, head x, head y
+    and speed factor, each in its range."""
+    x1, y1, x2, y2 = bounds
+    r = ((0.0, 2.0 * math.pi), (x1, x2), (y1, y2), (0.5, 1.0))
+    return torch.stack([_uniform(g, (n,), lo, hi) for lo, hi in r])
+
+
+def make_snakes(u4: torch.Tensor, num_segs: int = 10, base_speed: float = 0.003,
+                seg_gap: float = 0.02) -> SnakeState:
+    hx, hy = cos32(u4[0]), sin32(u4[0])
+    offs = torch.arange(num_segs, dtype=torch.float32, device=u4.device) * seg_gap
+    return SnakeState(sx=u4[1][:, None] - hx[:, None] * offs[None, :],
+                      sy=u4[2][:, None] - hy[:, None] * offs[None, :],
+                      hx=hx, hy=hy, speed=base_speed * u4[3])
+
+
+def step_snakes(s: SnakeState, turn_u: torch.Tensor, dth_u: torch.Tensor, bounds,
+                seg_gap: float = 0.02, turn_prob: float = 0.03) -> SnakeState:
+    """Head wanders with bounded turns; body segments chase the segment
+    ahead, keeping `seg_gap` spacing (the follow constraint the reference
+    enforces per segment pair).  Draws, [n] each: `turn_u` uniform
+    [0, 1), `dth_u` uniform [-0.8, 0.8)."""
+    x1, y1, x2, y2 = bounds
+    # head move + bounce + random small turns
+    hx = torch.where((s.sx[:, 0] < x1) | (s.sx[:, 0] > x2), -s.hx, s.hx)
+    hy = torch.where((s.sy[:, 0] < y1) | (s.sy[:, 0] > y2), -s.hy, s.hy)
+    turn = turn_u < turn_prob
+    dth = dth_u * turn
+    ca, sa = cos32(dth), sin32(dth)
+    hx, hy = hx * ca - hy * sa, hx * sa + hy * ca
+    head_x = torch.clamp(s.sx[:, 0] + s.speed * hx, x1, x2)
+    head_y = torch.clamp(s.sy[:, 0] + s.speed * hy, y1, y2)
+    # segments follow: seg i moves toward seg i-1 to seg_gap spacing
+    prev_x = torch.cat([head_x[:, None], s.sx[:, :-1]], dim=1)
+    prev_y = torch.cat([head_y[:, None], s.sy[:, :-1]], dim=1)
+    dx = prev_x - s.sx
+    dy = prev_y - s.sy
+    d = sqrt32(dx * dx + dy * dy) + 1e-9
+    pull = torch.clamp(d - seg_gap, min=0.0) / d
+    sx = torch.cat([head_x[:, None], (s.sx + dx * pull)[:, 1:]], dim=1)
+    sy = torch.cat([head_y[:, None], (s.sy + dy * pull)[:, 1:]], dim=1)
+    return s._replace(sx=sx, sy=sy, hx=hx, hy=hy)
+
+
+# ---------------------------------------------------------------------------
+# flies + tank fish (building_animals.cpp flies; building_fish.cpp fish
+# constrained to tanks / flooded rooms) — thin bounded-flock wrappers
+# ---------------------------------------------------------------------------
+
+def make_flies(u6: torch.Tensor, center) -> AnimalState:
+    """A fly swarm buzzing around an attractor (trash/food): tiny
+    erratic boids homed on `center`, from `draw_animals(n, g, spread)`'s
+    rows."""
+    a = make_animals(u6, A_FLY, center=center)
+    return a._replace(vx=a.vx * 3.0, vy=a.vy * 3.0, vz=a.vz * 5.0)
+
+
+def step_flies(a: AnimalState, jn: torch.Tensor, center) -> AnimalState:
+    """Erratic jitter + strong homing; flies never wander far from the
+    attractor (register_fly_attract semantics).  `jn` [3, n] standard
+    normal draws (x, y, z jitter)."""
+    jx, jy, jz = 0.004 * jn[0], 0.004 * jn[1], 0.004 * jn[2]
+    hx = (center[0] - a.px) * 0.02
+    hy = (center[1] - a.py) * 0.02
+    hz = (center[2] - a.pz) * 0.02
+    vx = torch.clamp(0.9 * a.vx + jx + hx, -0.02, 0.02)
+    vy = torch.clamp(0.9 * a.vy + jy + hy, -0.02, 0.02)
+    vz = torch.clamp(0.9 * a.vz + jz + hz, -0.02, 0.02)
+    return a._replace(px=a.px + vx, py=a.py + vy, pz=a.pz + vz, vx=vx, vy=vy, vz=vz)
+
+
+def step_tank_fish(a: AnimalState, bounds, sep_r: float = 0.02,
+                   max_speed: float = 0.005) -> AnimalState:
+    """Fish schooling inside a box (pet-store tanks / flooded rooms,
+    building_fish.cpp): the flock step plus hard wall reflection."""
+    x1, y1, z1, x2, y2, z2 = bounds
+    a = step_flock(a, z1, z2, sep_r=sep_r, coh_r=0.2, max_speed=max_speed,
+                   home=(0.5 * (x1 + x2), 0.5 * (y1 + y2)))
+    vx = torch.where((a.px < x1) | (a.px > x2), -a.vx, a.vx)
+    vy = torch.where((a.py < y1) | (a.py > y2), -a.vy, a.vy)
+    vz = torch.where((a.pz < z1) | (a.pz > z2), -a.vz, a.vz)
+    return a._replace(px=torch.clamp(a.px, x1, x2), py=torch.clamp(a.py, y1, y2),
+                      pz=torch.clamp(a.pz, z1, z2), vx=vx, vy=vy, vz=vz)
+
+
+class BuildingAnimalDraws(NamedTuple):
+    """K ticks of the building animals' draws, [K, n] per tick: the
+    spiders' (`turn` and `tz` uniform [0, 1) and [0, ceil_z), `ang`
+    uniform [0, 2 pi)), the snakes' (`turn` uniform [0, 1), `dth`
+    uniform [-0.8, 0.8)) and the flies' jitter ([K, 3, n] normal)."""
+
+    spider_turn: torch.Tensor
+    spider_ang: torch.Tensor
+    spider_tz: torch.Tensor
+    snake_turn: torch.Tensor
+    snake_dth: torch.Tensor
+    fly_jitter: torch.Tensor
+
+
+def draw_building_animals(ticks: int, n_spiders: int, n_snakes: int, n_flies: int,
+                          g: torch.Generator, ceil_z: float = 0.5,
+                          device: torch.device | str = "cuda") -> BuildingAnimalDraws:
+    """K ticks' `BuildingAnimalDraws` from a CPU generator, copied to
+    `device`."""
+    u = lambda n, lo=0.0, hi=1.0: _uniform(g, (ticks, n), lo, hi)
+    d = BuildingAnimalDraws(
+        spider_turn=u(n_spiders), spider_ang=u(n_spiders, 0.0, 2 * math.pi),
+        spider_tz=u(n_spiders, 0.0, ceil_z), snake_turn=u(n_snakes),
+        snake_dth=u(n_snakes, -0.8, 0.8),
+        fly_jitter=torch.randn((ticks, 3, n_flies), generator=g, dtype=torch.float32))
+    return BuildingAnimalDraws(*(v.to(device) for v in d))
+
+
+def step_building_animals(spiders: SpiderState, snakes: SnakeState, flies: AnimalState,
+                          fish: AnimalState, draws: BuildingAnimalDraws, room_bounds,
+                          fly_center, tank_bounds, ticks: int):
+    """`ticks` ticks of a room's spiders and snakes (within the xy
+    `room_bounds`), a fly swarm around `fly_center` and tank fish in
+    `tank_bounds`, queued without a host sync; tick k reads row k of
+    `draws`."""
+    for k in range(ticks):
+        spiders = step_spiders(spiders, draws.spider_turn[k], draws.spider_ang[k],
+                               draws.spider_tz[k], room_bounds)
+        snakes = step_snakes(snakes, draws.snake_turn[k], draws.snake_dth[k], room_bounds)
+        flies = step_flies(flies, draws.fly_jitter[k], fly_center)
+        fish = step_tank_fish(fish, tank_bounds)
+    return spiders, snakes, flies, fish
