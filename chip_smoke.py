@@ -177,6 +177,30 @@ Phases, each fatal on failure (no phase hides an error):
       tile manager (64^2 tiles, 4 blades a cell) over tile (12, 8).  Each
       part timed and held on the card against the CPU (host results equal,
       floats 1e-5).
+   m. scenery, weather, model formats and textures, on 3e's scene P (the
+      128^2 mesh, 384 cobj slots): scenery at the loader's placement, the
+      four generators and `scenery_cobjs`, then 4,096 objects over a
+      seeded 512^2 mesh (`scenery_gen_ms`), card vs CPU bitwise; a snow
+      map of 1,048,576 rays in 16 batches (`snow_rays_per_sec`), 2
+      batches of 4,096 flakes on the same draws card vs CPU (cells,
+      heights and the map bitwise) and a sky bake of 131,072 rays at
+      3j's default `TraceParams` with the map as `snow_depth`;
+      precipitation on 10,240 slots holding 2,000 balls, 512 drops a
+      frame (rain and snow in turns) stepped by `step_objects` (4
+      substeps, B and D), accumulated, retired and melted at 2.0 degrees
+      for 64 frames (`precip_ms_per_frame`), and 8 frames of 1,024 slots
+      card vs CPU (accumulation, rain and statuses equal, floats 1e-5);
+      a 128^2 cloud layer at 32 times and the local wind at 10,000
+      positions (1e-6); one 20,480-triangle mesh written in every format
+      (OBJ, binary and ASCII STL and PLY, OFF, DAE, 3DS, glTF, GLB, FBX)
+      and loaded (`model_load_ms`, host; each the OBJ's triangles), a DSL
+      scene naming every format (its table equal to the OBJ scene's) and
+      its narrow phase on the card (plain and kernel C against the CPU);
+      `skin_vertices` of 65,536 vertices over 32 bones (`skin_ms`, 1e-6);
+      the procedural textures at 256^2 (within 1 u8 level, the noise
+      texture equal) and DXT1/DXT5 of them; a checkpoint of the 10,240
+      slots from the card (bitwise) and the mesh and sim-state text
+      files.  Each part's seconds print as `(part <s> s)`.
    Prints time to first result, tiles/s and frames/s, each phase's seconds
    and the script's total, and fails if a kernel was never launched or a
    value is not finite.  D's launches in
@@ -2203,6 +2227,393 @@ def run_building_phase(tmp: str, dev, kernels: dict, reset_counts, read_counts) 
     return out
 
 
+SNOW_RAYS = 1_048_576      # the snow map: 16 batches
+SNOW_BATCH = 65_536
+SNOW_CHECK = (2, 4096)     # batches and flakes a batch held card vs CPU (the CPU's
+                           # ray test costs ~1.6 ms a flake on the card's host)
+SNOW_BAKE_RAYS = 131_072   # the sky bake over the snow map, 2 batches of 65,536
+SCENERY_BIG = (512, 4096)  # mesh side and objects of the large scenery run
+PRECIP = (10_240, GROUND_OBJS, 512, 64)   # slots, balls, drops a frame, frames
+PRECIP_CHECK = (1024, 128, 128, 8)        # the same, card vs CPU
+PRECIP_TEMPERATURE = 2.0   # the melt's temperature
+CLOUDS = (128, 32, 10_000)  # layer side, times, local-wind positions
+MODEL_GRID = (128, 80)     # kernel_probe.grid_model cells: 20,480 triangles
+SCENE_MODEL_GRID = (16, 10)  # 320 triangles a format in the DSL scene
+SKIN = (65_536, 32)        # vertices, bones
+TEXTURE_N = 256
+
+
+def run_weather_phase(tmp: str, dev, kernels: dict, reset_counts, read_counts) -> dict:
+    """Phase 3m in the directory `tmp`: scenery, weather, model formats,
+    skinning, textures and state I/O.
+
+    Scenery on phase 3e's scene P (128^2 mesh, 384 cobj slots) at the
+    loader's placement, the four generators and `scenery_cobjs`; then
+    4,096 objects over a 512^2 mesh (`scenery_gen_ms`).  A snow map of
+    1,048,576 rays in 16 batches over scene P (`snow_rays_per_sec`), a
+    sky bake with it as `snow_depth`, and 2 batches of 4,096 flakes on
+    the same draws.  Precipitation on scene P: 10,240 slots holding 2,000
+    balls, 512 drops a frame (rain and snow frames in turns) stepped by
+    `step_objects` (4 substeps), then accumulation, retirement and melt
+    at 2.0 degrees, 64 frames (`precip_ms_per_frame`).  A 128^2 cloud
+    layer at 32 times and the local wind at 10,000 positions.  One
+    20,480-triangle mesh written in every format and loaded
+    (`model_load_ms`, host), and a DSL scene naming every format, its
+    narrow phase on the card (plain and kernel C).  Skinning of 65,536
+    vertices over 32 bones (`skin_ms`).  The procedural textures at 256^2
+    and DXT1/DXT5 of them.  A checkpoint of the 10,240-slot state from
+    the card and the mesh and sim-state text files.  Every part is held
+    on the card against the CPU: scenery, snow flakes and map,
+    accumulation and statuses bitwise; precipitation floats 1e-5;
+    clouds, wind and skinning 1e-6; textures within 1 u8 level."""
+    from w3d_torch import convert
+    from w3d_torch.export import textures as TX
+    from w3d_torch.lighting import lmap as LM, trace as LT
+    from w3d_torch.ops import noise as N
+    from w3d_torch.ops.cuda import narrow_kernel as NK
+    from w3d_torch.physics import cobjs as PC, step as PS
+    from w3d_torch.scene import animation as AN, cobj as SC, loader as SL
+    from w3d_torch.scene import read_mesh_formats as RF
+    from w3d_torch.terrain import state_io as SIO
+    from w3d_torch.utils import checkpoint as CK, kernel_probe as KP
+    from w3d_torch.utils.constants import WorldConst
+    from w3d_torch.veg import scenery as VS
+    from w3d_torch.water import clouds as WC, precip as WP, snow as WSN
+
+    cpu = torch.device("cpu")
+    out = {"launches": {n: 0 for n in kernels}}
+    clock = {"t": time.perf_counter()}
+
+    def lap() -> str:
+        """The seconds since the last lap, for a part's log line."""
+        now = time.perf_counter()
+        dt, clock["t"] = now - clock["t"], now
+        return f"(part {dt:.1f} s)"
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def timed(fn, reps: int = 1):
+        """(result, median seconds of `reps` calls)."""
+        ts = []
+        for _ in range(reps):
+            sync()
+            t = time.perf_counter()
+            r = fn()
+            sync()
+            ts.append(time.perf_counter() - t)
+        return r, statistics.median(ts)
+
+    def host(v):
+        return convert.to_numpy(v)
+
+    def same(a, b) -> bool:
+        return all(np.array_equal(x, y, equal_nan=x.dtype.kind == "f")
+                   for x, y in zip(_leaves(host(a)), _leaves(host(b))))
+
+    def on_cpu(v):
+        return type(v)(*(t.cpu() if isinstance(t, torch.Tensor) else t for t in v))
+
+    reset_counts()
+    scene = SL.load_scene(KP.write_ground_scene(tmp, "p", objects=GROUND_OBJS), device=dev)
+    world, mesh, cobjs = scene.world, scene.terrain.mesh_height, scene.cobjs
+    wz = float(scene.env.water_plane_z)
+
+    # ---- scenery ----------------------------------------------------------
+    def generate(s, m, w):
+        plants = VS.gen_plants(s, m, w, water_z=wz)
+        return (VS.gen_logs(s, m, w), plants, VS.gen_rocks(s, m, w),
+                VS.plant_leaf_points(plants))
+
+    parts = generate(scene.scenery, mesh, world)
+    table = VS.scenery_cobjs(scene.scenery, *parts[:3], device=dev)
+    cparts = generate(on_cpu(scene.scenery), mesh.cpu(), world)
+    ctable = VS.scenery_cobjs(on_cpu(scene.scenery), *cparts[:3], device=cpu)
+    kinds = np.bincount(host(scene.scenery.kind)[host(scene.scenery.valid)], minlength=5)
+    need(same(parts, cparts) and same(table, ctable),
+         "scenery on scene P: generators and packed cobjs bitwise card vs CPU")
+    side, nobj = SCENERY_BIG
+    big_world = WorldConst(mesh_x=side, mesh_y=side)
+    rng = np.random.default_rng(3)
+    zbig = (0.3 * rng.standard_normal((side, side))).astype(np.float32)
+    nzbig = (rng.random((side, side)) > 0.05).astype(np.float32)
+
+    def big(d):
+        zt, nt = torch.as_tensor(zbig, device=d), torch.as_tensor(nzbig, device=d)
+        s = VS.place_scenery(3, -side // 2, -side // 2, zt, nt, big_world, density=1.0,
+                             max_objs=nobj)
+        return (s,) + generate(s, zt, big_world)
+
+    big(dev)
+    gbig, t_big = timed(lambda: big(dev), reps=5)
+    scenery_gen_ms = 1e3 * t_big
+    need(same(gbig, big(cpu)) and int(gbig[0].valid.sum()) == nobj,
+         f"scenery, {nobj} objects over {side}^2: bitwise card vs CPU, all placed")
+    log(f"scenery: scene P's {int(kinds.sum())} objects (kinds {kinds.tolist()}), "
+        f"{int((table.shape != 0).sum())} cobjs packed; {nobj} objects over a {side}^2 "
+        f"mesh: placement and the four generators {scenery_gen_ms:.3f} ms (median of 5); "
+        f"card vs CPU bitwise {lap()}")
+
+    # ---- snow ---------------------------------------------------------------
+    wind = (0.4, 0.2, 0.0)
+    WSN.create_snow_map(mesh, cobjs, SNOW_BATCH, wind=wind, world=world, seed=1,
+                        batch=SNOW_BATCH)
+    (snow_z, cover), t_snow = timed(lambda: WSN.create_snow_map(
+        mesh, cobjs, SNOW_RAYS, wind=wind, world=world, seed=1, batch=SNOW_BATCH))
+    snow_rays_per_sec = SNOW_RAYS / t_snow
+    need(bool(torch.isfinite(snow_z).all()) and float(cover.sum()) > 0.9 * SNOW_RAYS,
+         "snow map: finite, most flakes on the map")
+    nb, fb = SNOW_CHECK
+    src = WSN.SnowDrawSource(2)
+    n_cells = world.mesh_x * world.mesh_y
+    sums = {"card": 0.0, "cpu": 0.0}
+    moved = zdiff = 0
+    cmesh, ccobjs = mesh.cpu(), on_cpu(cobjs)
+    for i in range(nb):
+        res = {}
+        for name, d, m, c in (("card", dev, mesh, cobjs), ("cpu", cpu, cmesh, ccobjs)):
+            res[name] = WSN.snow_batch(src.batch(i, fb, world, d), m, c,
+                                       torch.tensor(wind, device=d), world)
+            cell, z, ok = res[name]
+            vals = torch.stack([torch.where(ok, z, 0.0), ok.to(torch.float32)], 1)
+            sums[name] = sums[name] + LM.cell_sums(cell.long(), vals, n_cells).cpu()
+        moved += int((res["card"][0].cpu() != res["cpu"][0]).sum())
+        zdiff += int((res["card"][1].cpu() != res["cpu"][1]).sum())
+    maps = {k: torch.where(v[:, 1] > 0, v[:, 0] / torch.clamp(v[:, 1], min=1.0),
+                           cmesh.reshape(-1)) for k, v in sums.items()}
+    own = WSN.create_snow_map(mesh, cobjs, nb * fb, wind=wind, world=world, batch=fb,
+                              draws=src)
+    log(f"snow: {SNOW_RAYS} rays in {SNOW_RAYS // SNOW_BATCH} batches over scene P "
+        f"({cobjs.size} slots): {snow_rays_per_sec / 1e6:.3f} M rays/s "
+        f"({t_snow:.3f} s), {int((cover > 0).sum())} of {n_cells} cells covered; card vs "
+        f"CPU on {nb} batches of {fb}: {moved} of {nb * fb} flakes in another cell, "
+        f"{zdiff} landing heights not equal, maps equal "
+        f"{torch.equal(maps['card'], maps['cpu']) and torch.equal(sums['card'], sums['cpu'])} "
+        f"{lap()}")
+    need(moved == 0 and zdiff == 0 and torch.equal(sums["card"], sums["cpu"])
+         and torch.equal(maps["card"], maps["cpu"])
+         and torch.equal(own[0].reshape(-1).cpu(), maps["card"]),
+         "snow: flakes and map bitwise card vs CPU on the same draws")
+    depth = cover / cover.max()
+    grid, t_bake = timed(lambda: LT.compute_sky_lighting(
+        LM.make_light_grid(world, device=dev), cobjs, mesh, SNOW_BAKE_RAYS, seed=1,
+        params=LT.TraceParams(), world=world, batch=SNOW_BATCH, snow_depth=depth))
+    need(all(bool(torch.isfinite(t).all()) for t in grid) and float(grid.sv.sum()) > 0,
+         "snow: the sky bake over the snow map is finite and lit")
+    log(f"snow: sky bake of {SNOW_BAKE_RAYS} rays with the map as snow_depth "
+        f"{1e3 * t_bake:.1f} ms, sky weight total {float(grid.sv.sum()):.1f} {lap()}")
+
+    # ---- precipitation ------------------------------------------------------
+    cloud_z = float(mesh.max()) + 0.2
+
+    def precip_state(slots, balls, d, m):
+        st = on_cpu(scene.objects) if d == cpu else scene.objects
+        st = PS.ObjectState(*(a[:balls] for a in st))
+        dead = PS.make_state(np.zeros((slots - balls, 3), np.float32),
+                             np.zeros((slots - balls, 3), np.float32),
+                             np.zeros(slots - balls, np.int32), m)
+        dead = dead._replace(status=torch.zeros_like(dead.status))
+        return PS.ObjectState(*(torch.cat([a, b]) for a, b in zip(st, dead)))
+
+    def precip_run(st, env, c, tab, drops, frames, d):
+        acc = torch.zeros((world.mesh_y, world.mesh_x), device=d)
+        rain = torch.zeros((), device=d)
+        landed_n = torch.zeros((), dtype=torch.int64, device=d)
+        for f in range(frames):
+            draws = WP.draw_precip(drops, torch.Generator().manual_seed(7000 + f), world, d)
+            st = WP.spawn_precip(st, draws, "RAIN" if f % 2 == 0 else "SNOW", world,
+                                 cloud_z=cloud_z)
+            st = PS.step_objects(st, env, c, tab, substeps=4, world=world)
+            acc, rv, landed = WP.accumulate_landed(acc, st, None, world)
+            st = WP.retire_landed(st, landed)
+            acc = WP.melt_accumulation(acc, PRECIP_TEMPERATURE)
+            rain = rain + rv
+            landed_n = landed_n + landed.sum()
+        return st, acc, rain, landed_n
+
+    slots, balls, drops, frames = PRECIP
+    (pst, pacc, prain, plnd), t_pr = timed(lambda: precip_run(
+        precip_state(slots, balls, dev, scene.table), scene.env, cobjs, scene.table,
+        drops, frames, dev))
+    precip_ms_per_frame = 1e3 * t_pr / frames
+    need(int(plnd) > 0 and float(pacc.sum()) > 0 and float(prain) > 0
+         and all(bool(torch.isfinite(getattr(pst, f)).all()) for f in ("px", "py", "pz")),
+         "precipitation: drops landed, snow piled up, rain collected, finite")
+    cs, cb, cd, cf = PRECIP_CHECK
+    cenv, ctab = on_cpu(scene.env), on_cpu(scene.table)
+    gres = precip_run(precip_state(cs, cb, dev, scene.table), scene.env, cobjs,
+                      scene.table, cd, cf, dev)
+    cres = precip_run(precip_state(cs, cb, cpu, ctab), cenv, ccobjs, ctab, cd, cf, cpu)
+    fdiff = max(float((getattr(gres[0], f).cpu() - getattr(cres[0], f)).abs().max())
+                for f in ("px", "py", "pz", "vx", "vy", "vz"))
+    exact = all(torch.equal(getattr(gres[0], f).cpu(), getattr(cres[0], f))
+                for f in ("status", "otype", "time", "flags"))
+    log(f"precipitation: {slots} slots, {balls} balls, {drops} drops a frame, {frames} "
+        f"frames of 4 substeps: {precip_ms_per_frame:.3f} ms a frame, {int(plnd)} drops "
+        f"landed, snow {float(pacc.sum()):.1f}, rain volume {float(prain):.2f}, live "
+        f"{int((pst.status > 0).sum())}; card vs CPU over {cf} frames ({cs} slots): "
+        f"accumulation equal {torch.equal(gres[1].cpu(), cres[1])}, rain equal "
+        f"{torch.equal(gres[2].cpu(), cres[2])}, landed {int(gres[3])}/{int(cres[3])}, "
+        f"statuses equal {exact}, floats max diff {fdiff:.3g} {lap()}")
+    need(torch.equal(gres[1].cpu(), cres[1]) and torch.equal(gres[2].cpu(), cres[2])
+         and int(gres[3]) == int(cres[3]) and int(cres[3]) > 0 and exact and fdiff <= 1e-5,
+         "precipitation, card vs CPU: accumulation, rain, statuses equal, floats 1e-5")
+
+    # ---- clouds and wind ----------------------------------------------------
+    n, times_n, npts = CLOUDS
+
+    def layers(d):
+        return torch.stack([WC.cloud_layer(float(t), 0.4, 0.2, n, n, device=d)
+                            for t in range(times_n)])
+
+    layers(dev)
+    gl, t_cl = timed(lambda: layers(dev))
+    cdiff = float((gl.cpu() - layers(cpu)).abs().max())
+    pts = np.random.default_rng(4).uniform(-4, 4, (3, npts)).astype(np.float32)
+    gw = WC.local_wind(*(torch.as_tensor(a, device=dev) for a in pts), (0.4, 0.2, 0.05), 3.0)
+    cw = WC.local_wind(*(torch.as_tensor(a) for a in pts), (0.4, 0.2, 0.05), 3.0)
+    wdiff = max(float((a.cpu() - b).abs().max()) for a, b in zip(gw, cw))
+    log(f"clouds: {times_n} layers of {n}^2 {1e3 * t_cl:.2f} ms, cover mean "
+        f"{float(gl.mean()):.3f}, card vs CPU max diff {cdiff:.3g}; local wind at {npts} "
+        f"positions card vs CPU max diff {wdiff:.3g} {lap()}")
+    need(cdiff <= 1e-6 and wdiff <= 1e-6 and 0 < float(gl.mean()) < 1,
+         "clouds and wind, card vs CPU: 1e-6")
+
+    # ---- model formats ------------------------------------------------------
+    mdir = os.path.join(tmp, "models")
+    os.makedirs(mdir)
+    model = KP.grid_model(*MODEL_GRID)
+    ref = model.positions[model.faces]
+    paths = KP.write_model_files(mdir, model)
+    model_load_ms = {}
+    for fmt, path in paths.items():
+        m, t_load = timed(lambda: RF.load_model(path))
+        model_load_ms[fmt] = 1e3 * t_load
+        need(np.array_equal(m.positions[m.faces], ref), f"model {fmt}: the OBJ's triangles")
+    sdir = os.path.join(tmp, "scene_models")
+    os.makedirs(sdir)
+    spaths = KP.write_model_files(sdir, KP.grid_model(*SCENE_MODEL_GRID))
+    place = [f"Z 0  {2.0 * (i % 4) - 3.0} {2.0 * (i // 4) - 3.0} 0.5\n"
+             for i in range(len(spaths))]
+    texts = {"all": "".join(f"O {os.path.basename(p)} 0 0 0\n" + z
+                            for p, z in zip(spaths.values(), place)),
+             "obj": "".join(f"O {os.path.basename(spaths['obj'])} 0 0 0\n" + z
+                            for z in place)}
+    packed = {}
+    for k, text in texts.items():
+        with open(os.path.join(sdir, f"scene_{k}.txt"), "w") as f:
+            f.write(text)
+        sp = SC.parse_coll_obj_file(os.path.join(sdir, f"scene_{k}.txt"))
+        need(all(m.loaded for m in sp.models), f"DSL scene {k}: every model loaded")
+        packed[k] = SC.pack_cobjs(sp, device=dev)
+    need(same(packed["all"], packed["obj"]), "DSL scene: every format's table equals OBJ's")
+    prng = np.random.default_rng(6)
+    bx = prng.uniform(-4, 4, (3, GROUND_OBJS)).astype(np.float32)
+    bx[2] = 0.5 + 0.4 * bx[2] / 4
+    balls_g = [torch.as_tensor(a, device=dev) for a in bx] + [
+        torch.full((GROUND_OBJS,), 0.05, device=dev)]
+    hits_g = PC.deepest_hits(*balls_g, packed["all"])
+    hits_c = PC.deepest_hits(*(b.cpu() for b in balls_g), on_cpu(packed["all"]))
+    hits_k = NK.deepest_hits(*balls_g, PC.group_cobjs(packed["all"]))
+    pen_d = float((hits_g[1].cpu() - hits_c[1]).abs().max())
+    pen_k = float((hits_k[1] - hits_g[1]).abs().max())
+    nhit = int(hits_g[0].sum())
+    log(f"model formats: a {len(model.faces)}-triangle mesh in {len(paths)} formats, "
+        f"load ms (host): " + ", ".join(f"{k} {v:.1f}" for k, v in model_load_ms.items())
+        + f"; every format's triangles equal the OBJ's; a DSL scene naming every format "
+        f"({int((packed['all'].shape != 0).sum())} cobjs) packs equal to the OBJ scene; "
+        f"its narrow phase on the card: {nhit} of {GROUND_OBJS} balls hit, plain card vs "
+        f"CPU pen max diff {pen_d:.3g}, kernel C vs plain {pen_k:.3g} {lap()}")
+    need(nhit > 0 and torch.equal(hits_g[0].cpu(), hits_c[0]) and pen_d <= 1e-5
+         and torch.equal(hits_k[0], hits_g[0]) and pen_k <= 1e-5,
+         "DSL model scene narrow phase: hits equal, pen 1e-5 (card, CPU, kernel C)")
+
+    # ---- skinning -----------------------------------------------------------
+    nv, nbones = SKIN
+    srng = np.random.default_rng(8)
+    skel = AN.make_simple_skeleton(nbones)
+    chans = {}
+    for b in range(0, nbones, 2):
+        q = srng.standard_normal((3, 4)).astype(np.float32)
+        chans[b] = AN.AnimChannel(np.array([0.0, 0.5, 1.5], np.float32),
+                                  srng.uniform(-0.2, 0.2, (3, 3)).astype(np.float32),
+                                  q / np.linalg.norm(q, axis=1, keepdims=True),
+                                  srng.uniform(0.8, 1.2, 3).astype(np.float32))
+    mats = AN.evaluate_pose(skel, chans, 0.7, device=dev)
+    w = srng.random((nv, 4)).astype(np.float32)
+    sargs = (srng.uniform(-1, 1, (nv, 3)).astype(np.float32),
+             srng.integers(0, nbones, (nv, 4)).astype(np.int32), w / w.sum(1, keepdims=True))
+
+    def skin_args(d, m):
+        pos, ids, wt = (torch.as_tensor(a, device=d) for a in sargs)
+        return pos, AN.SkinWeights(ids, wt), m
+
+    gargs = skin_args(dev, mats)
+    sk_g = AN.skin_vertices(*gargs)
+    skin_ms = KP.events_ms(lambda: AN.skin_vertices(*gargs), launches=20)
+    sdiff = float((sk_g.cpu() - AN.skin_vertices(*skin_args(cpu, mats.cpu()))).abs().max())
+    log(f"skinning: {nv} vertices over {nbones} bones {skin_ms:.4f} ms (CUDA events "
+        f"around 20 calls), card vs CPU max diff {sdiff:.3g} {lap()}")
+    need(sdiff <= 1e-6 and bool(torch.isfinite(sk_g).all()), "skinning, card vs CPU: 1e-6")
+
+    # ---- textures -----------------------------------------------------------
+    tex = {}
+    worst = 0
+    for name in ("cloud", "marble", "plasma", "noise"):
+        fn = getattr(TX, f"{name}_texture")
+        tex[name] = TX.texture_to_u8(fn(TEXTURE_N, device=dev))
+        d = np.abs(tex[name].astype(np.int32)
+                   - TX.texture_to_u8(fn(TEXTURE_N, device=cpu)).astype(np.int32))
+        worst = max(worst, int(d.max()))
+        need(int(d.max()) <= (0 if name == "noise" else 1),
+             f"texture {name}, card vs CPU: within 1 u8 level (noise equal)")
+    rgb = np.repeat(tex["cloud"][..., None], 3, -1)
+    rgba = np.concatenate([tex["plasma"].transpose(1, 2, 0), tex["marble"][..., None]], -1)
+    e1, e5 = TX.dxt1_encode(rgb), TX.dxt5_encode(rgba)
+    same_bytes = all(np.array_equal(a, b) for a, b in zip(e1, TX.dxt1_encode(rgb))) and \
+        all(np.array_equal(a, b) for a, b in zip(e5, TX.dxt5_encode(rgba)))
+    err1 = float(np.abs(TX.dxt1_decode(*e1).astype(int) - rgb.astype(int)).mean())
+    err5 = float(np.abs(TX.dxt5_decode(*e5)[..., 3].astype(int)
+                        - rgba[..., 3].astype(int)).mean())
+    log(f"textures: cloud, marble, plasma and noise at {TEXTURE_N}^2, card vs CPU at most "
+        f"{worst} u8 level apart; DXT1 of the cloud texture (mean error {err1:.2f} "
+        f"levels) and DXT5 of the plasma texture with the marble texture as alpha (alpha "
+        f"error {err5:.2f}), "
+        f"bytes equal on a second encode {same_bytes} {lap()}")
+    need(same_bytes and err1 < 6.0 and err5 < 12.0, "DXT1/DXT5: bytes equal, errors bounded")
+
+    # ---- state and checkpoint I/O -------------------------------------------
+    ck = os.path.join(tmp, "state.npz")
+    CK.save_pytree(ck, pst)
+    back = CK.load_pytree(ck, pst)
+    need(all(torch.equal(a, b) and a.device == b.device for a, b in zip(back, pst)),
+         "checkpoint of the 10,240-slot state: bitwise after the round trip, on the card")
+    mpath = os.path.join(tmp, "mesh.txt")
+    SIO.write_mesh(mpath, mesh)
+    hback = SIO.read_mesh(mpath, expect_shape=tuple(mesh.shape))
+    st_path = os.path.join(tmp, "state.txt")
+    table_t = torch.stack(list(N.gen_sine_table(world, device=dev)), 1)
+    SIO.save_state(st_path, SIO.SimState(2.5, 0.1, 1.2, (1.0, 2.0, 3.0), (0.0, 0.0, 0.5),
+                                         0, 0, 0, 0, 7, 40014, 40692, world.mesh_x,
+                                         world.mesh_y, 9, 10, table_t))
+    sback = SIO.load_state(st_path, expect_dims=(world.mesh_x, world.mesh_y, 9, 10))
+    mdiff = float(np.abs(hback - host(mesh)).max())
+    tdiff = float(np.abs(sback.sine_table - host(table_t)).max())
+    log(f"state: checkpoint of {slots} slots bitwise; mesh text file round trip max diff "
+        f"{mdiff:.3g}, sine table {tdiff:.3g} (6 decimals in the file) {lap()}")
+    need(mdiff <= 1.5e-6 and tdiff <= 1e-6 * max(1.0, float(table_t.abs().max())),
+         "state text files: within their 6 decimals")
+
+    c = read_counts("scenery, weather and formats", ("sample", "narrow", "pairs"))
+    for k in c:
+        out["launches"][k] += c[k]
+    out.update(scenery_gen_ms=scenery_gen_ms, snow_rays_per_sec=snow_rays_per_sec,
+               precip_ms_per_frame=precip_ms_per_frame, model_load_ms=model_load_ms,
+               skin_ms=skin_ms, snow_flakes_moved=moved)
+    return out
+
+
 def _leaves(value) -> list:
     """The numpy arrays of a NamedTuple tree, in field order (None skipped)."""
     if value is None:
@@ -2739,6 +3150,17 @@ def main() -> int:
     for n, c in build3l["launches"].items():
         launches[n] += c
 
+    mark("3m")
+    # ---- 3m. scenery, weather, model formats, textures ----------------------
+    # scenery on scene P and at 4,096 objects, the snow map and a bake over
+    # it, 64 precipitation frames, clouds and wind, every model format and a
+    # DSL scene of them, skinning, textures and DXT, checkpoints; each held
+    # on the card against the CPU (B, C and D launched)
+    with tempfile.TemporaryDirectory() as tmp:
+        weather3m = run_weather_phase(tmp, dev, kernels, reset_counts, read_counts)
+    for n, c in weather3m["launches"].items():
+        launches[n] += c
+
     mark("4")
     # ---- 4. kernels vs plain versions, main-path shapes ------------------
     # Each kernel device-only (a CUDA graph of 20 launches replayed between
@@ -3153,7 +3575,8 @@ def main() -> int:
                     **{k: v for k, v in voxel3i.items() if k != "launches"},
                     **{k: v for k, v in light3j.items() if k != "launches"},
                     **{k: v for k, v in world3k.items() if k != "launches"},
-                    **{k: v for k, v in build3l.items() if k != "launches"}},
+                    **{k: v for k, v in build3l.items() if k != "launches"},
+                    **{k: v for k, v in weather3m.items() if k != "launches"}},
         "card": smi}))
     log(json.dumps({"kernels": [
         {"name": srcs[n][0], "route": "cuda", "source": srcs[n][1],

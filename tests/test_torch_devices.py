@@ -45,6 +45,36 @@ from w3d_torch.city import objects as CO, people as CPE, tunnels as CTN
 from w3d_torch.veg import animals as VA, grass as VGR, trees as VT
 from w3d_torch.export import map_view as MV
 from w3d_torch import full_world as FW
+from w3d_torch.water import clouds as WC, precip as WP, snow as WSN
+from w3d_torch.export import textures as TX, texture_catalog as TC
+from w3d_torch.veg import scenery as VS
+from w3d_torch.scene import animation as SA
+
+
+def _snow_map_file(device=None):
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "snow.npz")
+        WSN.save_snow_map(path, np.zeros((4, 4), np.float32), np.zeros((4, 4), np.float32))
+        return WSN.load_snow_map(path)[0] if device is None else \
+            WSN.load_snow_map(path, device=device)[0]
+
+
+def _scenery_cobjs(device=None):
+    """Scenery packed from CPU sets: the table goes to `device`, the card
+    unless given."""
+    z = torch.zeros(2)
+    s = VS.ScenerySet(z, z, z, torch.tensor([VS.S_ROCK, VS.S_STUMP]), z + 0.05, z,
+                      torch.ones(2, dtype=torch.bool))
+    mesh, w = torch.zeros((4, 4)), WorldConst(mesh_x=4, mesh_y=4)
+    parts = (VS.gen_logs(s, mesh, w), VS.gen_plants(s, mesh, w), VS.gen_rocks(s, mesh, w))
+    kw = {} if device is None else dict(device=device)
+    return VS.scenery_cobjs(s, *parts, **kw).r1
+
+
+def _pose(device=None):
+    sk = SA.make_simple_skeleton(2)
+    return SA.evaluate_pose(sk, {}, 0.0) if device is None else \
+        SA.evaluate_pose(sk, {}, 0.0, device=device)
 
 
 def _city_objects():
@@ -219,6 +249,35 @@ MAKERS = {
         _TINY, FW.WorldDraws(), WorldConst(mesh_x=8, mesh_y=8))[0].mesh_height,
     "full_world.physics_section": lambda: FW.physics_section(
         _TINY, FW.WorldDraws(), WorldConst(mesh_x=8, mesh_y=8))[0].state.px,
+    "draw_precip": lambda: WP.draw_precip(4, torch.Generator()).x,
+    "draw_snow": lambda: WSN.draw_snow(4, torch.Generator()).na,
+    "load_snow_map": _snow_map_file,
+    "cloud_layer": lambda: WC.cloud_layer(0.0, 0.1, 0.1, 4, 4),
+    "cloud_texture": lambda: TX.cloud_texture(4),
+    "marble_texture": lambda: TX.marble_texture(4),
+    "plasma_texture": lambda: TX.plasma_texture(4),
+    "noise_texture": lambda: TX.noise_texture(4),
+    "texture_catalog.fbm_ramp": lambda: TC.fbm_ramp(4, (0.0, 0.0, 0.0), (1.0, 1.0, 1.0)),
+    "rock_field": lambda: VS.rock_field(1, 4),
+    "scenery_cobjs": _scenery_cobjs,
+    "evaluate_pose": _pose,
+}
+
+# the same functions asked for the CPU
+ON_CPU = {
+    "draw_precip": lambda: WP.draw_precip(4, torch.Generator(), device="cpu").x,
+    "draw_snow": lambda: WSN.draw_snow(4, torch.Generator(), device="cpu").na,
+    "load_snow_map": lambda: _snow_map_file("cpu"),
+    "cloud_layer": lambda: WC.cloud_layer(0.0, 0.1, 0.1, 4, 4, device="cpu"),
+    "cloud_texture": lambda: TX.cloud_texture(4, device="cpu"),
+    "marble_texture": lambda: TX.marble_texture(4, device="cpu"),
+    "plasma_texture": lambda: TX.plasma_texture(4, device="cpu"),
+    "noise_texture": lambda: TX.noise_texture(4, device="cpu"),
+    "texture_catalog.fbm_ramp": lambda: TC.fbm_ramp(4, (0.0, 0.0, 0.0), (1.0, 1.0, 1.0),
+                                                    device="cpu"),
+    "rock_field": lambda: VS.rock_field(1, 4, device="cpu"),
+    "scenery_cobjs": lambda: _scenery_cobjs("cpu"),
+    "evaluate_pose": lambda: _pose("cpu"),
 }
 
 
@@ -230,3 +289,8 @@ def test_defaults_to_the_card(name):
     else:
         with pytest.raises((AssertionError, RuntimeError), match="(?i)cuda"):
             make()
+
+
+@pytest.mark.parametrize("name", sorted(ON_CPU))
+def test_runs_on_the_cpu_when_asked(name):
+    assert ON_CPU[name]().device.type == "cpu"

@@ -129,8 +129,11 @@ def test_import_leaves_jax_out():
     dlights, the tracer, platform and group volumes, the sweep, building
     lighting), of the voxel engine, of the rest of the city (objects,
     tunnels, model instances, malls and backrooms, basement water,
-    interaction, building gameplay), of trees and grass, of the map view
-    and of the full-world build loads no jax, no
+    interaction, building gameplay), of trees and grass, of the map view,
+    of the full-world build, of scenery, weather, state and checkpoint I/O,
+    the profiler and edit menus, every model format, skinning, mesh
+    optimization and textures, and the subpackages that import them, loads
+    no jax, no
     module of the JAX package and nothing from its directory (its compiled
     `native/` parser included)."""
     code = ("import os, sys, w3d_torch, w3d_torch.entry, w3d_torch.convert, "
@@ -167,7 +170,15 @@ def test_import_leaves_jax_out():
             "w3d_torch.city.model_instances, w3d_torch.city.mall_backrooms, "
             "w3d_torch.city.building_water, w3d_torch.city.bldg_interact, "
             "w3d_torch.city.bldg_gameplay, w3d_torch.veg.trees, w3d_torch.veg.grass, "
-            "w3d_torch.export.map_view, w3d_torch.full_world; "
+            "w3d_torch.export.map_view, w3d_torch.full_world, "
+            "w3d_torch.scene, w3d_torch.water, w3d_torch.veg, w3d_torch.utils, "
+            "w3d_torch.export, w3d_torch.terrain.state_io, w3d_torch.utils.profiler, "
+            "w3d_torch.utils.edit_ui, w3d_torch.water.snow, w3d_torch.water.precip, "
+            "w3d_torch.water.clouds, w3d_torch.scene.read_mesh_formats, "
+            "w3d_torch.scene.read_3ds, w3d_torch.scene.read_gltf, "
+            "w3d_torch.scene.read_fbx, w3d_torch.scene.animation, "
+            "w3d_torch.scene.mesh_opt, w3d_torch.export.textures, "
+            "w3d_torch.export.texture_catalog; "
             "jaxdir = os.path.join(os.getcwd(), '3dworld_tpu'); "
             "bad = sorted(m for m, v in sys.modules.items() if m == 'jax' "
             "or m.startswith('jax.') or m == 'w3d' or m.startswith('w3d.') "

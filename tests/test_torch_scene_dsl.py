@@ -318,16 +318,16 @@ def test_models_match_jax(tmp_path):
 
 
 def test_other_model_format_raises(tmp_path):
-    """A model in a format the port does not read raises (the JAX package
-    loads it through read_mesh_formats); a missing one is skipped."""
-    (tmp_path / "ship.glb").write_bytes(b"glTF\x02\x00\x00\x00junk")
-    (tmp_path / "scene.txt").write_text("O ship.glb 0 0 0\n")
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        TSC.parse_coll_obj_file(str(tmp_path / "scene.txt"))
-    (tmp_path / "bad.obj").write_text("v 0 0\nf 1 2 3\n")
-    (tmp_path / "scene2.txt").write_text("O bad.obj 0 0 0\n")
-    with pytest.raises(RuntimeError, match="bad.obj"):
-        TSC.parse_coll_obj_file(str(tmp_path / "scene2.txt"))
+    """Unreadable models in another format than OBJ and in OBJ no longer
+    raise: as in the JAX package, each is left unloaded with no cobjs and
+    the scene loads (every format reads through read_mesh_formats; the
+    formats themselves are held in tests/test_torch_model_formats.py)."""
+    files = {"ship.glb": "glTF\x02\x00\x00\x00junk", "bad.obj": "v 0 0\nf 1 2 3\n"}
+    jsp, tsp = _parse_both(tmp_path, "O ship.glb 0 0 0\nO bad.obj 0 0 0\nS 0 0 0 1\n",
+                           files=files)
+    assert dataclasses.asdict(jsp) == dataclasses.asdict(tsp)
+    assert [m.loaded for m in tsp.models] == [False, False] and len(tsp.cobjs) == 1
+    _check_pack(jsp, tsp)
 
 
 def test_include_carries_state(tmp_path):

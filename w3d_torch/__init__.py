@@ -15,7 +15,8 @@ Conventions:
   the plain PyTorch version for CPU tensors and the CUDA kernel for CUDA
   tensors (and raises rather than falling back).
 
-Currently ported: the combined world step (`entry.combined_step`: the
-terrain tile batch and the spheres physics frame) and all of ground mode
-(`app.run_ground`, FPS game mode included); ROADMAP.md lists the rest.
+Ported: every single-device module of the JAX package, from the combined
+world step (`entry.combined_step`) and the three modes of `app.main` to
+the full-world build, weather, model formats and textures; ROADMAP.md
+lists what is left (the multi-device modules).
 """

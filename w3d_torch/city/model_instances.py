@@ -18,10 +18,9 @@ pure-export equivalent of the reference's instanced draw (north star
 decouples rendering behind a mesh/state export).
 
 Port of `3dworld_tpu/city/model_instances.py` (host code, copied): the
-traffic states are the port's tensors, read back once per call.  The
-port reads OBJ model files (`scene/model3d.load_obj`); the other formats
-the JAX package's `read_mesh_formats` reads are not ported, so their rows
-take the procedural fallback, like a missing file.
+traffic states are the port's tensors, read back once per call.  Model
+files of every format load through `scene/read_mesh_formats.load_model`;
+an unreadable one takes the procedural fallback, like a missing file.
 """
 
 from __future__ import annotations
@@ -218,11 +217,11 @@ def _resolve_mesh_uncached(spec: CityModelSpec, base_dir: str) -> Model3d:
     if not os.path.isabs(path):
         path = os.path.normpath(os.path.join(base_dir, path))
     mesh = None
-    if os.path.exists(path) and os.path.splitext(path)[1].lower() == ".obj":
-        from ..scene.model3d import load_obj
+    if os.path.exists(path):
+        from ..scene.read_mesh_formats import LOAD_ERRORS, load_model
         try:
-            mesh = load_obj(path)
-        except (OSError, ValueError, IndexError):
+            mesh = load_model(path)
+        except LOAD_ERRORS:
             mesh = None     # unreadable file: nonfatal skip
     if mesh is None:
         mesh = _fallback_mesh(spec.kind)

@@ -11,7 +11,8 @@ particle states, group specs, teleporters and waypoint graphs carry
 across field by field, and so do the tiled mode's values: the city state
 (without the JAX key, whose draws are the port's `CityDraws`), the road
 graph, the pedestrian nav, building people, animals, butterflies and
-tiles; and the universe's: fleets, combat tables, projectile pools and
+tiles; the scenery sets, skeletons, skin weights, animation channels and
+saved sim states; and the universe's: fleets, combat tables, projectile pools and
 combat states, asteroid fields, the player ship, planet claims and 3-D
 sine tables; and the lighting and voxel values: light grids, dlights,
 recorded platform rays and voxel grids.  `to_numpy` goes the other way,
@@ -38,7 +39,9 @@ from .water.ripples import RippleState
 from .gameplay.player import PlayerState
 from .terrain.mesh import TerrainState
 from .physics.platforms import PlatformSet, TriggerSet
-from .veg.scenery import ScenerySet
+from .veg.scenery import ScenerySet, LogSet, PlantSet, RockSet
+from .scene.animation import Skeleton, SkinWeights, AnimChannel
+from .terrain.state_io import SimState
 from .lighting.lmap import LightGrid
 from .lighting.dlights import DLights
 from .lighting.accum import AccumRays
@@ -157,6 +160,39 @@ def trigger_set(src, device) -> TriggerSet:
 
 def scenery_set(src, device) -> ScenerySet:
     return _named(ScenerySet, src, device)
+
+
+def log_set(src, device) -> LogSet:
+    return _named(LogSet, src, device)
+
+
+def plant_set(src, device) -> PlantSet:
+    return _named(PlantSet, src, device)
+
+
+def rock_set(src, device) -> RockSet:
+    return _named(RockSet, src, device)
+
+
+def skin_weights(src, device) -> SkinWeights:
+    return _named(SkinWeights, src, device)
+
+
+def skeleton(src) -> Skeleton:
+    """A Skeleton (host numpy arrays, as in the JAX package)."""
+    return Skeleton(*(np.array(getattr(src, f)) for f in Skeleton._fields))
+
+
+def anim_channel(src) -> AnimChannel:
+    """An AnimChannel (host numpy keyframes, as in the JAX package)."""
+    return AnimChannel(*(np.array(getattr(src, f)) for f in AnimChannel._fields))
+
+
+def sim_state(src, device) -> SimState:
+    """A SimState: the header fields as they are, the sine table a tensor
+    on `device`."""
+    return SimState(*(getattr(src, f) for f in SimState._fields[:-1]),
+                    array(src.sine_table, device))
 
 
 def smiley_ai(src, device) -> SmileyAI:

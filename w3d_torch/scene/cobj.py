@@ -23,10 +23,10 @@ draw-edge flags, sounds, popup text) are still parsed with the correct
 arity — they land in the spec lists or `ignored` counts, never in
 `skipped`.  `skipped` counts unknown or malformed commands.
 
-One difference from the JAX package: an `O` model that exists in another
-format than OBJ (or the `.model3d.npz` cache) raises NotImplementedError,
-where the JAX package loads it through `read_mesh_formats`; a missing
-model file is skipped by both.
+An `O` model loads through `read_mesh_formats.load_model` in any format
+it reads (or from the `.model3d.npz` cache), as in the JAX package; a
+missing model file is skipped, and a file that fails to parse leaves the
+model unloaded (`loaded` False, no cobjs).
 """
 
 from __future__ import annotations
@@ -1263,9 +1263,13 @@ def _try_load_model(ms: ModelSpec, sp: SceneParse, scene_path: str,
     """'O' model load: resolve the file next to the scene or the reference
     layout; extract polygon cobjs at group_cobjs_level<4.  Missing model
     files are nonfatal (reference prints and skips,
-    build_world.cpp:1446-1450).  OBJ files and `.model3d.npz` caches
-    load; any other format raises NotImplementedError (ROADMAP Queue 1,
-    item 5d: model formats other than OBJ are not ported)."""
+    build_world.cpp:1446-1450), and so is a file that fails to parse: the
+    model loads no cobjs and `ms.loaded` is False, as in the JAX package.
+    `.model3d.npz` caches load directly; every other format dispatches
+    through `read_mesh_formats.load_model`."""
+    from .model3d import model_to_cobjs, Model3d
+    from .read_mesh_formats import LOAD_ERRORS, load_model
+
     cands = [ms.filename,
              os.path.join(os.path.dirname(scene_path), ms.filename),
              os.path.join(os.path.dirname(os.path.dirname(scene_path)),
@@ -1273,24 +1277,19 @@ def _try_load_model(ms: ModelSpec, sp: SceneParse, scene_path: str,
     fn = next((c for c in cands if os.path.exists(c)), None)
     if fn is None or ms.group_cobjs_level >= 4:
         return fn is not None
-    from .model3d import load_obj, model_to_cobjs, Model3d
-    low = fn.lower()
-    if low.endswith(".obj"):
-        try:
-            model = load_obj(fn)
-        except (ValueError, IndexError) as e:   # not a parse error of the scene
-            raise RuntimeError(f"model {fn}: {e}") from e
-    elif low.endswith((".model3d", ".model3d.npz", ".npz")):
-        # binary model cache (model3d.cpp cache path; ours is the
-        # Model3d._asdict() npz written by load_obj)
-        with np.load(fn) as z:
-            model = Model3d(**{k: z[k] for k in Model3d._fields})
-    else:
-        raise NotImplementedError(
-            f"model {fn}: only OBJ models are ported (ROADMAP Queue 1, "
-            f"item 5d: other model formats)")
+    try:
+        if fn.lower().endswith((".model3d", ".model3d.npz", ".npz")):
+            # binary model cache (model3d.cpp cache path; ours is the
+            # Model3d._asdict() npz written by load_obj)
+            with np.load(fn) as z:
+                model = Model3d(**{k: z[k] for k in Model3d._fields})
+        else:
+            model = load_model(fn)
+        cobjs = model_to_cobjs(model).cobjs
+    except LOAD_ERRORS:
+        return False
     raw = []
-    for rc in model_to_cobjs(model).cobjs:
+    for rc in cobjs:
         raw.append(tuple(tuple(p) for p in rc.pts))
         pts = tuple(xf.xform_pos(tuple(p)) for p in rc.pts)
         add_cobj(COLL_POLYGON, pts[0], r1=0.0, pts=pts)

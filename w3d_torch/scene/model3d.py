@@ -1,13 +1,13 @@
-"""Model I/O, the OBJ path (port of `3dworld_tpu/scene/model3d.py`; pure
-host code).
+"""Model I/O: OBJ loading, binary model cache, cobj extraction (port of
+`3dworld_tpu/scene/model3d.py`; pure host code).
 
 The reference's `model3d` (model3d.h:539, model3d.cpp) holds per-material
 indexed triangle meshes with a binary `.model3d` cache.  Here: `.obj`
 files parse in Python (the JAX package may use its compiled `w3dnative`
 parser for the same subset; the port never loads it), the binary cache is
 the JAX package's `.model3d.npz` format next to the file, and cobj
-extraction turns model triangles into COLL_POLYGON entries.  Other model
-formats are not ported.
+extraction turns model triangles into COLL_POLYGON entries.  The other
+formats read through `read_mesh_formats.load_model`.
 """
 
 from __future__ import annotations

@@ -412,6 +412,120 @@ def write_voxel_scene(dirname: str, small: bool = False, objects: int = 2000) ->
     return path
 
 
+MODEL_FORMATS = ("obj", "stl", "stl_ascii", "ply", "ply_ascii", "off", "dae",
+                 "3ds", "gltf", "glb", "fbx")
+
+
+def grid_model(cells_x: int = 128, cells_y: int = 80):
+    """A displaced grid of 2 x cells_x x cells_y triangles (20,480 at the
+    defaults, 10,449 vertices) as a `Model3d`.  Every coordinate is a
+    multiple of 1/64 below 16 in magnitude, so each text format writes it
+    exactly and STL's 6-decimal vertex merge leaves it as it is."""
+    from w3d_torch.scene.model3d import Model3d
+
+    yi, xi = np.meshgrid(np.arange(cells_y + 1), np.arange(cells_x + 1), indexing="ij")
+    z = np.round(16.0 * np.sin(0.11 * xi) * np.cos(0.07 * yi)) / 64.0
+    pos = np.stack([(xi - cells_x / 2) / 16.0, (yi - cells_y / 2) / 16.0, z], -1)
+    pos = pos.reshape(-1, 3).astype(np.float32)
+    v = (yi[:-1, :-1] * (cells_x + 1) + xi[:-1, :-1]).reshape(-1)
+    a, b, c, d = v, v + 1, v + cells_x + 2, v + cells_x + 1
+    faces = np.stack([np.stack([a, b, c], 1), np.stack([a, c, d], 1)], 1)
+    faces = faces.reshape(-1, 3).astype(np.int32)
+    none = -np.ones_like(faces)
+    return Model3d(positions=pos, normals=np.zeros((0, 3), np.float32),
+                   uvs=np.zeros((0, 2), np.float32), faces=faces,
+                   face_normals=none, face_uvs=none)
+
+
+def write_model_files(dirname: str, model, stem: str = "model") -> dict:
+    """Write `model`'s positions and triangles in every format
+    `read_mesh_formats.load_model` reads (`MODEL_FORMATS`: OBJ, binary and
+    ASCII STL, binary and ASCII PLY, OFF, COLLADA, 3DS, glTF with a data
+    URI, GLB, binary FBX) into `dirname`; return {format: path}."""
+    import base64
+    import json
+    import struct
+
+    from w3d_torch.scene.read_3ds import write_3ds
+    from w3d_torch.scene.read_fbx import write_fbx
+
+    V = np.asarray(model.positions, np.float32)
+    F = np.asarray(model.faces, np.int32)
+    fmt = "%.9g %.9g %.9g"
+    paths = {}
+
+    def path(kind, ext):
+        paths[kind] = os.path.join(dirname, f"{stem}_{kind}.{ext}")
+        return paths[kind]
+
+    with open(path("obj", "obj"), "w") as f:
+        f.writelines(f"v {fmt % tuple(v)}\n" for v in V)
+        f.writelines(f"f {a + 1} {b + 1} {c + 1}\n" for a, b, c in F)
+    tri = V[F]                                              # [F, 3, 3]
+    with open(path("stl", "stl"), "wb") as f:
+        rec = np.zeros(len(F), [("n", "<f4", 3), ("v", "<f4", (3, 3)), ("a", "<u2")])
+        rec["v"] = tri
+        f.write(b"\x00" * 80 + struct.pack("<I", len(F)) + rec.tobytes())
+    with open(path("stl_ascii", "stl"), "w") as f:
+        f.write("solid m\n")
+        for t in tri:
+            f.write("facet normal 0 0 1\nouter loop\n")
+            f.writelines(f"vertex {fmt % tuple(v)}\n" for v in t)
+            f.write("endloop\nendfacet\n")
+        f.write("endsolid m\n")
+    head = ("ply\nformat {} 1.0\nelement vertex %d\nproperty float x\n"
+            "property float y\nproperty float z\nelement face %d\n"
+            "property list uchar int vertex_indices\nend_header\n") % (len(V), len(F))
+    with open(path("ply", "ply"), "wb") as f:
+        faces = np.zeros(len(F), [("k", "u1"), ("i", "<i4", 3)])
+        faces["k"], faces["i"] = 3, F
+        f.write(head.format("binary_little_endian").encode() + V.astype("<f4").tobytes()
+                + faces.tobytes())
+    with open(path("ply_ascii", "ply"), "w") as f:
+        f.write(head.format("ascii"))
+        f.writelines(f"{fmt % tuple(v)}\n" for v in V)
+        f.writelines(f"3 {a} {b} {c}\n" for a, b, c in F)
+    with open(path("off", "off"), "w") as f:
+        f.write(f"OFF\n{len(V)} {len(F)} 0\n")
+        f.writelines(f"{fmt % tuple(v)}\n" for v in V)
+        f.writelines(f"3 {a} {b} {c}\n" for a, b, c in F)
+    with open(path("dae", "dae"), "w") as f:
+        f.write('<?xml version="1.0"?>\n<COLLADA xmlns="http://www.collada.org/'
+                '2005/11/COLLADASchema" version="1.4.1"><library_geometries>'
+                '<geometry id="g"><mesh><source id="pos"><float_array id="pa">'
+                + " ".join("%.9g" % x for x in V.ravel())
+                + '</float_array></source><vertices id="verts"><input '
+                'semantic="POSITION" source="#pos"/></vertices><triangles><input '
+                'semantic="VERTEX" source="#verts" offset="0"/><p>'
+                + " ".join(map(str, F.ravel()))
+                + "</p></triangles></mesh></geometry></library_geometries></COLLADA>\n")
+    write_3ds(path("3ds", "3ds"), model)
+    blob = V.tobytes() + F.astype("<u4").tobytes()
+    doc = {"asset": {"version": "2.0"},
+           "buffers": [{"byteLength": len(blob)}],
+           "bufferViews": [{"buffer": 0, "byteOffset": 0, "byteLength": V.nbytes},
+                           {"buffer": 0, "byteOffset": V.nbytes,
+                            "byteLength": F.nbytes}],
+           "accessors": [{"bufferView": 0, "componentType": 5126, "count": len(V),
+                          "type": "VEC3"},
+                         {"bufferView": 1, "componentType": 5125, "count": F.size,
+                          "type": "SCALAR"}],
+           "meshes": [{"primitives": [{"attributes": {"POSITION": 0}, "indices": 1}]}]}
+    with open(path("glb", "glb"), "wb") as f:
+        js = json.dumps(doc).encode()
+        js += b" " * (-len(js) % 4)
+        binc = blob + b"\x00" * (-len(blob) % 4)
+        f.write(struct.pack("<III", 0x46546C67, 2, 28 + len(js) + len(binc))
+                + struct.pack("<II", len(js), 0x4E4F534A) + js
+                + struct.pack("<II", len(binc), 0x004E4942) + binc)
+    doc["buffers"][0]["uri"] = ("data:application/octet-stream;base64,"
+                                + base64.b64encode(blob).decode())
+    with open(path("gltf", "gltf"), "w") as f:
+        json.dump(doc, f)
+    write_fbx(path("fbx", "fbx"), model)
+    return paths
+
+
 def lighting_bench_scene(SC=None):
     """The scene of scripts/lighting_bench.py, built with `SC`'s classes
     (default: the port's): a floor cube and 60 spheres of radius 0.1-0.4,
