@@ -201,6 +201,25 @@ Phases, each fatal on failure (no phase hides an error):
       texture equal) and DXT1/DXT5 of them; a checkpoint of the 10,240
       slots from the card (bitwise) and the mesh and sim-state text
       files.  Each part's seconds print as `(part <s> s)`.
+   3n. The multi-device layer (`w3d_torch/parallel/`, `lighting/parallel`,
+      the sharded steps): four ranks spawned by `parallel.launch.run_ranks`,
+      all on this card over gloo (collectives staged through the host; NCCL
+      refuses two ranks on one card), the kernels built here first.  The
+      sharded 10K frame (10,240 balls, 10 substeps, window 288, pairs every
+      5th substep: D with `i_limit` = the 2,560-ball slab on every rank) for
+      3 frames against single-rank `step_objects` (status and flags equal,
+      positions and velocities within rtol 2e-4, atol 2e-5); the sharded
+      tile step (256 tiles of 128^2, 64 a rank) bitwise against one call;
+      the sharded combined step at `entry()`'s shapes (8 tiles, 2,048
+      balls) against `combined_step`; the shadow chain over 16 tiles of
+      128^2 (exact bitwise one scan of the strip, carry bitwise exact for
+      axis-aligned lights); the AO halo context at halo 36; the sky bake on
+      3j's scene, 65,536 rays a rank, bitwise run to run and bitwise the
+      rank-order sum of four single-rank `trace_batch` chains on the same
+      draws.  Then one rank over NCCL: the sharded frame and the bake
+      against the unsharded calls.  Prints ms per sharded frame, tiles/s,
+      rays/s and the bytes exchanged a frame, each labelled "4 ranks on one
+      card, gloo through the host", and every rank's launches.
    Prints time to first result, tiles/s and frames/s, each phase's seconds
    and the script's total, and fails if a kernel was never launched or a
    value is not finite.  D's launches in
@@ -283,6 +302,9 @@ TOLS = {"erosion": "bitwise equal to the plain version and across two runs",
 
 
 SCENE_FRAMES = 64
+SHARD_RANKS = 4
+SHARD_OBJS = 10240       # the sharded frame's balls: 2,560 a rank
+SHARD_RAYS = 65536       # the sharded bake's rays a rank
 
 
 def log(*a):
@@ -2614,6 +2636,360 @@ def run_weather_phase(tmp: str, dev, kernels: dict, reset_counts, read_counts) -
     return out
 
 
+def _sharded_inputs():
+    """The inputs of phase 3n, made on the host from fixed seeds (the same
+    for the ranks and for this process's single-rank references)."""
+    from w3d_torch.models import physics_model as PM
+    from w3d_torch.models import terrain_model as TMOD
+    from w3d_torch.utils.constants import WorldConst
+
+    world = WorldConst()
+    gen = torch.Generator().manual_seed(77)
+    pos, vel = PM.spawn(SHARD_OBJS, gen, device="cpu")
+    tcfg = TMOD.TileModelConfig(tile_size=128, erosion_iters_tt=512, erosion_batch=512,
+                                erosion_steps=64, use_pallas_erosion=True)
+    tiles = TMOD.example_inputs(tcfg, world, gen, num_tiles=NUM_TILES, device="cpu")
+    ecfg = TMOD.TileModelConfig(tile_size=128, erosion_iters_tt=512, erosion_batch=128,
+                                erosion_steps=64, use_pallas_erosion=True)
+    etiles = TMOD.example_inputs(ecfg, world, gen, num_tiles=8, device="cpu")
+    epos, evel = PM.spawn(2048, gen, device="cpu")
+    walls = torch.zeros((16, 128, 128))
+    walls[3, :, 100] = 12.0      # from -x its shadow runs 640 cells: ranks 0 -> 2
+    walls[12, :, 30] = 6.0       # from +x 320 cells: rank 3 -> 2
+    rough = torch.rand((16, 128, 128), generator=gen) * 2.0
+    return dict(world=world, pos=pos, vel=vel, tcfg=tcfg, tiles=tiles, ecfg=ecfg,
+                etiles=etiles, epos=epos, evel=evel, walls=walls, rough=rough)
+
+
+def _to(value, dev):
+    """Tensors of a (nested) tuple onto `dev`."""
+    if isinstance(value, torch.Tensor):
+        return value.to(dev)
+    if isinstance(value, tuple):
+        items = [_to(v, dev) for v in value]
+        return type(value)(*items) if hasattr(value, "_fields") else tuple(items)
+    return value
+
+
+SHADOW_LIGHTS = {"from_-x": (-1.0, 0.0, 0.3), "from_+x": (1.0, 0.0, 0.3)}
+
+
+def rank_3n(mesh, inp: dict) -> dict:
+    """One rank of phase 3n (spawned by `run_ranks`; every rank on the
+    card).  Rank 0 returns the gathered results, every rank its timings,
+    launches and bytes received."""
+    from w3d_torch import entry as EN
+    from w3d_torch.lighting import lmap as LM, parallel as LPAR, trace as LT
+    from w3d_torch.models import physics_model as PM
+    from w3d_torch.models import terrain_model as TMOD
+    from w3d_torch.ops import shadows as SH
+    from w3d_torch.ops.cuda import pairs_kernel as PK
+    from w3d_torch.parallel import halo as PH, launch as LA
+    from w3d_torch.parallel.mesh import all_gather_stack, barrier, gather_leading, local_block
+    from w3d_torch.parallel.pairs import make_step_objects_sharded
+    from w3d_torch.scene import cobj as SC
+    from w3d_torch.utils import kernel_probe as KP
+
+    dev, world = mesh.device, inp["world"]
+    out, keep = {}, {}
+
+    def timed(fn):
+        barrier(mesh)
+        t0 = time.perf_counter()
+        r = fn()
+        barrier(mesh)
+        return r, time.perf_counter() - t0
+
+    # the sharded 10K frame; D's calls recorded (rows, i_limit)
+    calls = []
+    plain_pairs = PK.banded_pairs
+
+    def spy(*a, **kw):
+        calls.append((a[0].shape[0], kw.get("i_limit")))
+        return plain_pairs(*a, **kw)
+    PK.banded_pairs = spy
+    sw = PM.build_spheres_world(inp["pos"].to(dev), inp["vel"].to(dev), world=world, device=dev)
+    step = make_step_objects_sharded(mesh, substeps=SUBSTEPS, world=world, window=WINDOW,
+                                     pair_every=5, water=False)
+    slab = local_block(sw.state, mesh)
+    frames, frame_s, frame_bytes, frame_d = [], [], [], []
+    for _ in range(3):
+        mesh.traffic.reset()
+        c0 = LA.launch_counts()["pairs"]
+        slab, dt = timed(lambda: step(slab, sw.env, sw.cobjs, sw.table))
+        frame_s.append(dt)
+        frame_bytes.append(mesh.traffic.bytes)
+        frame_d.append(LA.launch_counts()["pairs"] - c0)
+        frames.append(gather_leading(slab, mesh))
+    PK.banded_pairs = plain_pairs
+    out.update(frame_s=frame_s, frame_bytes=frame_bytes, frame_d=frame_d,
+               d_calls=sorted(set(calls)), slab=slab.px.shape[0])
+    keep["frames"] = frames
+
+    # the sharded tile step, 64 tiles a rank
+    table, x0, y0, ze, wpz, ang = _to(inp["tiles"], dev)
+    tstep = TMOD.make_sharded_tile_step(mesh, inp["tcfg"], world)
+    c0 = LA.launch_counts()["erosion"]
+    tiles, t_first = timed(lambda: tstep(table, x0, y0, ze, wpz, ang))
+    _, t_tiles = timed(lambda: tstep(table, x0, y0, ze, wpz, ang))
+    out.update(tile_s=(t_first, t_tiles), tile_a=LA.launch_counts()["erosion"] - c0)
+    keep["tiles"] = gather_leading(tiles, mesh)
+
+    # the sharded combined step at entry()'s shapes
+    esw = PM.build_spheres_world(inp["epos"].to(dev), inp["evel"].to(dev), world=world,
+                                 device=dev)
+    cstep = EN.make_sharded_combined_step(mesh, inp["ecfg"], world, substeps=4)
+    (ctiles, cst), t_comb = timed(lambda: cstep(*_to(inp["etiles"], dev),
+                                                local_block(esw.state, mesh), esw))
+    out["combined_s"] = t_comb
+    keep["combined"] = (gather_leading(ctiles, mesh), gather_leading(cst, mesh))
+
+    # shadows across ranks and the AO halo context
+    walls, rough = inp["walls"].to(dev), inp["rough"].to(dev)
+    init = torch.full((128,), SH.MESH_MIN_Z, device=dev)
+    keep["shadows"], out["shadow_s"] = {}, {}
+    for name, light in SHADOW_LIGHTS.items():
+        for mode in ("exact", "carry"):
+            run = PH.make_sharded_shadow_scan(mesh, light, 0.0625, mode=mode)
+            sh, dt = timed(lambda: run(local_block(walls, mesh), init))
+            keep["shadows"][name, mode] = gather_leading(sh, mesh)
+            out["shadow_s"][name, mode] = dt
+    ctx, out["halo_s"] = timed(lambda: PH.make_halo_context(mesh, 36)(local_block(rough, mesh)))
+    keep["halo"] = gather_leading(ctx, mesh)
+
+    # the sky bake, 65,536 rays a rank, twice
+    cobjs = SC.pack_cobjs(KP.lighting_bench_scene(), device=dev)
+    hf = torch.full((world.mesh_y, world.mesh_x), -0.6, device=dev)
+    c0 = LA.launch_counts()["sample"]
+    mesh.traffic.reset()
+
+    def bake():
+        return LPAR.compute_sky_lighting_sharded(
+            mesh, LM.make_light_grid(world, device=dev), cobjs, hf, SHARD_RANKS * SHARD_RAYS,
+            seed=7, params=LT.TraceParams(), world=world, batch=SHARD_RAYS)
+    ga, ta = timed(bake)
+    gb, tb = timed(bake)
+    out.update(bake_s=(ta, tb), bake_b=LA.launch_counts()["sample"] - c0, bake_bytes=mesh.traffic.bytes,
+               bake_same=all(torch.equal(a, b) for a, b in zip(ga, gb)))
+    # the merge alone: the all_gather of the 12 channels, staged through the host
+    vol = torch.zeros((len(LPAR.ACCUM_FIELDS),) + tuple(ga.sv.shape), device=dev)
+    _, out["merge_s"] = timed(lambda: all_gather_stack(vol, mesh))
+    keep["bake"] = ga
+    if mesh.rank == 0:
+        out.update(keep)
+    return out
+
+
+def rank_3n_nccl(mesh, inp: dict) -> dict:
+    """Phase 3n on one rank over NCCL: the sharded 10K frame (3 frames) and
+    the sky bake, for comparison with the unsharded calls."""
+    from w3d_torch.lighting import lmap as LM, parallel as LPAR, trace as LT
+    from w3d_torch.models import physics_model as PM
+    from w3d_torch.parallel.mesh import gather_leading, local_block
+    from w3d_torch.parallel.pairs import make_step_objects_sharded
+    from w3d_torch.scene import cobj as SC
+    from w3d_torch.utils import kernel_probe as KP
+
+    dev, world = mesh.device, inp["world"]
+    sw = PM.build_spheres_world(inp["pos"].to(dev), inp["vel"].to(dev), world=world, device=dev)
+    step = make_step_objects_sharded(mesh, substeps=SUBSTEPS, world=world, window=WINDOW,
+                                     pair_every=5, water=False)
+    slab, frames = local_block(sw.state, mesh), []
+    for _ in range(3):
+        slab = step(slab, sw.env, sw.cobjs, sw.table)
+        frames.append(gather_leading(slab, mesh))
+    grid = LPAR.compute_sky_lighting_sharded(
+        mesh, LM.make_light_grid(world, device=dev),
+        SC.pack_cobjs(KP.lighting_bench_scene(), device=dev),
+        torch.full((world.mesh_y, world.mesh_x), -0.6, device=dev), SHARD_RAYS, seed=7,
+        params=LT.TraceParams(), world=world, batch=SHARD_RAYS)
+    return {"frames": frames, "bake": grid, "backend": mesh.backend}
+
+
+def run_sharded_phase(dev, smi: str) -> dict:
+    """Phase 3n: the multi-device layer, four ranks sharing this card over
+    gloo, then one rank over NCCL, each against the single-rank calls here.
+    Returns the metrics and the launches summed over the ranks."""
+    from w3d_torch import entry as EN
+    from w3d_torch.lighting import lmap as LM, parallel as LPAR, trace as LT
+    from w3d_torch.models import physics_model as PM
+    from w3d_torch.models import terrain_model as TMOD
+    from w3d_torch.ops import shadows as SH
+    from w3d_torch.parallel import launch as LA
+    from w3d_torch.physics import step as PS
+    from w3d_torch.scene import cobj as SC
+    from w3d_torch.utils import kernel_probe as KP
+
+    label = f"4 ranks on one card, gloo through the host; {smi}"
+    inp = _sharded_inputs()
+    world = inp["world"]
+    t0 = time.perf_counter()
+    ranks = LA.run_ranks(rank_3n, SHARD_RANKS, "gloo", "cuda:0", inp, timeout=600)
+    log(f"3n: {SHARD_RANKS} gloo ranks on cuda:0 ran in {time.perf_counter() - t0:.1f} s "
+        f"(spawn and CUDA start included)")
+    r0 = ranks[0].value
+    for r, res in enumerate(ranks):
+        v = res.value
+        log(f"3n rank {r}: launches {res.launches}; D launches a frame {v['frame_d']}, "
+            f"calls (rows, i_limit) {v['d_calls']}; A launches {v['tile_a']}; B in the bakes "
+            f"{v['bake_b']}")
+        need(all(d > 0 for d in v["frame_d"]), f"3n rank {r}: D launched in every frame")
+        need(v["d_calls"] == [(v["slab"] + WINDOW, v["slab"])],
+             f"3n rank {r}: D over slab + halo rows with i_limit = the slab")
+        need(v["slab"] < SHARD_OBJS, "3n: i_limit below n")
+        for k in ("erosion", "sample", "narrow", "pairs"):
+            need(res.launches[k] > 0, f"3n rank {r}: {k} launched")
+        need(v["bake_same"], f"3n rank {r}: two bakes of one seed bitwise equal")
+
+    # the sharded 10K frame against single-rank step_objects
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t0
+
+    sw = PM.build_spheres_world(inp["pos"].to(dev), inp["vel"].to(dev), world=world, device=dev)
+    st, singles, single_s = sw.state, [], []
+    for _ in range(3):
+        st, dt = timed(lambda: PS.step_objects(
+            st, sw.env, sw.cobjs, sw.table, substeps=SUBSTEPS, world=world, obj_collisions=True,
+            pair_window=WINDOW, pair_every=5, water=False))
+        singles.append(st)
+        single_s.append(dt)
+    for f, (a, b) in enumerate(zip(singles, r0["frames"])):
+        need(torch.equal(a.status.cpu(), b.status) and torch.equal(a.flags.cpu(), b.flags),
+             f"3n frame {f}: status and flags equal to single-rank step_objects")
+        errs = {}
+        for name in ("px", "py", "pz", "vx", "vy", "vz"):
+            x, y = getattr(a, name).cpu(), getattr(b, name)
+            errs[name] = float((x - y).abs().max())
+            need(bool(((x - y).abs() <= 2e-5 + 2e-4 * x.abs()).all()),
+                 f"3n frame {f}: {name} within rtol 2e-4, atol 2e-5")
+        log(f"3n sharded 10K frame {f} vs single rank: max |diff| "
+            + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+            + f"; bitwise {all(torch.equal(getattr(a, k).cpu(), getattr(b, k)) for k in PS.ObjectState._fields)}")
+    alive = int((r0["frames"][-1].status > 0).sum())
+    need(alive > 0.9 * SHARD_OBJS, f"3n: alive {alive}")
+    frame_ms = [1e3 * statistics.median(res.value["frame_s"][f] for res in ranks)
+                for f in range(3)]
+    frame_bytes = [sum(res.value["frame_bytes"][f] for res in ranks) for f in range(3)]
+    log(f"3n sharded 10K frame ({label}): ms per frame {[round(x, 3) for x in frame_ms]}, "
+        f"bytes received a frame over all ranks {frame_bytes}; one process here, the same "
+        f"frames: {[round(1e3 * x, 3) for x in single_s]} ms")
+
+    # the tile step against one call
+    targs = _to(inp["tiles"], dev)
+    tiles1 = TMOD.tile_batch_step(*targs, inp["tcfg"], world)
+    _, t_one = timed(lambda: TMOD.tile_batch_step(*targs, inp["tcfg"], world))
+    need(torch.equal(tiles1.cpu(), r0["tiles"]), "3n sharded tile step bitwise the single call")
+    t_tiles = statistics.median(res.value["tile_s"][1] for res in ranks)
+    log(f"3n sharded tile step ({label}): 256 tiles in {1e3 * t_tiles:.1f} ms, "
+        f"{NUM_TILES / t_tiles:.1f} tiles/s (first call "
+        f"{1e3 * r0['tile_s'][0]:.1f} ms); bitwise equal to the single-rank call, which took "
+        f"{1e3 * t_one:.1f} ms here ({NUM_TILES / t_one:.1f} tiles/s)")
+
+    # the combined step against combined_step
+    esw = PM.build_spheres_world(inp["epos"].to(dev), inp["evel"].to(dev), world=world,
+                                 device=dev)
+    etiles, est = EN.combined_step(*_to(inp["etiles"], dev), esw.state, esw, inp["ecfg"],
+                                   world, substeps=4)
+    ctiles, cst = r0["combined"]
+    need(torch.equal(etiles.cpu(), ctiles), "3n combined step: tiles bitwise")
+    need(torch.equal(est.status.cpu(), cst.status), "3n combined step: status equal")
+    cerr = max(float((getattr(est, k).cpu() - getattr(cst, k)).abs().max())
+               for k in ("px", "py", "pz", "vx", "vy", "vz"))
+    need(all(bool(((getattr(est, k).cpu() - getattr(cst, k)).abs()
+                   <= 2e-5 + 2e-4 * getattr(est, k).cpu().abs()).all())
+             for k in ("px", "py", "pz", "vx", "vy", "vz")),
+         "3n combined step: objects within rtol 2e-4, atol 2e-5")
+    log(f"3n sharded combined step (entry shapes, {label}): {1e3 * r0['combined_s']:.1f} ms, "
+        f"tiles bitwise, objects max |diff| {cerr:.3g}")
+
+    # shadows and the halo context
+    walls = inp["walls"].to(dev)
+    strip = torch.cat(list(walls), dim=1)
+    for name, light in SHADOW_LIGHTS.items():
+        whole, _ = SH.mesh_shadows(strip, light, cell_w=0.0625)
+        exact = r0["shadows"][name, "exact"]
+        need(torch.equal(torch.cat(list(exact), dim=1), whole.cpu()),
+             f"3n shadows {name}: exact bitwise one scan of the strip")
+        need(torch.equal(r0["shadows"][name, "carry"], exact), f"3n shadows {name}: carry == exact")
+        crossing = sorted({t // 4 for t in range(16) if bool(exact[t].any())})
+        need(len(crossing) >= 2, f"3n shadows {name}: the shadow crosses ranks")
+        log(f"3n shadows {name}: exact {1e3 * r0['shadow_s'][name, 'exact']:.1f} ms, carry "
+            f"{1e3 * r0['shadow_s'][name, 'carry']:.1f} ms ({label}); bitwise the strip scan, "
+            f"shadowed ranks {crossing}")
+    rough = inp["rough"]
+    left = torch.cat([rough[:1, :, :36], rough[:-1, :, -36:]])
+    right = torch.cat([rough[1:, :, :36], rough[-1:, :, -36:]])
+    need(torch.equal(r0["halo"], torch.cat([left, rough, right], -1)),
+         "3n AO halo context: every tile's 36-column halos")
+    log(f"3n AO halo context, halo 36, 16 tiles: {1e3 * r0['halo_s']:.1f} ms; exact")
+
+    # the bake against four single-rank chains, summed in rank order
+    cobjs = SC.pack_cobjs(KP.lighting_bench_scene(), device=dev)
+    hf = torch.full((world.mesh_y, world.mesh_x), -0.6, device=dev)
+    params = LT._auto_transmission(LT.TraceParams(), cobjs)
+    draws = LT.DrawSource(dev)
+    vols, chain_s = [], []
+    for r in range(SHARD_RANKS):
+        def chain():
+            local = LM.make_light_grid(world, device=dev)
+            rays = LT.sky_rays(draws(7, r, 0, 1), SHARD_RAYS, world,
+                               ray_weight=float(SHARD_RAYS))
+            return LT.trace_batch(local, cobjs, hf, *rays, draws(7, r, 0, 2),
+                                  ltype=LM.LIGHTING_SKY, params=params, world=world)
+        local, dt = timed(chain)
+        chain_s.append(dt)
+        vols.append(torch.stack([getattr(local, f) for f in LPAR.ACCUM_FIELDS]))
+    total = vols[0]
+    for v in vols[1:]:
+        total = total + v
+    bake = r0["bake"]
+    need(all(torch.equal(getattr(bake, f), total[i].cpu())
+             for i, f in enumerate(LPAR.ACCUM_FIELDS)),
+         "3n sky bake bitwise the rank-order sum of four single-rank chains")
+    need(float(bake.sv.sum()) > 0 and bool(torch.isfinite(bake.sv).all()), "3n bake lit")
+    t_bake = statistics.median(res.value["bake_s"][1] for res in ranks)
+    rays_s = SHARD_RANKS * SHARD_RAYS / t_bake
+    log(f"3n sharded sky bake ({label}): {SHARD_RANKS} x {SHARD_RAYS} rays in "
+        f"{1e3 * t_bake:.1f} ms, {rays_s / 1e6:.3f} M rays/s (first bake "
+        f"{1e3 * r0['bake_s'][0]:.1f} ms), bytes received over all ranks "
+        f"{sum(res.value['bake_bytes'] for res in ranks)} for two bakes, the merge alone "
+        f"{1e3 * statistics.median(res.value['merge_s'] for res in ranks):.1f} ms; bitwise run "
+        f"to run and equal to the rank-order sum of four single-rank chains, which took "
+        f"{[round(1e3 * x, 1) for x in chain_s]} ms here one after another "
+        f"({SHARD_RANKS * SHARD_RAYS / sum(chain_s) / 1e6:.3f} M rays/s)")
+
+    # one rank over NCCL against the unsharded calls
+    t0 = time.perf_counter()
+    one = LA.run_ranks(rank_3n_nccl, 1, "nccl", None, inp, timeout=300)[0]
+    v = one.value
+    need(v["backend"] == "nccl", "3n: the one-rank group runs NCCL")
+    same = [all(torch.equal(getattr(a, k).cpu(), getattr(b, k)) for k in PS.ObjectState._fields)
+            for a, b in zip(singles, v["frames"])]
+    for f, (a, b) in enumerate(zip(singles, v["frames"])):
+        need(torch.equal(a.status.cpu(), b.status), f"3n nccl frame {f}: status equal")
+        for k in ("px", "py", "pz", "vx", "vy", "vz"):
+            x, y = getattr(a, k).cpu(), getattr(b, k)
+            need(bool(((x - y).abs() <= 2e-5 + 2e-4 * x.abs()).all()),
+                 f"3n nccl frame {f}: {k} within rtol 2e-4, atol 2e-5")
+    bake_same = all(torch.equal(getattr(v["bake"], f), vols[0][i].cpu())
+                    for i, f in enumerate(LPAR.ACCUM_FIELDS))
+    need(float(v["bake"].sv.sum()) > 0, "3n nccl bake lit")
+    log(f"3n one rank over NCCL ({time.perf_counter() - t0:.1f} s): frames bitwise "
+        f"single-rank step_objects {same}; bake bitwise rank 0's single chain {bake_same}; "
+        f"launches {one.launches}")
+    launches = {n: sum(res.launches[n] for res in ranks) + one.launches[n]
+                for n in ranks[0].launches}
+    return {"launches": launches,
+            "sharded_ms_per_frame_10k_4ranks_1card": statistics.median(frame_ms),
+            "sharded_bytes_per_frame_10k": statistics.median(frame_bytes),
+            "sharded_tiles_per_sec_4ranks_1card": NUM_TILES / t_tiles,
+            "sharded_sky_rays_per_sec_4ranks_1card": rays_s}
+
+
 def _leaves(value) -> list:
     """The numpy arrays of a NamedTuple tree, in field order (None skipped)."""
     if value is None:
@@ -3161,6 +3537,12 @@ def main() -> int:
     for n, c in weather3m["launches"].items():
         launches[n] += c
 
+    mark("3n")
+    # ---- 3n. the multi-device layer: 4 gloo ranks on this card, 1 over NCCL
+    shard3n = run_sharded_phase(dev, smi)
+    for n, c in shard3n["launches"].items():
+        launches[n] += c
+
     mark("4")
     # ---- 4. kernels vs plain versions, main-path shapes ------------------
     # Each kernel device-only (a CUDA graph of 20 launches replayed between
@@ -3576,7 +3958,8 @@ def main() -> int:
                     **{k: v for k, v in light3j.items() if k != "launches"},
                     **{k: v for k, v in world3k.items() if k != "launches"},
                     **{k: v for k, v in build3l.items() if k != "launches"},
-                    **{k: v for k, v in weather3m.items() if k != "launches"}},
+                    **{k: v for k, v in weather3m.items() if k != "launches"},
+                    **{k: v for k, v in shard3n.items() if k != "launches"}},
         "card": smi}))
     log(json.dumps({"kernels": [
         {"name": srcs[n][0], "route": "cuda", "source": srcs[n][1],

@@ -132,8 +132,9 @@ def test_import_leaves_jax_out():
     interaction, building gameplay), of trees and grass, of the map view,
     of the full-world build, of scenery, weather, state and checkpoint I/O,
     the profiler and edit menus, every model format, skinning, mesh
-    optimization and textures, and the subpackages that import them, loads
-    no jax, no
+    optimization and textures, the multi-device layer (the mesh, the
+    launcher, the halo exchange, the sharded pair pass and bake, the dry
+    run), and the subpackages that import them, loads no jax, no
     module of the JAX package and nothing from its directory (its compiled
     `native/` parser included)."""
     code = ("import os, sys, w3d_torch, w3d_torch.entry, w3d_torch.convert, "
@@ -178,7 +179,9 @@ def test_import_leaves_jax_out():
             "w3d_torch.scene.read_3ds, w3d_torch.scene.read_gltf, "
             "w3d_torch.scene.read_fbx, w3d_torch.scene.animation, "
             "w3d_torch.scene.mesh_opt, w3d_torch.export.textures, "
-            "w3d_torch.export.texture_catalog; "
+            "w3d_torch.export.texture_catalog, w3d_torch.parallel, "
+            "w3d_torch.parallel.mesh, w3d_torch.parallel.launch, w3d_torch.parallel.halo, "
+            "w3d_torch.parallel.pairs, w3d_torch.lighting.parallel, w3d_torch.dryrun; "
             "jaxdir = os.path.join(os.getcwd(), '3dworld_tpu'); "
             "bad = sorted(m for m, v in sys.modules.items() if m == 'jax' "
             "or m.startswith('jax.') or m == 'w3d' or m.startswith('w3d.') "

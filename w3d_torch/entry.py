@@ -6,6 +6,10 @@ droplet erosion) and advances the spheres population one physics frame
 over the first tile.  On a CUDA device every hand-written kernel of the
 port runs in it: erosion, mesh sampling, the narrow phase and the banded
 pair pass.
+
+`make_sharded_combined_step` is the same step over the ranks of a
+`parallel.mesh.Mesh`: the tiles split over the ranks, the population in
+slabs of its sorted order with the halo pair pass.
 """
 
 from __future__ import annotations
@@ -16,6 +20,8 @@ from .utils.constants import WorldConst, DEFAULT_WORLD
 from .models import terrain_model as TMOD
 from .models import physics_model as PM
 from .physics import step as PS
+from .parallel.mesh import Mesh, broadcast
+from .parallel.pairs import make_step_objects_sharded
 
 
 def combined_step(table, x0, y0, zmax_est, wpz, angles,
@@ -53,3 +59,23 @@ def entry(device: torch.device | str, generator: torch.Generator,
                              mcfg, world)
 
     return fn, (*targs, sw.state)
+
+
+def make_sharded_combined_step(mesh: Mesh, mcfg: TMOD.TileModelConfig,
+                               world: WorldConst = DEFAULT_WORLD,
+                               substeps: int = 4, window: int = PS.PAIR_WINDOW):
+    """`combined_step` over the mesh's ranks.  Returns ``step(table, x0, y0,
+    zmax_est, wpz, angles, slab, sw) -> (tiles, slab)``: the whole [T]
+    origins in and the rank's block of the tiles out; `slab` the rank's
+    block of the population, `sw` the scene (whole on every rank).  The
+    frame runs over tile 0, which rank 0 computes and broadcasts."""
+    tile_step = TMOD.make_sharded_tile_step(mesh, mcfg, world)
+    frame = make_step_objects_sharded(mesh, substeps=substeps, world=world, window=window)
+
+    def step(table, x0, y0, zmax_est, wpz, angles, slab: PS.ObjectState,
+             sw: PM.SpheresWorld):
+        tiles = tile_step(table, x0, y0, zmax_est, wpz, angles)
+        env = sw.env._replace(mesh_height=broadcast(tiles[0], mesh, 0))
+        return tiles, frame(slab, env, sw.cobjs, sw.table)
+
+    return step

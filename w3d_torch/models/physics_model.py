@@ -7,6 +7,8 @@ the reference's ">10K dynamic objects" scale (README.md:18).  The JAX
 package spawns the balls with threefry draws, which torch cannot
 reproduce, so `build_spheres_world` takes the spawn positions and
 velocities; `spawn` draws them from a `torch.Generator`.
+`make_sharded_frame_step` splits the population over the ranks of a
+`parallel.mesh.Mesh`.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ from ..utils.constants import WorldConst, DEFAULT_WORLD
 from ..utils.rng import RandGen
 from ..physics import types as PT, step as PS, cobjs as PC
 from ..scene import cobj as SC
+from ..parallel.mesh import Mesh
+from ..parallel.pairs import make_step_objects_sharded
 
 
 class SpheresWorld(NamedTuple):
@@ -102,3 +106,27 @@ def frame_step(w: SpheresWorld, substeps: int = 4,
                          obj_collisions=obj_collisions,
                          pair_every=pair_every, water=water)
     return w._replace(state=st)
+
+
+def make_sharded_frame_step(mesh: Mesh, substeps: int, world: WorldConst,
+                            obj_collisions: bool = True,
+                            pair_window: int | None = None):
+    """Object-axis data parallelism: ``step(w) -> w`` where `w.state` is the
+    rank's slab of the population (`parallel.mesh.local_block`) and the
+    scene is whole on every rank.  With collisions on (the default) the
+    exact banded pair pass runs domain-decomposed: slabs of the globally
+    sorted order with a `pair_window`-rank halo (`parallel/pairs.py`);
+    without, each rank steps its slab alone."""
+    if obj_collisions:
+        inner = make_step_objects_sharded(mesh, substeps=substeps, world=world,
+                                          window=pair_window or PS.PAIR_WINDOW)
+
+        def step(w: SpheresWorld) -> SpheresWorld:
+            return w._replace(state=inner(w.state, w.env, w.cobjs, w.table))
+        return step
+
+    def step(w: SpheresWorld) -> SpheresWorld:
+        return w._replace(state=PS.step_objects(w.state, w.env, w.cobjs, w.table,
+                                                substeps=substeps, world=world,
+                                                obj_collisions=False))
+    return step

@@ -12,8 +12,9 @@ Both of the JAX package's erosion paths are ported, and both walk through
 the erosion kernel on the card: `use_pallas_erosion=False` (the default,
 the JAX XLA path) gives each tile a roam ring of `ops/erosion.PAD` cells,
 and `use_pallas_erosion=True` (the JAX TPU kernel path) walks the tile
-maps without one (border droplets die at the edge).  The sharded variant
-is not ported yet.
+maps without one (border droplets die at the edge).
+`make_sharded_tile_step` splits the tile batch over the ranks of a
+`parallel.mesh.Mesh` (each tile's droplets stay on its rank).
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from ..utils.constants import WorldConst, DEFAULT_WORLD
 from ..ops import noise as N
 from ..ops import erosion as E
 from ..terrain import mesh as TM
+from ..parallel.mesh import Mesh, local_block
 
 
 class TileModelConfig(NamedTuple):
@@ -92,6 +94,19 @@ def tile_batch_step(table: N.SineTable, x0, y0, zmax_est, wpz,
                     max_steps=mcfg.erosion_steps,
                     pad=0 if mcfg.use_pallas_erosion else E.PAD)
     return z
+
+
+def make_sharded_tile_step(mesh: Mesh, mcfg: TileModelConfig,
+                           world: WorldConst = DEFAULT_WORLD):
+    """The tile batch split over the mesh's ranks (data parallel over
+    tiles).  Returns ``step(table, x0, y0, zmax_est, wpz, angles)``: the
+    whole [T] origins on every rank in, the rank's [T / n, n, n] block of
+    the tiles out.  The erosion `angles` are replicated: every tile walks
+    the same droplets."""
+    def step(table, x0, y0, zmax_est, wpz, angles):
+        return tile_batch_step(table, local_block(x0, mesh), local_block(y0, mesh),
+                               zmax_est, wpz, angles, mcfg, world)
+    return step
 
 
 def example_inputs(mcfg: TileModelConfig, world: WorldConst,

@@ -287,7 +287,11 @@ def _substep(state: ObjectState, env: PhysicsEnv,
              cobjs: CobjSet | GroupedCobjs | None,
              table: T.ObjTypeTable, tstep: float, world: WorldConst,
              run_pairs: bool, pair_window: int = PAIR_WINDOW,
-             water: bool = True) -> ObjectState:
+             water: bool = True, pair_fn=None) -> ObjectState:
+    """One substep of length `tstep`.  `pair_fn(px, py, pz, vx, vy, vz,
+    radius, mass, elas, active)`, when given, computes the pair deltas in
+    place of the banded pass over the whole population (the sharded frame
+    passes its halo pair pass, `parallel/pairs.make_halo_pair_fn`)."""
     rad, air, fric, grav, elas, dens, tv, mass, _life = _type_params(state.otype, table)
 
     alive = state.status > 0
@@ -542,8 +546,12 @@ def _substep(state: ObjectState, env: PhysicsEnv,
     # --- dynamic object-object collisions (sorted-band broad phase) ---
     if run_pairs:
         act = alive & (rad >= T.LARGE_OBJ_RAD)
-        dpx, dpy, dpz, dvx, dvy, dvz = PK.banded_pairs(
-            px, py, pz, vx, vy, vz, rad, mass, elas, act, window=pair_window)
+        if pair_fn is None:
+            deltas = PK.banded_pairs(px, py, pz, vx, vy, vz, rad, mass, elas, act,
+                                     window=pair_window)
+        else:
+            deltas = pair_fn(px, py, pz, vx, vy, vz, rad, mass, elas, act)
+        dpx, dpy, dpz, dvx, dvy, dvz = deltas
         px = px + torch.where(act, dpx, 0.0)
         py = py + torch.where(act, dpy, 0.0)
         pz = pz + torch.where(act, dpz, 0.0)
