@@ -220,6 +220,35 @@ Phases, each fatal on failure (no phase hides an error):
       against the unsharded calls.  Prints ms per sharded frame, tiles/s,
       rays/s and the bytes exchanged a frame, each labelled "4 ranks on one
       card, gloo through the host", and every rank's launches.
+   3o. The agent-sharded city frame and the ship-sharded combat frame
+      (`parallel/city`, `parallel/combat`), four gloo ranks on this card,
+      then one rank over NCCL.  The city of 3g's `bench_live_tiled` world
+      after its first chunk (64 cars and 128 pedestrians, 16 and 32 a rank;
+      8 birds, 2 trains, 4 helicopters and the tower's 48 people
+      replicated): one chunk of 32 chained frames on the chunk's draws,
+      twice, bit for bit the single-rank `city_frames_chained`.  Combat at
+      3h's scale point (the x8 defs: 1,248 ships in 1,560 slots, 390 a
+      rank; a pool of 1,024, 256 a rank; 8 weapon slots), the fleets
+      brought 0.17 closer: 32 chained frames, twice, bit for bit the
+      single-rank `combat_frames_chained`; the first chunk counts the
+      projectile spawns, fighter launches, PD shots, impacts and captures
+      (each also where its other end lies on another rank) and needs each
+      non-zero, the second (timed) counts nothing.  The same chunk with
+      every weapon's damage 1.1 times as much (damages whose sums round
+      by their order): shields and armor (the impact sums over the pool)
+      within 1e-5 of the single-rank chain, every other field bit for
+      bit; and how many of 1,560 one-hot column sums a rank's quarter
+      rounds apart from the whole block, by `torch.sum` and by the
+      row-order scan the frame uses (none).  A scripted
+      boarding of a disabled frigate on rank 0 by a shuttle on rank 1
+      always runs beside it.  The dry run's seven
+      phases on the four ranks (`dryrun.run`).  Over NCCL, one rank: the
+      dry run's seven phases, and phases 6-7 at the 4-rank sizes bit for
+      bit the unsharded calls.  Prints ms per frame (median over ranks of
+      the host clock between barriers), the bytes received a frame, and
+      the single process's ms per frame in the same call.  The city and
+      combat frames launch none of the kernels; the dry runs' phases 1-5
+      launch A-D, counted in the kernels line.
    Prints time to first result, tiles/s and frames/s, each phase's seconds
    and the script's total, and fails if a kernel was never launched or a
    value is not finite.  D's launches in
@@ -2662,9 +2691,11 @@ def _sharded_inputs():
 
 
 def _to(value, dev):
-    """Tensors of a (nested) tuple onto `dev`."""
+    """Tensors of a (nested) tuple or dict onto `dev`."""
     if isinstance(value, torch.Tensor):
         return value.to(dev)
+    if isinstance(value, dict):
+        return {k: _to(v, dev) for k, v in value.items()}
     if isinstance(value, tuple):
         items = [_to(v, dev) for v in value]
         return type(value)(*items) if hasattr(value, "_fields") else tuple(items)
@@ -2988,6 +3019,325 @@ def run_sharded_phase(dev, smi: str) -> dict:
             "sharded_bytes_per_frame_10k": statistics.median(frame_bytes),
             "sharded_tiles_per_sec_4ranks_1card": NUM_TILES / t_tiles,
             "sharded_sky_rays_per_sec_4ranks_1card": rays_s}
+
+
+# ---- 3o: the agent-sharded city frame and the ship-sharded combat frame ----
+
+AGENT_FRAMES = 32        # one chunk of chained frames (bench_live_tiled's, app.py's)
+
+
+def _agent_inputs(dev, tmp: str) -> dict:
+    """The inputs of phase 3o on the host: 3g's tiled world's city after its
+    first chunk with the next chunk's draws, and 3h's scale point's combat
+    state (the fleets 0.17 closer) with 32 frames of draws."""
+    from w3d_torch.universe import combat as UCB, ship_config as USC, ships as USH
+    from w3d_torch.utils import kernel_probe as KP
+    from w3d_torch.utils import profile_step as PROF
+
+    tw = PROF.tiled_world(dev, chunk=AGENT_FRAMES)
+    tw.step_chunk(0.0, 0.0)
+    city = dict(cs=tw.city, graph=tw.road_graph, nav=tw.ped_nav, pads=tw.pads,
+                perches=tw.perches, rail=tw.rail,
+                draws=tw.draws.city(tw.frame, AGENT_FRAMES, tw))
+    defs = USC.parse_ship_defs(KP.write_ship_defs(os.path.join(tmp, "ship_defs_x8.txt"),
+                                                  SCALE_MULTIPLIER))
+    ct = UCB.build_combat_tables(defs, device="cpu")
+    rng = np.random.default_rng(5)
+    fl, _t, _o, _n = USH.fleet_from_defs(
+        defs, lambda n: rng.uniform(-1.0, 1.0, (n, 3)).astype(np.float32))
+    n0 = len(fl.px)
+    cs = UCB.make_combat_state(UCB.pad_fleet(fl, n0 + max(16, n0 // 4)), ct, pool_size=1024)
+    cs = cs._replace(fleet=cs.fleet._replace(px=cs.fleet.px - 0.17 * (cs.fleet.align == 5)))
+    draws = UCB.draw_combat(AGENT_FRAMES, *cs.cool.shape, torch.Generator().manual_seed(9))
+    # a shuttle in slot 4 (rank 1) boards the disabled frigate in slot 0 (rank 0)
+    tbl = USC.ship_class_table(defs)
+    gap = 0.8 * UCB.BOARD_REACH * (tbl[17, 7] + tbl[2, 7])
+    rows = np.zeros(16, np.int32)
+    rows[0], rows[4] = 2, 17
+    z = np.zeros(16, np.float32)
+    px = z.copy()
+    px[0] = gap
+    alive = np.zeros(16, bool)
+    alive[[0, 4]] = True
+    ai = np.full(16, USH.AI_ATT_ENEMY, np.int32)
+    ai[0] = USH.AI_NONE
+    sh, ar = tbl[rows, 3].copy(), tbl[rows, 2].copy()
+    sh[0], ar[0] = 0.0, 0.2 * tbl[2, 2]
+    bf = USH.FleetState(px=px, py=z, pz=z, vx=z, vy=z, vz=z, cls=rows,
+                        align=(np.arange(16) == 0).astype(np.int32), armor=ar, shields=sh,
+                        cooldown=z, alive=alive, ai=ai)
+    board = UCB.make_combat_state(bf, ct, pool_size=16)
+    bdraws = UCB.draw_combat(12, 16, ct.slot_wid.shape[1], torch.Generator().manual_seed(10))
+    return _to(dict(city=city, combat=(cs, ct, draws), board=(board, bdraws)), "cpu")
+
+
+def _non_dyadic(ct):
+    """The combat tables with every weapon's damage 1.1 times as much: beam,
+    PD and impact damages whose sums round by their order."""
+    from w3d_torch.universe import combat as UCB
+    w = ct.w_tbl.clone()
+    w[:, UCB.WF_DAMAGE] *= 1.1
+    return ct._replace(w_tbl=w)
+
+
+def _column_sum_rounding(dev) -> dict:
+    """Of N = 1,560 one-hot column sums (each ship's target among N,
+    non-dyadic amounts), how many a rank's [N, N/4] block rounds apart from
+    the [N, N] one on `dev`, summed by `torch.sum` and by the row-order
+    scan of `universe.combat._columns`, rank by rank."""
+    from w3d_torch.universe import combat as UCB
+    n = 1560
+    gen = torch.Generator().manual_seed(3)
+    idx = torch.randint(0, n, (n,), generator=gen).to(dev)
+    amt = (1.1 * torch.randint(1, 64, (n,), generator=gen).float()).to(dev)
+    cols = torch.arange(n, device=dev)
+
+    def by_sum(c):
+        oh = (idx.long()[:, None] == c[None, :]).to(torch.float32)
+        return torch.sum(oh * amt[:, None], dim=0)
+
+    out = {}
+    for name, fn in (("torch.sum", by_sum), ("row-order scan", lambda c: UCB._columns(idx, amt, c))):
+        whole = fn(cols)
+        part = torch.cat([fn(c) for c in cols.chunk(SHARD_RANKS)])
+        out[name] = int((whole != part).sum())
+    return out
+
+
+def _city_chunk(frames_of, loc, c):
+    return frames_of(loc, c["graph"], c["nav"], c["pads"], c["perches"], AGENT_FRAMES,
+                     c["draws"], rail=c["rail"])
+
+
+def rank_3o(mesh, inp: dict) -> dict:
+    """One rank of phase 3o: the sharded city chunk and combat chunk, each
+    twice, the scripted boarding and the dry run.  Rank 0 returns the
+    gathered states; every rank its timings, bytes and counts."""
+    from w3d_torch import dryrun as DR
+    from w3d_torch.parallel import city as PCITY, combat as PCOMBAT
+    from w3d_torch.parallel.mesh import barrier
+
+    dev = mesh.device
+    out, keep = {}, {}
+
+    def timed(fn):
+        barrier(mesh)
+        t0 = time.perf_counter()
+        r = fn()
+        barrier(mesh)
+        return r, time.perf_counter() - t0
+
+    c = _to(inp["city"], dev)
+    frames_of = PCITY.make_sharded_city_frames(mesh)
+    loc0 = PCITY.shard_city(c["cs"], mesh)
+    out["city_s"], out["city_bytes"], keep["city"] = [], [], []
+    for _ in range(2):
+        mesh.traffic.reset()
+        loc, dt = timed(lambda: _city_chunk(frames_of, loc0, c))
+        out["city_s"].append(dt)
+        out["city_bytes"].append(mesh.traffic.bytes)
+        keep["city"].append(PCITY.unshard_city(loc, mesh))
+
+    cs, ct, draws = _to(inp["combat"], dev)
+    battle = PCOMBAT.make_sharded_combat_frames(mesh, ct)
+    loc0 = PCOMBAT.shard_combat(cs, mesh)
+    out["combat_s"], out["combat_bytes"], keep["combat"] = [], [], []
+    # the first chunk counts the events, the second (timed) counts nothing
+    for counts in ({}, None):
+        mesh.traffic.reset()
+        loc, dt = timed(lambda: battle(loc0, draws, AGENT_FRAMES, counts))
+        out["combat_s"].append(dt)
+        out["combat_bytes"].append(mesh.traffic.bytes)
+        if counts is not None:
+            out["counts"] = counts
+        keep["combat"].append(PCOMBAT.unshard_combat(loc, mesh))
+    keep["combat_nd"] = PCOMBAT.unshard_combat(PCOMBAT.make_sharded_combat_frames(
+        mesh, _non_dyadic(ct))(loc0, draws, AGENT_FRAMES), mesh)
+
+    board, bdraws = _to(inp["board"], dev)
+    out["board_counts"] = {}
+    keep["board"] = PCOMBAT.unshard_combat(
+        battle(PCOMBAT.shard_combat(board, mesh), bdraws, bdraws.board1.shape[0],
+               out["board_counts"]), mesh)
+    out["dryrun"] = DR.run(mesh)
+    if mesh.rank == 0:
+        out.update(keep)
+    return out
+
+
+def rank_3o_nccl(mesh, inp: dict) -> dict:
+    """Phase 3o on one rank over NCCL: the dry run's seven phases, and its
+    phases 6 and 7 at the 4-rank sizes (2 frames each), sharded over this
+    one rank."""
+    from w3d_torch import dryrun as DR
+    from w3d_torch.parallel import city as PCITY, combat as PCOMBAT
+
+    dev = mesh.device
+    cs, graph, nav, cdraws = _to(inp["city"], dev)
+    city = PCITY.unshard_city(PCITY.make_sharded_city_frames(mesh)(
+        PCITY.shard_city(cs, mesh), graph, nav, None, None, 2, cdraws), mesh)
+    ucs, ct, udraws = _to(inp["combat"], dev)
+    combat = PCOMBAT.unshard_combat(PCOMBAT.make_sharded_combat_frames(mesh, ct)(
+        PCOMBAT.shard_combat(ucs, mesh), udraws, 2), mesh)
+    return {"line": DR.run(mesh), "city": city, "combat": combat, "backend": mesh.backend}
+
+
+def _max_field_diff(a, b) -> dict:
+    """{field path: max |a - b|} over the tensors of two state trees that
+    differ in a bit (empty when they are equal bit for bit)."""
+    out = {}
+
+    def walk(x, y, path):
+        if x is None:
+            return
+        if isinstance(x, tuple):
+            for name, u, v in zip(x._fields, x, y):
+                walk(u, v, f"{path}.{name}")
+            return
+        x, y = x.cpu(), y.cpu()
+        if x.dtype != y.dtype or x.shape != y.shape:
+            out[path] = "dtype or shape"
+        elif x.numpy().tobytes() != y.numpy().tobytes():
+            out[path] = float((x.double() - y.double()).abs().max())
+    walk(a, b, "")
+    return out
+
+
+def run_agent_sharded_phase(dev, smi: str) -> dict:
+    """Phase 3o: the agent-sharded city and ship-sharded combat frames over
+    four gloo ranks on this card and one NCCL rank, each against the
+    single-rank calls here.  Returns the metrics and the launches summed
+    over the ranks (the dry run's phases 1-5 launch A-D)."""
+    from w3d_torch import dryrun as DR
+    from w3d_torch.city import city_step as CS
+    from w3d_torch.parallel import launch as LA
+    from w3d_torch.universe import combat as UCB
+
+    label = f"4 ranks on one card, gloo through the host; {smi}"
+    with tempfile.TemporaryDirectory() as tmp:
+        inp = _agent_inputs(dev, tmp)
+    t0 = time.perf_counter()
+    ranks = LA.run_ranks(rank_3o, SHARD_RANKS, "gloo", "cuda:0", inp, timeout=300)
+    log(f"3o: {SHARD_RANKS} gloo ranks on cuda:0 ran in {time.perf_counter() - t0:.1f} s "
+        f"(spawn and CUDA start included); launches {[r.launches for r in ranks]}")
+    r0 = ranks[0].value
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t0
+
+    # the city chunk against one process's city_frames_chained
+    c = _to(inp["city"], dev)
+    single_city_s = []
+    for _ in range(2):
+        ref, dt = timed(lambda: CS.city_frames_chained(
+            c["cs"], c["graph"], c["nav"], c["pads"], c["perches"], AGENT_FRAMES, c["draws"],
+            rail=c["rail"]))
+        single_city_s.append(dt)
+    for k, got in enumerate(r0["city"]):
+        diff = _max_field_diff(got, ref)
+        need(not diff, f"3o city chunk {k}: bit for bit the single-rank chain (differs: {diff})")
+    cars = r0["city"][0].cars
+    need(bool(torch.isfinite(cars.t).all()) and bool(torch.isfinite(r0["city"][0].peds.x).all()),
+         "3o city finite")
+    city_ms = 1e3 * statistics.median(res.value["city_s"][1] for res in ranks) / AGENT_FRAMES
+    city_bytes = sum(res.value["city_bytes"][1] for res in ranks) / AGENT_FRAMES
+    single_city_ms = 1e3 * single_city_s[1] / AGENT_FRAMES
+    log(f"sharded_city_ms_per_frame_4ranks_1card {city_ms:.3f} ({label}; 64 cars and 128 "
+        f"pedestrians, 16 and 32 a rank, 32 chained frames, second chunk; first "
+        f"{1e3 * statistics.median(res.value['city_s'][0] for res in ranks) / AGENT_FRAMES:.3f}); "
+        f"bytes received a frame over all ranks {city_bytes:.0f}; one process here, the same "
+        f"chunk: {single_city_ms:.3f} ms per frame; both chunks bit for bit the single-rank "
+        f"chain")
+
+    # the combat chunk against one process's combat_frames_chained
+    cs, ct, draws = _to(inp["combat"], dev)
+    single_combat_s = []
+    for _ in range(2):
+        cref, dt = timed(lambda: UCB.combat_frames_chained(cs, draws, AGENT_FRAMES, ct))
+        single_combat_s.append(dt)
+    for k, got in enumerate(r0["combat"]):
+        diff = _max_field_diff(got, cref)
+        need(not diff, f"3o combat chunk {k}: bit for bit the single-rank chain (differs: {diff})")
+    counts = {key: sum(res.value["counts"][key] for res in ranks)
+              for key in ranks[0].value["counts"]}
+    for key in ("spawned", "launched", "pd_shots", "impacts"):
+        need(counts[key] > 0 and counts[key + "_cross_rank"] > 0,
+             f"3o combat: {key} happened, also across a rank edge ({counts})")
+    board = r0["board"]
+    bcounts = {key: sum(res.value["board_counts"][key] for res in ranks)
+               for key in ranks[0].value["board_counts"]}
+    need(int(board.fleet.align[0]) == 0 and bool(board.captured[0])
+         and bcounts["captures_cross_rank"] == 1,
+         f"3o scripted boarding across ranks 0 and 1: captured ({bcounts})")
+    # the same chunk with non-dyadic damages: the column sums over shooters
+    # and ships add in row order on every rank count; the impact sums over
+    # the pool reach the ships' shields and armor, held within 1e-5, every
+    # other field bit for bit
+    colsum = _column_sum_rounding(dev)
+    need(colsum["row-order scan"] == 0,
+         f"3o: a rank's column sums by the row-order scan are the whole block's ({colsum})")
+    log(f"3o one-hot column sums, 1,560 columns, non-dyadic amounts, a rank's quarter against "
+        f"the whole block on this card: columns that round apart {colsum}")
+    nd_ref = UCB.combat_frames_chained(cs, draws, AGENT_FRAMES, _non_dyadic(ct))
+    nd_diff = _max_field_diff(r0["combat_nd"], nd_ref)
+    summed = (".fleet.shields", ".fleet.armor")
+    need(all(key in summed and diff <= 1e-5 for key, diff in nd_diff.items()),
+         f"3o combat chunk, non-dyadic damages: shields and armor within 1e-5, the rest bit "
+         f"for bit (differs: {nd_diff})")
+    nd_hit = bool((nd_ref.fleet.shields < cs.fleet.shields).any())
+    need(nd_hit, "3o combat chunk, non-dyadic damages: ships take damage")
+    log(f"3o combat chunk with non-dyadic damages (x1.1), 32 frames over 4 ranks against one: "
+        f"fields that differ {nd_diff or 'none, bit for bit'}")
+    combat_ms = 1e3 * statistics.median(res.value["combat_s"][1] for res in ranks) / AGENT_FRAMES
+    combat_bytes = sum(res.value["combat_bytes"][1] for res in ranks) / AGENT_FRAMES
+    single_combat_ms = 1e3 * single_combat_s[1] / AGENT_FRAMES
+    log(f"3o combat chunk counts over the ranks (32 frames): {counts}"
+        + ("" if counts["captures"] else "; no capture in the battle, the scripted boarding "
+           "across ranks 0 and 1 captured its frigate"))
+    log(f"sharded_combat_ms_per_frame_x8_4ranks_1card {combat_ms:.3f} ({label}; 1,248 ships "
+        f"in 1,560 slots, 390 a rank; a pool of 1,024, 256 a rank; second chunk, no event "
+        f"counts; first, counting: "
+        f"{1e3 * statistics.median(res.value['combat_s'][0] for res in ranks) / AGENT_FRAMES:.3f}); "
+        f"bytes received a frame over all ranks {combat_bytes:.0f}; one process here, the "
+        f"same chunk: {single_combat_ms:.3f} ms per frame; both chunks bit for bit the "
+        f"single-rank chain")
+    for res in ranks:
+        need(res.value["dryrun"].startswith(f"dryrun({SHARD_RANKS}) phases 1-7 ok"),
+             "3o dry run on the gloo ranks")
+    log(f"3o {r0['dryrun']}")
+
+    # one rank over NCCL: the dry run, and phases 6-7 at the 4-rank sizes
+    gen = torch.Generator().manual_seed(0)
+    small = dict(city=DR.city_inputs(SHARD_RANKS, gen, "cpu"),
+                 combat=DR.combat_inputs(SHARD_RANKS, gen, "cpu"))
+    t0 = time.perf_counter()
+    one_res = LA.run_ranks(rank_3o_nccl, 1, "nccl", None, small, timeout=300)[0]
+    one = one_res.value
+    need(one["backend"] == "nccl" and one["line"].startswith("dryrun(1) phases 1-7 ok"),
+         "3o: the dry run over one NCCL rank")
+    scs, graph, nav, cdraws = _to(small["city"], dev)
+    ucs, uct, udraws = _to(small["combat"], dev)
+    city1 = CS.city_frames_chained(scs, graph, nav, None, None, 2, cdraws)
+    combat1 = UCB.combat_frames_chained(ucs, udraws, 2, uct)
+    need(not _max_field_diff(one["city"], city1),
+         "3o nccl: phase 6 bit for bit the unsharded city frames")
+    need(not _max_field_diff(one["combat"], combat1),
+         "3o nccl: phase 7 bit for bit the unsharded combat frames")
+    log(f"3o one rank over NCCL ({time.perf_counter() - t0:.1f} s): {one['line']}; phases 6-7 "
+        f"at the 4-rank sizes bit for bit the unsharded calls")
+    launches = {n: sum(res.launches[n] for res in ranks) + one_res.launches[n]
+                for n in one_res.launches}
+    return {"launches": launches,
+            "sharded_city_ms_per_frame_4ranks_1card": city_ms,
+            "sharded_city_bytes_per_frame": city_bytes,
+            "single_city_ms_per_frame_same_chunk": single_city_ms,
+            "sharded_combat_ms_per_frame_x8_4ranks_1card": combat_ms,
+            "sharded_combat_bytes_per_frame_x8": combat_bytes,
+            "single_combat_ms_per_frame_x8_same_chunk": single_combat_ms}
 
 
 def _leaves(value) -> list:
@@ -3543,6 +3893,12 @@ def main() -> int:
     for n, c in shard3n["launches"].items():
         launches[n] += c
 
+    mark("3o")
+    # ---- 3o. the agent-sharded city frame and ship-sharded combat frame ----
+    agents3o = run_agent_sharded_phase(dev, smi)
+    for n, c in agents3o["launches"].items():
+        launches[n] += c
+
     mark("4")
     # ---- 4. kernels vs plain versions, main-path shapes ------------------
     # Each kernel device-only (a CUDA graph of 20 launches replayed between
@@ -3959,7 +4315,8 @@ def main() -> int:
                     **{k: v for k, v in world3k.items() if k != "launches"},
                     **{k: v for k, v in build3l.items() if k != "launches"},
                     **{k: v for k, v in weather3m.items() if k != "launches"},
-                    **{k: v for k, v in shard3n.items() if k != "launches"}},
+                    **{k: v for k, v in shard3n.items() if k != "launches"},
+                    **{k: v for k, v in agents3o.items() if k != "launches"}},
         "card": smi}))
     log(json.dumps({"kernels": [
         {"name": srcs[n][0], "route": "cuda", "source": srcs[n][1],

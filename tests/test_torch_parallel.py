@@ -26,6 +26,7 @@ from w3d.terrain import mesh as JM
 from w3d.utils.constants import WorldConst as JWorld
 
 from w3d_torch import convert
+from w3d_torch.city import traffic as TCT
 from w3d_torch.models import terrain_model as TTM
 from w3d_torch.ops import shadows as TSH
 from w3d_torch.parallel import launch, mesh as TMESH
@@ -93,11 +94,65 @@ def ranks():
         inp = dict(rows=torch.arange(48, dtype=torch.float32).reshape(16, 3),
                    state=TPS.make_state(pos, -pos, torch.arange(16) % 3, table),
                    halo=4, ctx_z=torch.arange(8 * 16 * 16, dtype=torch.float32).reshape(8, 16, 16),
-                   shadow_cases=cases, cell_w=CELL_W, tile_cfg=(tm, tw), tile_args=targs)
+                   shadow_cases=cases, cell_w=CELL_W, tile_cfg=(tm, tw), tile_args=targs,
+                   tree=_tree(), mixed=_mixed())
         res = launch.run_ranks(torch_rank_cases.parallel_cases, RANKS, "gloo", "cpu", inp)
         return inp, [r.value for r in res]
     finally:
         torch.set_num_threads(n)
+
+
+def _tree():
+    """A nested state: cars (8 of them, and a scalar frame), a tuple of an
+    [8, 2] leaf, a [3] leaf and None; split on the leading size 8."""
+    cars = TCT.CarState(seg=torch.arange(8, dtype=torch.int32), end=torch.ones(8, dtype=torch.int32),
+                        t=torch.linspace(0, 1, 8), speed=torch.full((8,), 0.1),
+                        frame=torch.tensor(5, dtype=torch.int32), parked=torch.arange(8) % 3 == 0,
+                        spot_x=torch.zeros(8), spot_y=torch.ones(8),
+                        timer=torch.arange(8, dtype=torch.int32) * 7)
+    return (cars, (torch.arange(16.0).reshape(8, 2), torch.arange(3), None)), (8,)
+
+
+def _mixed():
+    """Leaves of four dtypes and two leading sizes for one packed gather."""
+    return [torch.arange(8, dtype=torch.int64), torch.linspace(-1, 1, 12).reshape(4, 3),
+            torch.arange(4) % 2 == 0, torch.arange(8, dtype=torch.uint8)]
+
+
+def test_shard_leading_and_packed_gather(ranks):
+    """`shard_leading` splits only the leaves of the named leading size
+    (scalars, other sizes and None stay whole); `unshard_leading` gives the
+    state back; `gather_packed` moves leaves of any dtypes and sizes in one
+    collective, byte for byte."""
+    inp, out = ranks
+    (cars, (wide, small, _none)), _ = inp["tree"]
+    for r, o in enumerate(out):
+        share, back = o["tree"]
+        assert torch.equal(share[0].seg, cars.seg[2 * r:2 * r + 2])
+        assert torch.equal(share[0].parked, cars.parked[2 * r:2 * r + 2])
+        assert torch.equal(share[0].frame, cars.frame)
+        assert torch.equal(share[1][0], wide[2 * r:2 * r + 2])
+        assert torch.equal(share[1][1], small) and share[1][2] is None
+        for a, b in zip(back[0], cars):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+        assert torch.equal(back[1][0], wide) and torch.equal(back[1][1], small)
+        for a, b in zip(o["packed"], inp["mixed"]):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+        nbytes = sum(t.numel() * t.element_size() for t in inp["mixed"]) // RANKS
+        assert o["packed_traffic"] == (1, (RANKS - 1) * nbytes)
+
+
+def test_dryrun_runs_the_seven_phases(capsys):
+    """`python -m w3d_torch.dryrun --ranks 4 --cpu` prints one line naming
+    phases 1-7, each phase's result in it."""
+    from w3d_torch import dryrun
+    assert dryrun.main(["--ranks", "4", "--cpu"]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 1 and lines[0].startswith("dryrun(4) phases 1-7 ok:")
+    for part in ("combined (8, 32, 32)", "tiles (8, 32, 32)", "physics (128,)",
+                 "shadow halo (8, 16, 16)", "sky bake (8, 16, 16)",
+                 "city frame (cars (32,), peds (64,))", "combat (64 ships, projectile pool (64,))"):
+        assert part in lines[0], part
 
 
 def test_mesh_blocks_and_gather(ranks):

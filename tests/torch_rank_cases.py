@@ -1,5 +1,6 @@
 """What each rank runs in the sharded-port tests (tests/test_torch_parallel.py,
-test_torch_pairs_sharded.py, test_torch_lighting_sharded.py).
+test_torch_pairs_sharded.py, test_torch_lighting_sharded.py,
+test_torch_city_sharded.py, test_torch_combat_sharded.py).
 
 `parallel.launch.run_ranks` spawns the ranks, and a spawned child imports
 the module of its target; the test modules import jax, so the rank
@@ -18,9 +19,12 @@ from w3d_torch.lighting import parallel as LPAR
 from w3d_torch.lighting.trace import DrawSource, TraceDraws
 from w3d_torch.models import physics_model as PM
 from w3d_torch.models import terrain_model as TMOD
+from w3d_torch.parallel import city as PCITY
+from w3d_torch.parallel import combat as PCOMBAT
 from w3d_torch.parallel import halo as PH
 from w3d_torch.parallel import pad_to_multiple
-from w3d_torch.parallel.mesh import gather_leading, local_block
+from w3d_torch.parallel.mesh import (gather_leading, gather_packed, local_block, shard_leading,
+                                     unshard_leading)
 from w3d_torch.parallel.pairs import make_halo_pair_fn, make_step_objects_sharded
 
 
@@ -73,8 +77,9 @@ def fail_on_rank_one(mesh):
 
 
 def parallel_cases(mesh, inp: dict) -> dict:
-    """The mesh helpers, ring shifts, the AO halo context, the shadow scans
-    and the sharded tile step."""
+    """The mesh helpers (blocks, gathers, a nested state's share), ring
+    shifts, the AO halo context, the shadow scans and the sharded tile
+    step."""
     torch.set_num_threads(1)
     out = {"mesh": (mesh.rank, mesh.size, mesh.backend, str(mesh.device)),
            "pad": pad_to_multiple(10, mesh.size)}
@@ -89,6 +94,12 @@ def parallel_cases(mesh, inp: dict) -> dict:
     for name, (z, light, mode, init) in inp["shadow_cases"].items():
         run = PH.make_sharded_shadow_scan(mesh, light, inp["cell_w"], mode=mode)
         out["shadows"][name] = gather_leading(run(local_block(z, mesh), init), mesh)
+    tree, sizes = inp["tree"]
+    share = shard_leading(tree, mesh, sizes)
+    out["tree"] = (share, unshard_leading(share, mesh, sizes))
+    mesh.traffic.reset()
+    out["packed"] = gather_packed([local_block(t, mesh) for t in inp["mixed"]], mesh)
+    out["packed_traffic"] = (mesh.traffic.calls, mesh.traffic.bytes)
     mcfg, world = inp["tile_cfg"]
     step = TMOD.make_sharded_tile_step(mesh, mcfg, world)
     out["tiles"] = gather_leading(step(*inp["tile_args"]), mesh)
@@ -151,4 +162,40 @@ def lighting_cases(mesh, inp: dict) -> dict:
             out[name] = LPAR.compute_global_lighting_sharded(
                 mesh, g, cobjs, hf, num_rays, inp["sun_dir"], seed=seed, batch=batch, **kw)
     out["traffic"] = (mesh.traffic.calls, mesh.traffic.bytes)
+    return out
+
+
+def city_cases(mesh, inp: dict) -> dict:
+    """The agent-sharded city frames: each case's whole state after its
+    frames (after every frame for `per_frame` cases), and the bytes this
+    rank received in the frames."""
+    torch.set_num_threads(1)
+    frames_of = PCITY.make_sharded_city_frames(mesh)
+    out = {}
+    for name, (cs, graph, nav, draws, frames, per_frame) in inp.items():
+        loc, steps, nbytes = PCITY.shard_city(cs, mesh), [], 0
+        for k in range(frames if per_frame else 1):
+            d = type(draws)(*(None if t is None else t[k:k + 1] for t in draws)) \
+                if per_frame else draws
+            mesh.traffic.reset()
+            loc = frames_of(loc, graph, nav, None, None, 1 if per_frame else frames, d)
+            nbytes += mesh.traffic.bytes
+            steps.append(PCITY.unshard_city(loc, mesh))
+        out[name] = (steps, nbytes)
+    return out
+
+
+def combat_cases(mesh, inp: dict) -> dict:
+    """The ship-sharded combat frames: each case's whole state after every
+    frame, and the events this rank counted."""
+    torch.set_num_threads(1)
+    out = {}
+    for name, (cs, ct, draws, frames) in inp.items():
+        battle = PCOMBAT.make_sharded_combat_frames(mesh, ct)
+        loc, steps, counts = PCOMBAT.shard_combat(cs, mesh), [], {}
+        for k in range(frames):
+            d = type(draws)(*(t[k:k + 1] for t in draws))
+            loc = battle(loc, d, 1, counts)
+            steps.append(PCOMBAT.unshard_combat(loc, mesh))
+        out[name] = (steps, counts)
     return out

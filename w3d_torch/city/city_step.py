@@ -171,12 +171,13 @@ def draw_city(frames: int, n_peds: int, n_helis: int, n_pads: int,
 
 
 def _one_frame(cs: CityState, graph, nav, pads, perches, draws: CityDraws,
-               k: int, rail=None) -> CityState:
+               k: int, rail=None, exchange=None) -> CityState:
     sl = CT.step_stoplights(cs.stoplights)
-    cars = CT.step_cars(cs.cars, graph, stoplights=sl)
+    car_peers, ped_peers = (None, None) if exchange is None else exchange(cs.cars, cs.peds)
+    cars = CT.step_cars(cs.cars, graph, stoplights=sl, peers=car_peers)
     peds = CT.step_peds(cs.peds, CT.PedDraws(draws.ped_u[k], draws.ped_side[k],
                                              draws.ped_u3[k], draws.ped_u4[k]),
-                        nav=nav, stoplights=sl)
+                        nav=nav, stoplights=sl, peers=ped_peers)
     helis = cs.helis
     if helis is not None:
         helis = CT.step_helis(helis, pads, draws.heli_pad[k], draws.heli_wait[k])
@@ -197,12 +198,18 @@ def _one_frame(cs: CityState, graph, nav, pads, perches, draws: CityDraws,
 
 def city_frames_chained(cs: CityState, graph: CT.RoadGraph, nav: CT.PedNav,
                         pads, perches, frames: int, draws: CityDraws,
-                        rail=None) -> CityState:
+                        rail=None, exchange=None) -> CityState:
     """K city frames — traffic, crowds, building people, elevator cars,
     helicopters, birds, trains — queued without a host sync; frame k
-    reads row k of `draws`."""
+    reads row k of `draws`.
+
+    With `exchange`, `cs.cars` and `cs.peds` (and the pedestrian columns
+    of `draws`) are one rank's slab: `exchange(cars, peds)` returns the
+    whole previous populations as (`traffic.CarPeers`, `PedPeers`) each
+    frame (`parallel/city.make_sharded_city_frames`)."""
     for k in range(frames):
-        cs = _one_frame(cs, graph, nav, pads, perches, draws, k, rail=rail)
+        cs = _one_frame(cs, graph, nav, pads, perches, draws, k, rail=rail,
+                        exchange=exchange)
     return cs
 
 

@@ -303,14 +303,31 @@ def _seg_dir_vec(dim, end):
     return dx, dy
 
 
+class CarPeers(NamedTuple):
+    """What headway reads of every car: the previous frame's whole
+    population (a rank's cars are `first`, `first + 1`, ... of it)."""
+
+    seg: torch.Tensor
+    end: torch.Tensor
+    t: torch.Tensor
+    parked: torch.Tensor
+    first: int = 0
+
+
 def step_cars(cars: CarState, graph: RoadGraph,
-              stoplights: StoplightSet | None = None) -> CarState:
+              stoplights: StoplightSet | None = None,
+              peers: CarPeers | None = None) -> CarState:
     """One traffic frame: advance along segments, stop at red lights (the
     full per-intersection 6-state machine with left-arrow masks when
     `stoplights` is given; the legacy global 2-phase clock otherwise),
     keep headway, classify and take turns at intersections, park/unpark
     on timers (car_manager_t::next_frame, cars.cpp:1855).  Draws nothing
-    (the JAX step takes a key it never reads)."""
+    (the JAX step takes a key it never reads).
+
+    `cars` may be a slab of the population (`parallel/city`): `peers` is
+    then the whole previous population and `peers.first` the slab's first
+    index, which the turn hash and the self test use; by default the cars
+    are the whole population."""
     seg = cars.seg.long()
     end = cars.end.long()
     length = graph.length[seg]
@@ -323,7 +340,9 @@ def step_cars(cars: CarState, graph: RoadGraph,
     # roll, so a car's turn intent persists while it waits at a red arrow;
     # 32-bit lanes carried in int64 and masked
     m32 = 0xFFFFFFFF
-    car_ix = torch.arange(cars.t.shape[0], dtype=torch.int64, device=seg.device)
+    if peers is None:
+        peers = CarPeers(cars.seg, cars.end, cars.t, cars.parked)
+    car_ix = peers.first + torch.arange(cars.t.shape[0], dtype=torch.int64, device=seg.device)
     hbits = (car_ix * 2654435761 + seg * 40503) & m32
     hbits = hbits ^ (hbits >> 13)
     hbits = (hbits * 747796405) & m32
@@ -351,14 +370,15 @@ def step_cars(cars: CarState, graph: RoadGraph,
         red = end_light & (dim != phase)
     near_end = cars.t > 0.92
 
-    # headway: same segment+direction, ahead within gap -> brake
-    n = cars.t.shape[0]
-    same = (cars.seg[:, None] == cars.seg[None, :]) & \
-        (cars.end[:, None] == cars.end[None, :]) & \
-        ~cars.parked[:, None] & ~cars.parked[None, :]
-    ahead = (cars.t[None, :] > cars.t[:, None]) & \
-        ((cars.t[None, :] - cars.t[:, None]) * length[:, None] < 0.35)
-    not_self = ~torch.eye(n, dtype=torch.bool, device=seg.device)
+    # headway: same segment+direction, ahead within gap -> brake (a row
+    # per car of `cars`, a column per car of `peers`)
+    n = peers.t.shape[0]
+    same = (cars.seg[:, None] == peers.seg[None, :]) & \
+        (cars.end[:, None] == peers.end[None, :]) & \
+        ~cars.parked[:, None] & ~peers.parked[None, :]
+    ahead = (peers.t[None, :] > cars.t[:, None]) & \
+        ((peers.t[None, :] - cars.t[:, None]) * length[:, None] < 0.35)
+    not_self = car_ix[:, None] != torch.arange(n, dtype=torch.int64, device=seg.device)[None, :]
     blocked = torch.any(same & ahead & not_self, dim=1)
 
     driving = ~cars.parked
@@ -490,12 +510,29 @@ class PedDraws(NamedTuple):
     u4: torch.Tensor       # [N] uniform [0, 1): new goal y
 
 
-def _separation(x, y, sep_radius):
-    ex = x[:, None] - x[None, :]
-    ey = y[:, None] - y[None, :]
+class PedPeers(NamedTuple):
+    """What separation reads of every pedestrian: the previous frame's
+    whole population (a rank's pedestrians are `first`, `first + 1`, ...
+    of it)."""
+
+    x: torch.Tensor
+    y: torch.Tensor
+    first: int = 0
+
+
+def _separation(x, y, sep_radius, peers: PedPeers | None = None):
+    """Unit push away from the neighbours within `sep_radius`: a row per
+    pedestrian of (x, y), a column per pedestrian of `peers` (default the
+    same ones), each row summed over all columns."""
+    if peers is None:
+        peers = PedPeers(x, y)
+    ex = x[:, None] - peers.x[None, :]
+    ey = y[:, None] - peers.y[None, :]
     d2 = ex * ex + ey * ey
-    n = x.shape[0]
-    near = (d2 < sep_radius ** 2) & ~torch.eye(n, dtype=torch.bool, device=x.device)
+    n = peers.x.shape[0]
+    ix = peers.first + torch.arange(x.shape[0], dtype=torch.int64, device=x.device)
+    near = (d2 < sep_radius ** 2) & \
+        (ix[:, None] != torch.arange(n, dtype=torch.int64, device=x.device)[None, :])
     w = torch.where(near, 1.0 / torch.clamp(d2, min=1e-4), 0.0)
     rx = torch.sum(w * ex, 1)
     ry = torch.sum(w * ey, 1)
@@ -505,16 +542,18 @@ def _separation(x, y, sep_radius):
 
 def step_peds(p: PedState, draws: PedDraws, sep_radius: float = 0.15,
               nav: PedNav | None = None,
-              stoplights: StoplightSet | None = None) -> PedState:
+              stoplights: StoplightSet | None = None,
+              peers: PedPeers | None = None) -> PedState:
     """Goal steering + neighbor separation (ped_manager_t crowd update).
     With `nav`, pedestrians do plot navigation: wander inside their
     block, pick an adjacent block, walk to the crosswalk, wait for the
     light (can_walk via `stoplights`), cross, continue — never roaming
     open road except at crosswalks (pedestrians.cpp:2550).  Without it,
     a reached goal moves by (4 u3 - 2, 4 u4 - 2), the JAX step's uniform
-    draws in [-2, 2) taken as 4 u - 2."""
+    draws in [-2, 2) taken as 4 u - 2.  `p` and `draws` may be a slab of
+    the crowd: `peers` is then the whole previous crowd (`step_cars`)."""
     n = p.x.shape[0]
-    rx, ry = _separation(p.x, p.y, sep_radius)
+    rx, ry = _separation(p.x, p.y, sep_radius, peers)
 
     if nav is None or p.blk is None:
         dx = p.gx - p.x

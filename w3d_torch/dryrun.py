@@ -1,5 +1,5 @@
 """The multi-device dry run: the port's `dryrun_multichip`
-(`__graft_entry__.py:80-255`), phases 1-5 at that function's sizes.
+(`__graft_entry__.py:80-255`), phases 1-7 at that function's sizes.
 
     python -m w3d_torch.dryrun --ranks 4                 # nccl, a card a rank
     python -m w3d_torch.dryrun --ranks 4 --backend gloo --share-card
@@ -15,7 +15,13 @@ asserts:
   2. the sharded tile step;
   3. the object-axis frame with pairs (`make_sharded_frame_step`);
   4. the directional-shadow chain across ranks (16² tiles, a wall);
-  5. the sky bake, 256 rays a rank, merged in rank order.
+  5. the sky bake, 256 rays a rank, merged in rank order;
+  6. the fused city frame (2 chained frames) on a flat 64² map with 8 cars
+     and 16 pedestrians a rank, sharded on an `agents` axis
+     (`parallel/city`);
+  7. 2 combat frames under the full weapon model over 16 ships a rank (4
+     toy classes: beam, torpedo, point defence, beam) and a projectile
+     pool of 16 a rank, sharded on a `ships` axis (`parallel/combat`).
 
 Rank 0 prints one line with the shapes when every phase passed.
 """
@@ -26,19 +32,26 @@ import argparse
 import os
 import sys
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
+from .city import assemble as CA
+from .city import city_step as CS
 from .entry import make_sharded_combined_step
 from .lighting import lmap as LM
 from .lighting import parallel as LPAR
 from .models import physics_model as PM
 from .models import terrain_model as TMOD
 from .ops import shadows as SH
+from .parallel import city as PCITY
+from .parallel import combat as PCOMBAT
 from .parallel import halo as PH
 from .parallel.launch import run_ranks
 from .parallel.mesh import Mesh, gather_leading, init_mesh, local_block
 from .scene import cobj as SC
+from .universe import combat as UCB
+from .universe import ships as USH
 from .utils.constants import WorldConst
 
 
@@ -51,9 +64,80 @@ def _finite(t: torch.Tensor) -> bool:
     return bool(torch.isfinite(t).all())
 
 
+def toy_combat_tables(device) -> UCB.CombatTables:
+    """The dry run's synthetic combat tables (`__graft_entry__.py`'s
+    `_toy_combat_tables`): 8 classes, 4 weapons, 2 slots; classes 0, 1, 2
+    and 3 (mod 4) carry a beam, a torpedo, point defence and a beam."""
+    C, W, S = 8, 4, 2
+    cls_tbl = np.zeros((C, 9), np.float32)
+    cls_tbl[:, 0] = 0.001     # accel
+    cls_tbl[:, 1] = 0.01      # vmax
+    cls_tbl[:, 2] = 100.0     # armor
+    cls_tbl[:, 3] = 50.0      # shields
+    cls_tbl[:, 7] = 0.01      # radius
+    aux = np.zeros((C, UCB.NUM_CA), np.float32)
+    aux[:, UCB.CA_NCREW] = 4.0
+    aux[:, UCB.CA_CAN_BOARD] = 1.0
+    w = np.zeros((W, UCB.NUM_WF), np.float32)
+    w[:, UCB.WF_AMMO_CLASS] = -1.0
+    w[1] = 0  # UWEAP-style rows: 1=beam, 2=torpedo, 3=PD
+    w[1, UCB.WF_DAMAGE] = 2.0
+    w[1, UCB.WF_RANGE] = 0.5
+    w[1, UCB.WF_FIRE_DELAY] = 1.0
+    w[1, UCB.WF_NSHOTS] = 1.0
+    w[2, UCB.WF_DAMAGE] = 20.0
+    w[2, UCB.WF_RANGE] = 0.8
+    w[2, UCB.WF_SPEED] = 0.005
+    w[2, UCB.WF_SEEK_DIST] = 0.3
+    w[2, UCB.WF_LIFETIME] = 200.0
+    w[2, UCB.WF_FIRE_DELAY] = 20.0
+    w[2, UCB.WF_CRADIUS] = 0.005
+    w[2, UCB.WF_PROJ_ARMOR] = 10.0
+    w[2, UCB.WF_NSHOTS] = 1.0
+    w[3, UCB.WF_DAMAGE] = 6.0
+    w[3, UCB.WF_RANGE] = 0.2
+    w[3, UCB.WF_PT_DEF] = 1.0
+    w[3, UCB.WF_FIRE_DELAY] = 4.0
+    w[3, UCB.WF_NSHOTS] = 1.0
+    slot_wid = np.zeros((C, S), np.int32)
+    slot_wid[0::4, 0] = 1     # beams
+    slot_wid[1::4, 0] = 2     # torpedoes
+    slot_wid[2::4, 0] = 3     # point defense
+    slot_wid[3::4, 0] = 1
+    t = lambda a: torch.as_tensor(a, device=device)
+    return UCB.CombatTables(cls_tbl=t(cls_tbl), cls_aux=t(aux), w_tbl=t(w),
+                            slot_wid=t(slot_wid), slot_num=t(np.ones((C, S), np.float32)),
+                            slot_ammo0=t(np.full((C, S), np.inf, np.float32)),
+                            slot_pt=t(np.zeros((C, S, 3), np.float32)))
+
+
+def city_inputs(n: int, gen: torch.Generator, device):
+    """Phase 6's whole city (`build_city` on a flat 64² map, 8n cars, 16n
+    pedestrians, one elevator car and nothing else) with its road graph,
+    pedestrian nav and 2 frames of draws."""
+    cw = CA.build_city(np.zeros((64, 64), np.float32), num_cities=1, num_cars=8 * n,
+                       num_peds=16 * n, num_helis=0, seed=1, device=device)
+    cs = CS.CityState(stoplights=cw.stoplights, cars=cw.cars, peds=cw.peds, people=None,
+                      elev=CS.make_elevator_bank(1, device=device), helis=None, birds=None)
+    return cs, cw.graph, cw.ped_nav, CS.draw_city(2, 16 * n, 0, 0, 0, 0, gen, device=device)
+
+
+def combat_inputs(n: int, gen: torch.Generator, device):
+    """Phase 7's whole combat state (16n ships of 2 teams, classes i mod 4,
+    a pool of 16n), its tables and 2 frames of draws."""
+    ct = toy_combat_tables(device)
+    fl = USH.make_fleet(USH.draw_fleet(16 * n, gen, num_teams=2, device=device))
+    fl = fl._replace(cls=torch.arange(16 * n, dtype=torch.int32, device=device) % 4)
+    cs = UCB.make_combat_state(fl, ct, pool_size=16 * n)
+    draws = UCB.draw_combat(2, 16 * n, ct.slot_wid.shape[1], gen)
+    return cs, ct, UCB.CombatDraws(*(t.to(device) for t in draws))
+
+
 def run(mesh: Mesh) -> str:
-    """Phases 1-5 on this rank; the summary line."""
+    """Phases 1-7 on this rank; the summary line."""
     n, dev = mesh.size, mesh.device
+    if dev.type == "cpu":                       # the ranks share the host's cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // n))
     gen = torch.Generator().manual_seed(0)      # the same draws on every rank
     world = WorldConst(mesh_x=32, mesh_y=32)
     mcfg = TMOD.TileModelConfig(tile_size=32, erosion_iters_tt=32, erosion_batch=32,
@@ -101,10 +185,25 @@ def run(mesh: Mesh) -> str:
         num_rays=n * 256, batch=256, seed=1, world=lw)
     _check(_finite(lgrid.sv) and float(lgrid.sv.sum()) > 0.0, "sky bake lit and finite")
 
-    return (f"dryrun({n}) ok: combined {tuple(tiles.shape)} + tiles {tuple(out.shape)} + "
+    # 6. the city frame, cars and pedestrians split over the ranks
+    ccs, graph, nav, cdraws = city_inputs(n, gen, dev)
+    cities = PCITY.make_sharded_city_frames(mesh)
+    c2 = PCITY.unshard_city(cities(PCITY.shard_city(ccs, mesh), graph, nav, None, None, 2,
+                                   cdraws), mesh)
+    _check(_finite(c2.cars.t) and _finite(c2.peds.x), "city frame finite")
+
+    # 7. the combat frame, ships and projectiles split over the ranks
+    ucs, ct, udraws = combat_inputs(n, gen, dev)
+    battle = PCOMBAT.make_sharded_combat_frames(mesh, ct)
+    c3 = PCOMBAT.unshard_combat(battle(PCOMBAT.shard_combat(ucs, mesh), udraws, 2), mesh)
+    _check(_finite(c3.fleet.px) and _finite(c3.proj.px), "combat frame finite")
+
+    return (f"dryrun({n}) phases 1-7 ok: combined {tuple(tiles.shape)} + tiles {tuple(out.shape)} + "
             f"physics {tuple(sw2.state.px.shape)} a rank (pair collisions on, halo "
             f"decomposed) + shadow halo {tuple(sh.shape)} + sky bake {tuple(lgrid.sv.shape)} "
-            f"over {n} ranks ({mesh.backend}, {dev})")
+            f"+ city frame (cars {tuple(c2.cars.t.shape)}, peds {tuple(c2.peds.x.shape)}) + "
+            f"combat ({c3.fleet.px.shape[0]} ships, projectile pool "
+            f"{tuple(c3.proj.px.shape)}) over {n} ranks ({mesh.backend}, {dev})")
 
 
 def main(argv=None) -> int:

@@ -6,7 +6,11 @@ process group, this process's rank, the number of ranks, a label for the
 sharded axis ('tiles', 'objs', 'rays' in the JAX package) and the device
 the rank computes on.  What `PartitionSpec(axis)` does to a leading array
 axis there, `local_block` does here: rank r holds the r-th contiguous
-block.  `gather_leading` is the way back, an `all_gather` in rank order.
+block.  `gather_leading` is the way back, an `all_gather` in rank order
+(every leaf of a tuple packed into one buffer, one collective).
+`shard_leading` takes a rank's share of a nested state, splitting only the
+leaves of the named leading sizes (the JAX dry run's `shard_leading_n`),
+and `unshard_leading` gathers them back.
 
 The backend is the caller's choice and is never switched behind its back:
 `nccl` with one card a rank (`cuda:<local rank>`) by default, or `gloo`,
@@ -106,19 +110,33 @@ def pad_to_multiple(n: int, k: int) -> int:
     return -(-n // k) * k
 
 
-def _leaves(x):
-    return list(x) if isinstance(x, tuple) else [x]
+def _leaves(x) -> list:
+    """The tensors of a tensor or a nested tuple / NamedTuple (None
+    skipped), in order."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, tuple):
+        return [t for v in x for t in _leaves(v)]
+    return []
 
 
 def _rebuild(x, leaves):
-    if not isinstance(x, tuple):
-        return leaves[0]
-    return type(x)(*leaves) if hasattr(x, "_fields") else tuple(leaves)
+    """`x` with its tensors replaced, in order, by `leaves`."""
+    it = iter(leaves)
+
+    def walk(v):
+        if isinstance(v, torch.Tensor):
+            return next(it)
+        if isinstance(v, tuple):
+            items = [walk(u) for u in v]
+            return type(v)(*items) if hasattr(v, "_fields") else tuple(items)
+        return v
+    return walk(x)
 
 
 def local_block(x, mesh: Mesh):
     """The rank's contiguous block of the leading axis of a tensor, or of
-    every tensor of a tuple or NamedTuple (`P(axis)`'s shard)."""
+    every tensor of a (nested) tuple or NamedTuple (`P(axis)`'s shard)."""
     def block(t):
         n = t.shape[0]
         if n % mesh.size:
@@ -146,20 +164,70 @@ def all_gather_stack(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     return torch.stack(parts).view(t.dtype).to(t.device)
 
 
+def _as_bytes(t: torch.Tensor) -> torch.Tensor:
+    """The flat bytes of `t` (a view where `t` is contiguous)."""
+    t = t.contiguous().reshape(-1)
+    return t.view(torch.uint8) if t.dtype != torch.uint8 else t
+
+
+def gather_packed(leaves: list, mesh: Mesh) -> list:
+    """Every rank's block of each leaf, in rank order, in ONE collective:
+    the leaves (any dtypes, any leading sizes, the same on every rank) are
+    packed as bytes into one buffer, gathered and unpacked.  Returns each
+    leaf's [size * k, ...] concatenation; the bytes are copied, so the
+    values are bit for bit the senders'."""
+    if not leaves:
+        return []
+    flat = [_as_bytes(t) for t in leaves]
+    g = all_gather_stack(torch.cat(flat), mesh)           # [size, bytes]
+    out, off = [], 0
+    for t, b in zip(leaves, flat):
+        part = g[:, off:off + b.numel()].clone()           # a storage of its own
+        off += b.numel()
+        if t.dtype != torch.uint8:
+            part = part.view(t.dtype)
+        out.append(part.reshape((-1,) + tuple(t.shape[1:])))
+    return out
+
+
 def gather_leading(x, mesh: Mesh):
     """Inverse of `local_block`: the whole leading axis from every rank's
-    block, in rank order.  The leaves of a tuple that share a dtype and
-    shape travel in one collective."""
+    block, in rank order.  All leaves of a tuple travel in one collective."""
+    return _rebuild(x, gather_packed(_leaves(x), mesh))
+
+
+def shard_leading(x, mesh: Mesh, sizes):
+    """The rank's share of a nested tuple / NamedTuple (the JAX dry run's
+    `shard_leading_n` and `shard_ships`): `local_block` of every tensor
+    whose leading size is one of `sizes`; every other leaf (scalars, tables
+    of other sizes, None) stays whole, replicated.  Nothing is padded: a
+    listed size that does not split over the ranks raises."""
+    sizes = set(sizes)
+    for n in sizes:
+        if n % mesh.size:
+            raise ValueError(f"shard_leading: {n} does not split over {mesh.size} ranks")
+
+    def one(t):
+        if t.dim() >= 1 and t.shape[0] in sizes:
+            k = t.shape[0] // mesh.size
+            return t[mesh.rank * k:(mesh.rank + 1) * k]
+        return t
+    return _rebuild(x, [one(t) for t in _leaves(x)])
+
+
+def unshard_leading(x, mesh: Mesh, sizes):
+    """Inverse of `shard_leading` with the same `sizes`: every leaf whose
+    leading size times the ranks is one of them is gathered, all in one
+    collective; the replicated leaves come back as they are (none of them
+    may have such a leading size)."""
+    sizes = set(sizes)
     leaves = _leaves(x)
-    out = [None] * len(leaves)
-    groups: dict[tuple, list[int]] = {}
-    for i, t in enumerate(leaves):
-        groups.setdefault((t.dtype, tuple(t.shape)), []).append(i)
-    for idx in groups.values():
-        g = all_gather_stack(torch.stack([leaves[i] for i in idx]), mesh)
-        for j, i in enumerate(idx):                  # g: [size, len(idx), ...]
-            out[i] = g[:, j].reshape((-1,) + tuple(leaves[i].shape[1:]))
-    return _rebuild(x, out)
+    split = [i for i, t in enumerate(leaves)
+             if t.dim() >= 1 and t.shape[0] * mesh.size in sizes]
+    whole = gather_packed([leaves[i] for i in split], mesh)
+    for i, t in zip(split, whole):
+        leaves[i] = t
+    return _rebuild(x, leaves)
 
 
 def broadcast(t: torch.Tensor, mesh: Mesh, src: int = 0) -> torch.Tensor:

@@ -208,19 +208,27 @@ def ship_parts(f: FleetState, tbl=None, part_offsets=None, num_parts=None):
     return pxk, pyk, pzk, prk, valid
 
 
-def gram_d2(px, py, pz) -> torch.Tensor:
-    """[N, N] squared distances in the JAX package's Gram form
-    |p|^2 + |q|^2 - 2 p.q (outer products, no matmul), whose rounding the
-    targeting argmin and thresholds follow."""
+def gram_d2(px, py, pz, qx=None, qy=None, qz=None) -> torch.Tensor:
+    """[N, M] squared distances from the points p to the points q (default
+    p) in the JAX package's Gram form |p|^2 + |q|^2 - 2 p.q (outer
+    products, no matmul), whose rounding the targeting argmin and
+    thresholds follow."""
+    if qx is None:
+        qx, qy, qz = px, py, pz
     p_sq = px ** 2 + py ** 2 + pz ** 2
-    G = px[:, None] * px[None, :] + py[:, None] * py[None, :] + pz[:, None] * pz[None, :]
-    return p_sq[:, None] + p_sq[None, :] - 2.0 * G
+    q_sq = qx ** 2 + qy ** 2 + qz ** 2
+    G = px[:, None] * qx[None, :] + py[:, None] * qy[None, :] + pz[:, None] * qz[None, :]
+    return p_sq[:, None] + q_sq[None, :] - 2.0 * G
 
 
-def nearest_enemy(f: FleetState, d2: torch.Tensor):
-    """(target index, has a live enemy) per ship: the argmin over live
-    enemies' masked distances, the first index on ties (as jnp.argmin)."""
-    enemy = (f.align[:, None] != f.align[None, :]) & f.alive[None, :] & f.alive[:, None]
+def nearest_enemy(f: FleetState, d2: torch.Tensor, align=None, alive=None):
+    """(target index, has a live enemy) per ship of `f`: the argmin over
+    live enemies' masked distances `d2` (a row per ship of `f`, a column
+    per candidate, whose alignment and alive flags `align` and `alive`
+    default to those of `f`), the first index on ties (as jnp.argmin)."""
+    if align is None:
+        align, alive = f.align, f.alive
+    enemy = (f.align[:, None] != align[None, :]) & alive[None, :] & f.alive[:, None]
     d2m = torch.where(enemy, d2, float("inf"))
     mn, tgt = torch.min(d2m, dim=1)
     return tgt, torch.isfinite(mn)
