@@ -117,7 +117,7 @@ def test_port_checkpoint_roundtrip(tmp_path):
         TCK.load_pytree(p, {"x": torch.zeros(1)})
 
 
-def test_profiler_matches(tmp_path):
+def test_profiler_matches():
     reports = []
     for mod in (TPROF, JPROF):
         prof = mod.TimingProfiler()
@@ -135,10 +135,6 @@ def test_profiler_matches(tmp_path):
         prof.clear()
         assert not prof.entries
     assert reports[0] == reports[1]
-    with TPROF.device_trace(str(tmp_path / "trace")) as p:
-        torch.ones(64).sum()
-    assert (tmp_path / "trace" / "trace.json").exists()
-    assert any("sum" in e.key for e in p.key_averages())
 
 
 def test_edit_menus_match():

@@ -18,6 +18,7 @@ from typing import NamedTuple
 import torch
 
 from ..utils.constants import WorldConst, DEFAULT_WORLD
+from ..utils.profiler import span
 from ..utils.rng import RandGen
 from ..physics import types as PT, step as PS, cobjs as PC
 from ..scene import cobj as SC
@@ -101,10 +102,11 @@ def frame_step(w: SpheresWorld, substeps: int = 4,
                obj_collisions: bool = True,
                pair_every: int = 1,
                water: bool = True) -> SpheresWorld:
-    st = PS.step_objects(w.state, w.env, w.cobjs, w.table,
-                         substeps=substeps, world=world,
-                         obj_collisions=obj_collisions,
-                         pair_every=pair_every, water=water)
+    with span("frame"):
+        st = PS.step_objects(w.state, w.env, w.cobjs, w.table,
+                             substeps=substeps, world=world,
+                             obj_collisions=obj_collisions,
+                             pair_every=pair_every, water=water)
     return w._replace(state=st)
 
 

@@ -24,6 +24,7 @@ from typing import NamedTuple
 import torch
 
 from ..utils.constants import WorldConst, DEFAULT_WORLD
+from ..utils.profiler import span
 from ..ops import noise as N
 from ..ops import erosion as E
 from ..terrain import mesh as TM
@@ -43,10 +44,10 @@ class TileModelConfig(NamedTuple):
     use_pallas_erosion: bool = False
 
 
-def _tile_heights(table: N.SineTable | None, x0, y0, mcfg: TileModelConfig,
-                  world: WorldConst, zmax_est) -> torch.Tensor:
-    """Raw+glaciated heights for a batch of tiles. x0,y0: [T] tile origins
-    in grid units; `table` is read in sine mode only."""
+def _raw_heights(table: N.SineTable | None, x0, y0, mcfg: TileModelConfig,
+                 world: WorldConst) -> torch.Tensor:
+    """Raw noise heights for a batch of tiles. x0,y0: [T] tile origins in
+    grid units; `table` is read in sine mode only."""
     cfg = mcfg.cfg
     n = mcfg.tile_size
     if cfg.mode == N.MGEN_SINE:
@@ -69,7 +70,16 @@ def _tile_heights(table: N.SineTable | None, x0, y0, mcfg: TileModelConfig,
                               mesh_scale=cfg.mesh_scale, mesh_seed=cfg.mesh_seed,
                               world=world,
                               postproc=lambda v: TM.postproc_noise_zval(v, cfg.hmap))
-    return TM.apply_glaciate(z, zmax_est, cfg)
+    return z
+
+
+def _tile_heights(table: N.SineTable | None, x0, y0, mcfg: TileModelConfig,
+                  world: WorldConst, zmax_est) -> torch.Tensor:
+    """Raw+glaciated heights for a batch of tiles (`_raw_heights`)."""
+    with span("tiles.noise", device=x0.is_cuda):
+        z = _raw_heights(table, x0, y0, mcfg, world)
+    with span("tiles.glaciate", device=x0.is_cuda):
+        return TM.apply_glaciate(z, zmax_est, mcfg.cfg)
 
 
 def tile_batch_step(table: N.SineTable, x0, y0, zmax_est, wpz,
@@ -81,18 +91,20 @@ def tile_batch_step(table: N.SineTable, x0, y0, zmax_est, wpz,
     `angles` [num_batches, erosion_steps, erosion_batch] are the erosion
     flat-spot directions (`ops/erosion.draw_angles`); None when
     `erosion_iters_tt` is 0."""
-    z = _tile_heights(table, x0, y0, mcfg, world, zmax_est)
-    if mcfg.erosion_iters_tt > 0:
-        cfg = mcfg.cfg
-        eparams = E.ErosionParams(
-            erode_amount=cfg.erode_amount, water_plane_z=wpz,
-            half_dxy=world.half_dxy, zmin=-zmax_est, zmax=zmax_est,
-            rock_thresh=TM.clip_hd1(cfg), relh_adj_tex=cfg.relh_adj_tex,
-        )
-        z = E.erode(z, mcfg.erosion_iters_tt, eparams, angles,
-                    min_zval=-1.0e9, batch_size=mcfg.erosion_batch,
-                    max_steps=mcfg.erosion_steps,
-                    pad=0 if mcfg.use_pallas_erosion else E.PAD)
+    with span("tiles"):
+        z = _tile_heights(table, x0, y0, mcfg, world, zmax_est)
+        if mcfg.erosion_iters_tt > 0:
+            with span("tiles.erode", device=z.is_cuda):
+                cfg = mcfg.cfg
+                eparams = E.ErosionParams(
+                    erode_amount=cfg.erode_amount, water_plane_z=wpz,
+                    half_dxy=world.half_dxy, zmin=-zmax_est, zmax=zmax_est,
+                    rock_thresh=TM.clip_hd1(cfg), relh_adj_tex=cfg.relh_adj_tex,
+                )
+                z = E.erode(z, mcfg.erosion_iters_tt, eparams, angles,
+                            min_zval=-1.0e9, batch_size=mcfg.erosion_batch,
+                            max_steps=mcfg.erosion_steps,
+                            pad=0 if mcfg.use_pallas_erosion else E.PAD)
     return z
 
 

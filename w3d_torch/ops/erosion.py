@@ -50,6 +50,7 @@ import numpy as np
 import torch
 
 from ..utils import rng as w3d_rng
+from ..utils.profiler import span
 from .cuda import erosion_kernel as EK
 from .fmath import cos32, sin32, sqrt32
 
@@ -330,9 +331,11 @@ def erode(
     zi_all = zi_all.reshape(num_batches, batch_size)
     p6 = pack_params(params, dev)
 
-    for b in range(num_batches):
-        xi = xi_all[b].expand(T, batch_size).contiguous()
-        zi = zi_all[b].expand(T, batch_size).contiguous()
-        hm = hm + EK.erosion_walk(hm, xi, zi, angles[b].contiguous(), p6)
-    return torch.clamp(hm[:, pad:pad + ys, pad:pad + xs],
-                       min=torch.as_tensor(min_zval, dtype=torch.float32, device=dev))
+    with span("kernel.erosion"):
+        for b in range(num_batches):
+            xi = xi_all[b].expand(T, batch_size).contiguous()
+            zi = zi_all[b].expand(T, batch_size).contiguous()
+            hm = hm + EK.erosion_walk(hm, xi, zi, angles[b].contiguous(), p6)
+    with span("sync.min_zval"):     # a host float copied to the card: waits for it
+        lo = torch.as_tensor(min_zval, dtype=torch.float32, device=dev)
+    return torch.clamp(hm[:, pad:pad + ys, pad:pad + xs], min=lo)

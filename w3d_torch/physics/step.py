@@ -40,6 +40,7 @@ from typing import NamedTuple
 import torch
 
 from ..utils.constants import WorldConst, DEFAULT_WORLD
+from ..utils.profiler import span
 from . import types as T
 from .cobjs import CobjSet, GroupedCobjs, deepest_hits
 from ..ops.cuda import narrow_kernel as NK
@@ -360,7 +361,8 @@ def _substep(state: ObjectState, env: PhysicsEnv,
     pz = pz + torch.where(moving, tstep * vz, 0.0)
 
     # --- mesh surface ---
-    mh, mnx, mny, mnz = SK.sample_mesh(env.mesh_height, px, py, world)
+    with span("kernel.sample"):
+        mh, mnx, mny, mnz = SK.sample_mesh(env.mesh_height, px, py, world)
     off_mesh = outside_mesh(px, py, world)
     on_mesh = ~off_mesh & ((pz - rad) <= mh)
 
@@ -374,7 +376,8 @@ def _substep(state: ObjectState, env: PhysicsEnv,
     ice_touch = touches_water
     if water:
         if env.water_height is not None:
-            wh = SK.sample_mesh(env.water_height, px, py, world)[0]
+            with span("kernel.sample"):
+                wh = SK.sample_mesh(env.water_height, px, py, world)[0]
             wpz = torch.maximum(env.water_plane_z, wh)
         else:
             wpz = env.water_plane_z
@@ -468,7 +471,8 @@ def _substep(state: ObjectState, env: PhysicsEnv,
     # --- static cobj collisions ---
     cobj_hit = torch.zeros_like(alive)
     if cobjs is not None and cobjs.size > 0:
-        hit, pen, cnx, cny, cnz, celas, cfric = cobj_hits(px, py, pz, rad, cobjs)
+        with span("kernel.narrow"):
+            hit, pen, cnx, cny, cnz, celas, cfric = cobj_hits(px, py, pz, rad, cobjs)
         hit = hit & alive & ~wcoll
         px = px + torch.where(hit, pen * cnx, 0.0)
         py = py + torch.where(hit, pen * cny, 0.0)
@@ -547,8 +551,9 @@ def _substep(state: ObjectState, env: PhysicsEnv,
     if run_pairs:
         act = alive & (rad >= T.LARGE_OBJ_RAD)
         if pair_fn is None:
-            deltas = PK.banded_pairs(px, py, pz, vx, vy, vz, rad, mass, elas, act,
-                                     window=pair_window)
+            with span("kernel.pairs"):
+                deltas = PK.banded_pairs(px, py, pz, vx, vy, vz, rad, mass, elas, act,
+                                         window=pair_window)
         else:
             deltas = pair_fn(px, py, pz, vx, vy, vz, rad, mass, elas, act)
         dpx, dpy, dpz, dvx, dvy, dvz = deltas
@@ -589,11 +594,13 @@ def step_objects(
     build_world.cpp:397-404,526-543)."""
     dt = float(torch.tensor(tstep / substeps, dtype=torch.float32))
     if obj_collisions:
-        state = spatial_sort(state)
+        with span("physics.sort"):
+            state = spatial_sort(state)
     for k in range(substeps):
         run_pairs = obj_collisions and (pair_every <= 1 or k % pair_every == 0)
-        state = _substep(state, env, cobjs, table, dt, world, run_pairs,
-                         pair_window=pair_window, water=water)
+        with span("physics.substep"):
+            state = _substep(state, env, cobjs, table, dt, world, run_pairs,
+                             pair_window=pair_window, water=water)
     return _frame_bookkeeping(state, table)
 
 
