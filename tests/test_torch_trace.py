@@ -166,6 +166,20 @@ def _pile_spans():
     return out
 
 
+def _graph_spans(replayed=(True, True, True)):
+    """Three frames, each replayed from a graph (a `physics.graph` child)
+    or run eager; before them, a replayed frame outside every mark."""
+    out = [_span("frame", None, 100, 900)]
+    out.append(_span("physics.graph", out[0], 110, 890))
+    for k, graph in enumerate(replayed):
+        a = 1010 + 2000 * k
+        f = _span("frame", None, a, a + 600)
+        kid = (_span("physics.graph", f, a + 10, a + 590) if graph
+               else _span("physics.substep", f, a + 10, a + 590))
+        out += [f, kid]
+    return out
+
+
 def _tile_spans():
     """Two calls: noise 1.5 and 2.5 ms of device time, erosion 9.0 and
     10.0 ms, sync 90 and 100 us."""
@@ -202,6 +216,9 @@ CASES = [
     ("host_sync_ms.batch", _tile_spans, 2, 0.095),
     ("noise_device_ms.batch", _tile_spans, 2, 2.0),
     ("erosion_device_ms.batch", _tile_spans, 2, 9.5),
+    ("graph_replay_share.pile", _graph_spans, 3, 100.0),
+    ("graph_replay_share.pile", lambda: _graph_spans((True, False, True)), 3, 200.0 / 3.0),
+    ("graph_replay_share.pile", _pile_spans, 3, 0.0),
 ]
 
 

@@ -41,6 +41,7 @@ import torch
 
 from ..utils.constants import WorldConst, DEFAULT_WORLD
 from ..utils.profiler import span
+from . import graphs
 from . import types as T
 from .cobjs import CobjSet, GroupedCobjs, deepest_hits
 from ..ops.cuda import narrow_kernel as NK
@@ -591,17 +592,32 @@ def step_objects(
     pair collisions on, the state is x-sorted once per frame and the exact
     banded pair pass runs on substeps 0, pair_every, 2*pair_every, ...
     (pair_every=substeps matches the reference's once-per-frame cadence,
-    build_world.cpp:397-404,526-543)."""
+    build_world.cpp:397-404,526-543).
+
+    On the card the frame goes through `physics/graphs`: once its key
+    repeats on two calls in a row, it is captured into a CUDA graph and
+    replayed, bit for bit the eager frame."""
     dt = float(torch.tensor(tstep / substeps, dtype=torch.float32))
-    if obj_collisions:
-        with span("physics.sort"):
-            state = spatial_sort(state)
-    for k in range(substeps):
-        run_pairs = obj_collisions and (pair_every <= 1 or k % pair_every == 0)
-        with span("physics.substep"):
-            state = _substep(state, env, cobjs, table, dt, world, run_pairs,
-                             pair_window=pair_window, water=water)
-    return _frame_bookkeeping(state, table)
+
+    def frame(state: ObjectState, env: PhysicsEnv) -> ObjectState:
+        if obj_collisions:
+            with span("physics.sort"):
+                state = spatial_sort(state)
+        for k in range(substeps):
+            run_pairs = obj_collisions and (pair_every <= 1 or k % pair_every == 0)
+            with span("physics.substep"):
+                state = _substep(state, env, cobjs, table, dt, world, run_pairs,
+                                 pair_window=pair_window, water=water)
+        return _frame_bookkeeping(state, table)
+
+    key = None
+    if graphs.capturable(state, env):
+        key = graphs.frame_key(state, env, cobjs, table, tstep=tstep,
+                               substeps=substeps, world=world,
+                               obj_collisions=obj_collisions,
+                               pair_window=pair_window, pair_every=pair_every,
+                               water=water)
+    return graphs.FRAMES.run(frame, key, state, env, graphs.refs(cobjs, table))
 
 
 def _frame_bookkeeping(state: ObjectState, table: T.ObjTypeTable) -> ObjectState:
