@@ -13,10 +13,11 @@ frame: the platform and trigger pass, riders, physics, ripples and gated
 smoke; `with_valley_water` fills its terrain basins and feeds the water
 surface to the physics env.
 
-WMODE_INF_TERRAIN: `TiledWorld` streams tiles (`terrain/tiles`) and
-advances one fused city state (`city/city_step`) K frames a chunk, with
-the host's building-people reroute once per chunk; `make_tiled_world`
-assembles it.
+WMODE_INF_TERRAIN: `TiledWorld` streams tiles (`terrain/tiles`), at most
+`tile_budget` new tiles a chunk where it is set, and advances one fused
+city state (`city/city_step`) K frames a chunk, with the host's
+building-people reroute once per chunk; `make_tiled_world` assembles it.
+A chunk runs in the span `frame`.
 
 WMODE_UNIVERSE: `UniverseWorld` pages the universe's cells around the
 player (`universe/gen`), steers the player ship, and advances the fleet K
@@ -33,6 +34,7 @@ import numpy as np
 import torch
 
 from ..utils.constants import WorldConst
+from ..utils.profiler import span
 from ..physics import step as PS
 from ..water import ripples as WR, smoke as WSM
 from ..gameplay import player as PL
@@ -152,6 +154,10 @@ class TiledWorld:
     frame: int = 0
     last_probe: object = None    # latest people_probe fetch (host numpy)
     draws: object = None         # the city's draws per chunk (app.TiledDraws)
+    # new tiles a chunk (tile_draw_t::update's GPU budget,
+    # tiled_mesh.cpp:2314-2316): the batch is adopted on the next chunk;
+    # None creates every missing tile at once
+    tile_budget: int | None = None
 
     def step_chunk(self, cam_x: float, cam_y: float, frames: int | None = None):
         """Advance K frames: tiles + one chained city call + the per-chunk
@@ -159,18 +165,20 @@ class TiledWorld:
         from ..city import city_step as CS
 
         k = self.chunk if frames is None else frames
-        created, deleted = self.tile_mgr.update(cam_x, cam_y)
-        if self.city is not None:
-            d = self.draws.city(self.frame, k, self)
-            self.city = CS.city_frames_chained(
-                self.city, self.road_graph, self.ped_nav, self.pads,
-                self.perches, k, d, rail=self.rail)
-            if self.bldg is not None and self.city.people is not None:
-                # single packed fetch; reroute decisions + display stats
-                # both come from it
-                self.last_probe = CS.people_probe(self.city.people).cpu().numpy()
-                self.city = self.city._replace(
-                    people=self.bldg.reroute(self.city.people, probe=self.last_probe))
+        with span("frame"):
+            created, deleted = self.tile_mgr.update(
+                cam_x, cam_y, max_tiles_per_frame=self.tile_budget)
+            if self.city is not None:
+                d = self.draws.city(self.frame, k, self)
+                self.city = CS.city_frames_chained(
+                    self.city, self.road_graph, self.ped_nav, self.pads,
+                    self.perches, k, d, rail=self.rail)
+                if self.bldg is not None and self.city.people is not None:
+                    # single packed fetch; reroute decisions + display stats
+                    # both come from it
+                    self.last_probe = CS.people_probe(self.city.people).cpu().numpy()
+                    self.city = self.city._replace(
+                        people=self.bldg.reroute(self.city.people, probe=self.last_probe))
         self.frame += k
         return created, deleted
 

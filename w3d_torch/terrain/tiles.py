@@ -26,7 +26,15 @@ draws them from key 0, so every tile of every batch walks the same
 angles there too).
 
 `grass_for_tile` and `flowers_for_tile` hash a resident tile's blades and
-flowers (`veg/grass`) on the tile's device.
+flowers (`veg/grass`) on the tile's device; `height_at` reads the height
+under the camera from its resident tile.
+
+Spans: `tiles.update` around `update`, `tiles.generate` around a batch's
+enqueue, and inside it the phases `tiles.context`, `tiles.erode`,
+`tiles.ao`, `tiles.shadows` and `tiles.biomes`, each with CUDA events on
+a card.  `TileManager.counts` counts the tiles created, deleted and
+deferred (left by the budget for a later call), the batches generated,
+and holds the number resident.
 """
 
 from __future__ import annotations
@@ -37,6 +45,7 @@ import numpy as np
 import torch
 
 from ..utils.constants import WorldConst, DEFAULT_WORLD
+from ..utils.profiler import span
 from ..ops import noise as N
 from ..ops import erosion as E
 from ..ops import ao as AO
@@ -48,6 +57,7 @@ CREATE_DIST_TILES = 1.5   # in tile units (~ get_tile_radius scaling)
 DELETE_DIST_TILES = 2.0
 EROSION_BATCH = 256       # droplets per lockstep batch (tiles.py:241-243)
 EROSION_STEPS = 96
+COUNTS = ("created", "deleted", "deferred", "batches", "resident")
 
 
 @dataclass
@@ -84,6 +94,7 @@ class TileManager:
     angles: torch.Tensor | None = None   # [nb, EROSION_STEPS, EROSION_BATCH]
     _batch_pad: int = 8
     _pending: tuple | None = None   # (keys, device tensors) in-flight batch
+    counts: dict = field(default_factory=lambda: dict.fromkeys(COUNTS, 0))
 
     def __post_init__(self):
         ts = TM.gen_terrain(self.cfg._replace(erosion_iters=0),
@@ -141,26 +152,30 @@ class TileManager:
         its results are adopted at the start of the NEXT call, so the
         card's work for batch N overlaps the host bookkeeping of batch
         N+1."""
-        if self._pending is not None:
-            self._adopt_pending()
-        want = self.wanted_tiles(cam_x, cam_y)
-        ctx, cty = self.camera_tile(cam_x, cam_y)
-        deleted = []
-        for key in list(self.tiles):
-            ddx = key[0] - ctx
-            ddy = key[1] - cty
-            if ddx * ddx + ddy * ddy > DELETE_DIST_TILES ** 2:
-                del self.tiles[key]
-                deleted.append(key)
-        new = [k for k in want if k not in self.tiles]
-        # nearest-first priority (the reference sorts by tile priority)
-        new.sort(key=lambda k: (k[0] - ctx) ** 2 + (k[1] - cty) ** 2)
-        if max_tiles_per_frame is not None:
-            new = new[:max_tiles_per_frame]
-            if new:
-                self._generate(new, defer=True)
-        elif new:
-            self._generate(new)
+        with span("tiles.update"):
+            if self._pending is not None:
+                self._adopt_pending()
+            want = self.wanted_tiles(cam_x, cam_y)
+            ctx, cty = self.camera_tile(cam_x, cam_y)
+            deleted = []
+            for key in list(self.tiles):
+                ddx = key[0] - ctx
+                ddy = key[1] - cty
+                if ddx * ddx + ddy * ddy > DELETE_DIST_TILES ** 2:
+                    del self.tiles[key]
+                    deleted.append(key)
+            new = [k for k in want if k not in self.tiles]
+            # nearest-first priority (the reference sorts by tile priority)
+            new.sort(key=lambda k: (k[0] - ctx) ** 2 + (k[1] - cty) ** 2)
+            if max_tiles_per_frame is not None:
+                self.counts["deferred"] += max(len(new) - max_tiles_per_frame, 0)
+                new = new[:max_tiles_per_frame]
+                if new:
+                    self._generate(new, defer=True)
+            elif new:
+                self._generate(new)
+            self.counts["deleted"] += len(deleted)
+            self.counts["resident"] = len(self.tiles)
         return new, deleted
 
     def _adopt(self, keys, out):
@@ -178,6 +193,30 @@ class TileManager:
         """Force-adopt any in-flight batch (end-of-frame sync point)."""
         if self._pending is not None:
             self._adopt_pending()
+            self.counts["resident"] = len(self.tiles)
+
+    def height_at(self, x: float, y: float) -> torch.Tensor:
+        """The terrain height at world (x, y), a 0-d tensor on the tiles'
+        device, read without waiting for the device: the bilinear read of
+        the resident tile under (x, y), contracting y first, then x, each
+        product and sum rounded on its own, with the cell clamped into the
+        tile and the weights to [0, 1], as `physics/step.sample_mesh`
+        reads the ground mesh (so a tile's last row and column read flat).
+        The player's collision reads it every frame
+        (check_player_tiled_terrain_collision, tiled_mesh.cpp:1234).
+        Raises KeyError where no resident tile holds (x, y)."""
+        key = self.camera_tile(x, y)
+        zv = self.tiles[key].zvals
+        n = self.tile_size
+        gx = x * self.world.dx_inv - key[0] * n
+        gy = y * self.world.dy_inv - key[1] * n
+        x0 = min(max(int(np.floor(gx)), 0), n - 2)
+        y0 = min(max(int(np.floor(gy)), 0), n - 2)
+        fx = np.float32(min(max(gx - x0, 0.0), 1.0))
+        fy = np.float32(min(max(gy - y0, 0.0), 1.0))
+        wx0, wy0 = float(np.float32(1.0) - fx), float(np.float32(1.0) - fy)
+        c = zv[y0, x0:x0 + 2] * wy0 + zv[y0 + 1, x0:x0 + 2] * float(fy)
+        return c[0] * wx0 + c[1] * float(fx)
 
     # -- per-tile vegetation (grass_tile_manager_t, grass.cpp:58) --
 
@@ -213,10 +252,13 @@ class TileManager:
         pad = -(-n // self._batch_pad) * self._batch_pad
         txs = np.array([k[0] for k in keys] + [keys[-1][0]] * (pad - n), np.float32)
         tys = np.array([k[1] for k in keys] + [keys[-1][1]] * (pad - n), np.float32)
-        out = gen_tile_batch(
-            self.table, upload(txs, self.device), upload(tys, self.device),
-            self._zmax_t, self._wpz_t, self.cfg, self.world, self.tile_size,
-            self.erosion_iters_tt, self.sun_dir, angles=self.angles)
+        with span("tiles.generate"):
+            out = gen_tile_batch(
+                self.table, upload(txs, self.device), upload(tys, self.device),
+                self._zmax_t, self._wpz_t, self.cfg, self.world, self.tile_size,
+                self.erosion_iters_tt, self.sun_dir, angles=self.angles)
+        self.counts["created"] += n
+        self.counts["batches"] += 1
         if defer:   # adopted on the NEXT update
             self._pending = (list(keys), out)
             return
@@ -281,23 +323,29 @@ def gen_tile_batch(table, txs, tys, zmax_est, wpz, cfg: TM.TerrainConfig,
     stride = tile_size
     halo = AO.AO_RAY_LEN
     inner = (slice(None), slice(halo, halo + stride), slice(halo, halo + stride))
-    ctx = tile_context(table, txs, tys, zmax_est, cfg, world, tile_size)
+    on_card = txs.is_cuda
+    with span("tiles.context", device=on_card):
+        ctx = tile_context(table, txs, tys, zmax_est, cfg, world, tile_size)
     zv = ctx[inner]
     if erosion_iters > 0:
-        zv = erode_tiles(zv, zmax_est, wpz, cfg, world, erosion_iters, angles)
-        ctx = ctx.clone()
-        ctx[inner] = zv
+        with span("tiles.erode", device=on_card):
+            zv = erode_tiles(zv, zmax_est, wpz, cfg, world, erosion_iters, angles)
+            ctx = ctx.clone()
+            ctx[inner] = zv
 
-    ao = AO.tile_ao(ctx, stride, dz=0.5 * world.half_dxy)
-    smask, _ = SH.mesh_shadows(zv, sun_dir, cell_w=world.dx)
+    with span("tiles.ao", device=on_card):
+        ao = AO.tile_ao(ctx, stride, dz=0.5 * world.half_dxy)
+    with span("tiles.shadows", device=on_card):
+        smask, _ = SH.mesh_shadows(zv, sun_dir, cell_w=world.dx)
 
-    # normal z for slope-based texturing: centered differences from the
-    # halo-padded context, so borders use true neighbor heights
-    s = slice(halo, halo + stride)
-    dzdx = (ctx[:, s, halo + 1:halo + stride + 1]
-            - ctx[:, s, halo - 1:halo + stride - 1]) * (0.5 * world.dx_inv)
-    dzdy = (ctx[:, halo + 1:halo + stride + 1, s]
-            - ctx[:, halo - 1:halo + stride - 1, s]) * (0.5 * world.dy_inv)
-    norm_z = torch.rsqrt(dzdx ** 2 + dzdy ** 2 + 1.0)
-    weights = B.biome_weights(zv, norm_z, -zmax_est, zmax_est, cfg)
+    with span("tiles.biomes", device=on_card):
+        # normal z for slope-based texturing: centered differences from the
+        # halo-padded context, so borders use true neighbor heights
+        s = slice(halo, halo + stride)
+        dzdx = (ctx[:, s, halo + 1:halo + stride + 1]
+                - ctx[:, s, halo - 1:halo + stride - 1]) * (0.5 * world.dx_inv)
+        dzdy = (ctx[:, halo + 1:halo + stride + 1, s]
+                - ctx[:, halo - 1:halo + stride - 1, s]) * (0.5 * world.dy_inv)
+        norm_z = torch.rsqrt(dzdx ** 2 + dzdy ** 2 + 1.0)
+        weights = B.biome_weights(zv, norm_z, -zmax_est, zmax_est, cfg)
     return zv, ao, smask, weights
