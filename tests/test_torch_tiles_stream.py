@@ -10,9 +10,12 @@ frame of a 40-frame camera path, every tile made (heights, AO, shadow
 mask, biome weights) and the height read under the camera; the shadow
 scan and AO alone for every kind of sun and on random contexts.  A
 budgeted `TiledWorld.step` makes what `TileManager.update` makes under the
-same budget.  A traced frame that makes tiles records the span tree
+same budget.  `gen_tile_batch`, built from its five phase functions,
+equals the body it replaced, with and without erosion.  A traced frame
+that makes tiles records the span tree
 `frame` > `tiles.update` > `tiles.generate` > the five phases; the
-stream's readers read their spans, and nothing where no frame made tiles;
+stream's readers read their spans (the share of replayed batches too), and
+nothing where no frame made tiles;
 a traced run of the cell through the harness at a tiny size reports them.
 The stream's sine arguments stay within those of the batch cell, and the
 reference loads nothing of the port.
@@ -113,7 +116,9 @@ def test_resident_keys_and_batches_equal_the_reference(flown):
     made = [k for f in frames for k in f[1]]
     assert len(made) == len(set(made)) == 9 + 3 * 5     # the fill, then 5 edges
     assert tm.counts == {"created": len(made), "deleted": sum(len(f[2]) for f in frames),
-                         "deferred": 1, "batches": 7, "resident": len(frames[-1][0])}
+                         "deferred": 1, "batches": 7, "resident": len(frames[-1][0]),
+                         "graph_captures": 0, "graph_replays": 0, "graph_eager": 7,
+                         "graph_failed": 0}
 
 
 def test_tiles_equal_the_reference(flown):
@@ -181,6 +186,52 @@ def test_budgeted_step_is_the_budgeted_update(budget):
     for k in a.tiles:
         for f in ("zvals", "ao", "smask_sun", "weights"):
             assert torch.equal(getattr(a.tiles[k], f), getattr(b.tiles[k], f))
+
+
+def _gen_tile_batch_before(table, txs, tys, zmax_est, wpz, cfg, world, tile_size,
+                           erosion_iters, sun_dir, angles=None):
+    """`tiles.gen_tile_batch` as it was written before its phases were
+    functions, op for op."""
+    from w3d_torch.terrain import biomes as B
+    stride = tile_size
+    halo = AO.AO_RAY_LEN
+    inner = (slice(None), slice(halo, halo + stride), slice(halo, halo + stride))
+    ctx = TL.tile_context(table, txs, tys, zmax_est, cfg, world, tile_size)
+    zv = ctx[inner]
+    if erosion_iters > 0:
+        zv = TL.erode_tiles(zv, zmax_est, wpz, cfg, world, erosion_iters, angles)
+        ctx = ctx.clone()
+        ctx[inner] = zv
+    ao = AO.tile_ao(ctx, stride, dz=0.5 * world.half_dxy)
+    smask, _ = SH.mesh_shadows(zv, sun_dir, cell_w=world.dx)
+    s = slice(halo, halo + stride)
+    dzdx = (ctx[:, s, halo + 1:halo + stride + 1]
+            - ctx[:, s, halo - 1:halo + stride - 1]) * (0.5 * world.dx_inv)
+    dzdy = (ctx[:, halo + 1:halo + stride + 1, s]
+            - ctx[:, halo - 1:halo + stride - 1, s]) * (0.5 * world.dy_inv)
+    norm_z = torch.rsqrt(dzdx ** 2 + dzdy ** 2 + 1.0)
+    weights = B.biome_weights(zv, norm_z, -zmax_est, zmax_est, cfg)
+    return zv, ao, smask, weights
+
+
+@pytest.mark.parametrize("erosion_iters", [64, 0], ids=["eroded", "no erosion"])
+def test_phases_make_the_batch_as_before(erosion_iters):
+    """`gen_tile_batch`, now its five phase functions in order, equals the
+    body it replaced exactly, with and without erosion; without erosion
+    the erosion phase is left out."""
+    tm = _manager(_angles())
+    txs = torch.tensor([-3.0, 0.0, 2.0, 5.0])
+    tys = torch.tensor([1.0, -2.0, 4.0, 0.0])
+    args = (tm.table, txs, tys, tm._zmax_t, tm._wpz_t, tm.cfg, tm.world, tm.tile_size,
+            erosion_iters, tm.sun_dir)
+    got = TL.gen_tile_batch(*args, angles=tm.angles)
+    want = _gen_tile_batch_before(*args, angles=tm.angles)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    spec = TL.BatchSpec(tm.table, tm.cfg, tm.world, tm.tile_size, erosion_iters,
+                        tm.sun_dir, tm.angles)
+    names = [n for n, _ in TL.phases(spec)]
+    assert names == (PHASES if erosion_iters else PHASES[:1] + PHASES[2:])
 
 
 SUNS = [(0.4, 0.3, 0.8), (-0.4, 0.3, 0.8), (0.2, -0.5, 0.6), (0.1, 0.7, 0.5),
@@ -359,6 +410,20 @@ def test_stream_reader_none_where_no_frame_made_tiles(monkeypatch, name):
     assert _reader(name).read(_run(4)) is None
 
 
+def test_tile_graph_share_reader(monkeypatch):
+    """Of the two traced frames that make tiles, the second replays its
+    batch (`tiles.graph` inside its `tiles.generate`): 50%; none where no
+    frame made tiles."""
+    spans = _stream_spans()
+    gens = [s for s in spans if s.name == "tiles.generate"]
+    a = gens[1].start * 1e-3
+    spans.append(_span("tiles.graph", gens[1], a + 5, a + 700))
+    monkeypatch.setattr(P, "_SPANS", spans)
+    assert _reader("tile_graph_share.stream").read(_run(4)) == pytest.approx(50.0)
+    monkeypatch.setattr(P, "_SPANS", _stream_spans((False,) * 4))
+    assert _reader("tile_graph_share.stream").read(_run(4)) is None
+
+
 def test_harness_runs_the_stream_cell_traced():
     """The harness's traced run of the cell at tile 16 on the CPU: correct,
     with the frame metrics, the host time of the creation and the
@@ -378,4 +443,6 @@ def test_harness_runs_the_stream_cell_traced():
     got = {k: v["value"] for k, v in r["metrics"].items()}
     assert got["tile_gen_host_ms.stream"] > 0.0
     assert "shadow_device_ms.stream" not in got       # no device on the CPU
+    assert got["tile_graph_share.stream"] == 0.0       # the CPU's batches run eager
+    assert r["counters"]["graph_eager"] == 2 and r["counters"]["graph_replays"] == 0
     assert r["counters"]["batches"] == 2 and r["counters"]["created"] == 6

@@ -29,17 +29,26 @@ angles there too).
 flowers (`veg/grass`) on the tile's device; `height_at` reads the height
 under the camera from its resident tile.
 
+`gen_tile_batch` runs a batch as five phases (`phases`): context,
+erosion, AO, shadows, biome weights.  On a card the manager's batches go
+through `terrain/tile_graphs`: once a batch's shape repeats, each phase
+is captured into a CUDA graph and replayed in place of its launches.
+
 Spans: `tiles.update` around `update`, `tiles.generate` around a batch's
 enqueue, and inside it the phases `tiles.context`, `tiles.erode`,
 `tiles.ao`, `tiles.shadows` and `tiles.biomes`, each with CUDA events on
-a card.  `TileManager.counts` counts the tiles created, deleted and
-deferred (left by the budget for a later call), the batches generated,
-and holds the number resident.
+a card (inside `tiles.graph` where the batch replays; `tiles.capture`
+around a capture).  `TileManager.counts` counts the tiles created,
+deleted and deferred (left by the budget for a later call), the batches
+generated, and holds the number resident; `graph_captures`,
+`graph_replays`, `graph_eager` and `graph_failed` count the batches by
+how they ran and the captures that raised.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -57,7 +66,8 @@ CREATE_DIST_TILES = 1.5   # in tile units (~ get_tile_radius scaling)
 DELETE_DIST_TILES = 2.0
 EROSION_BATCH = 256       # droplets per lockstep batch (tiles.py:241-243)
 EROSION_STEPS = 96
-COUNTS = ("created", "deleted", "deferred", "batches", "resident")
+COUNTS = ("created", "deleted", "deferred", "batches", "resident",
+          "graph_captures", "graph_replays", "graph_eager", "graph_failed")
 
 
 @dataclass
@@ -97,6 +107,8 @@ class TileManager:
     counts: dict = field(default_factory=lambda: dict.fromkeys(COUNTS, 0))
 
     def __post_init__(self):
+        from .tile_graphs import TileGraphs
+        self.graphs = TileGraphs()
         ts = TM.gen_terrain(self.cfg._replace(erosion_iters=0),
                             WorldConst(mesh_x=64, mesh_y=64,
                                        x_scene=self.world.x_scene,
@@ -252,11 +264,11 @@ class TileManager:
         pad = -(-n // self._batch_pad) * self._batch_pad
         txs = np.array([k[0] for k in keys] + [keys[-1][0]] * (pad - n), np.float32)
         tys = np.array([k[1] for k in keys] + [keys[-1][1]] * (pad - n), np.float32)
+        spec = BatchSpec(self.table, self.cfg, self.world, self.tile_size,
+                         self.erosion_iters_tt, self.sun_dir, self.angles)
         with span("tiles.generate"):
-            out = gen_tile_batch(
-                self.table, upload(txs, self.device), upload(tys, self.device),
-                self._zmax_t, self._wpz_t, self.cfg, self.world, self.tile_size,
-                self.erosion_iters_tt, self.sun_dir, angles=self.angles)
+            out = self.graphs.run(spec, upload(txs, self.device), upload(tys, self.device),
+                                  self._zmax_t, self._wpz_t, self.counts)
         self.counts["created"] += n
         self.counts["batches"] += 1
         if defer:   # adopted on the NEXT update
@@ -310,42 +322,96 @@ def erode_tiles(zv: torch.Tensor, zmax_est, wpz, cfg: TM.TerrainConfig,
                    max_steps=EROSION_STEPS, pad=E.PAD)
 
 
+class BatchSpec(NamedTuple):
+    """What a batch of tiles is made with, besides its origins and height
+    range: the arguments of `gen_tile_batch` that a CUDA graph of the
+    batch bakes in (`terrain/tile_graphs`)."""
+
+    table: N.SineTable | None
+    cfg: TM.TerrainConfig
+    world: WorldConst
+    tile_size: int
+    erosion_iters: int
+    sun_dir: tuple
+    angles: torch.Tensor | None
+
+
+def _interior(tile_size: int) -> tuple:
+    halo = AO.AO_RAY_LEN
+    return (slice(None), slice(halo, halo + tile_size), slice(halo, halo + tile_size))
+
+
+# The phases of a batch.  Each reads the batch's tensors so far from `b`,
+# a dict that starts with "txs", "tys", "zmax_est" and "wpz", and adds or
+# replaces its own.
+
+def context_phase(b: dict, s: BatchSpec) -> None:
+    """The glaciated context heights "ctx" and the tiles' interior "zvals"
+    (a view of it)."""
+    ctx = tile_context(s.table, b["txs"], b["tys"], b["zmax_est"], s.cfg, s.world,
+                       s.tile_size)
+    b["ctx"], b["zvals"] = ctx, ctx[_interior(s.tile_size)]
+
+
+def erode_phase(b: dict, s: BatchSpec) -> None:
+    """The eroded "zvals", written back into a copy of "ctx"."""
+    zv = erode_tiles(b["zvals"], b["zmax_est"], b["wpz"], s.cfg, s.world,
+                     s.erosion_iters, s.angles)
+    ctx = b["ctx"].clone()
+    ctx[_interior(s.tile_size)] = zv
+    b["ctx"], b["zvals"] = ctx, zv
+
+
+def ao_phase(b: dict, s: BatchSpec) -> None:
+    b["ao"] = AO.tile_ao(b["ctx"], s.tile_size, dz=0.5 * s.world.half_dxy)
+
+
+def shadows_phase(b: dict, s: BatchSpec) -> None:
+    b["smask"], _ = SH.mesh_shadows(b["zvals"], s.sun_dir, cell_w=s.world.dx)
+
+
+def biomes_phase(b: dict, s: BatchSpec) -> None:
+    """Biome "weights"; the normal's z for slope-based texturing comes from
+    centered differences over the halo-padded context, so borders use true
+    neighbor heights."""
+    stride, halo, world, ctx = s.tile_size, AO.AO_RAY_LEN, s.world, b["ctx"]
+    c = slice(halo, halo + stride)
+    dzdx = (ctx[:, c, halo + 1:halo + stride + 1]
+            - ctx[:, c, halo - 1:halo + stride - 1]) * (0.5 * world.dx_inv)
+    dzdy = (ctx[:, halo + 1:halo + stride + 1, c]
+            - ctx[:, halo - 1:halo + stride - 1, c]) * (0.5 * world.dy_inv)
+    norm_z = torch.rsqrt(dzdx ** 2 + dzdy ** 2 + 1.0)
+    b["weights"] = B.biome_weights(b["zvals"], norm_z, -b["zmax_est"], b["zmax_est"],
+                                   s.cfg)
+
+
+PHASES = (("tiles.context", context_phase), ("tiles.erode", erode_phase),
+          ("tiles.ao", ao_phase), ("tiles.shadows", shadows_phase),
+          ("tiles.biomes", biomes_phase))
+OUTPUTS = ("zvals", "ao", "smask", "weights")
+
+
+def phases(s: BatchSpec) -> list:
+    """The batch's phases in order, as (span name, phase): erosion only
+    with `erosion_iters > 0`."""
+    return [(name, f) for name, f in PHASES if f is not erode_phase or s.erosion_iters > 0]
+
+
 def gen_tile_batch(table, txs, tys, zmax_est, wpz, cfg: TM.TerrainConfig,
                    world: WorldConst, tile_size: int, erosion_iters: int,
                    sun_dir: tuple, angles: torch.Tensor | None = None):
     """Generate a padded batch of tiles: context zvals (with AO halo) ->
-    glaciate -> [erode interior] -> AO -> shadows -> biome weights.
+    glaciate -> [erode interior] -> AO -> shadows -> biome weights, each
+    phase in its span.
 
     `txs`, `tys` [T] float32 tile indices; `zmax_est`, `wpz` 0-d float32
     tensors on the same device; `angles` as `TileManager.angles` when
     `erosion_iters > 0`.  Returns (zvals [T, n, n], ao [T, n, n], shadow
     mask [T, n, n] bool, weights [T, 5, n, n])."""
-    stride = tile_size
-    halo = AO.AO_RAY_LEN
-    inner = (slice(None), slice(halo, halo + stride), slice(halo, halo + stride))
+    s = BatchSpec(table, cfg, world, tile_size, erosion_iters, sun_dir, angles)
+    b = {"txs": txs, "tys": tys, "zmax_est": zmax_est, "wpz": wpz}
     on_card = txs.is_cuda
-    with span("tiles.context", device=on_card):
-        ctx = tile_context(table, txs, tys, zmax_est, cfg, world, tile_size)
-    zv = ctx[inner]
-    if erosion_iters > 0:
-        with span("tiles.erode", device=on_card):
-            zv = erode_tiles(zv, zmax_est, wpz, cfg, world, erosion_iters, angles)
-            ctx = ctx.clone()
-            ctx[inner] = zv
-
-    with span("tiles.ao", device=on_card):
-        ao = AO.tile_ao(ctx, stride, dz=0.5 * world.half_dxy)
-    with span("tiles.shadows", device=on_card):
-        smask, _ = SH.mesh_shadows(zv, sun_dir, cell_w=world.dx)
-
-    with span("tiles.biomes", device=on_card):
-        # normal z for slope-based texturing: centered differences from the
-        # halo-padded context, so borders use true neighbor heights
-        s = slice(halo, halo + stride)
-        dzdx = (ctx[:, s, halo + 1:halo + stride + 1]
-                - ctx[:, s, halo - 1:halo + stride - 1]) * (0.5 * world.dx_inv)
-        dzdy = (ctx[:, halo + 1:halo + stride + 1, s]
-                - ctx[:, halo - 1:halo + stride - 1, s]) * (0.5 * world.dy_inv)
-        norm_z = torch.rsqrt(dzdx ** 2 + dzdy ** 2 + 1.0)
-        weights = B.biome_weights(zv, norm_z, -zmax_est, zmax_est, cfg)
-    return zv, ao, smask, weights
+    for name, phase in phases(s):
+        with span(name, device=on_card):
+            phase(b, s)
+    return tuple(b[k] for k in OUTPUTS)
