@@ -4,8 +4,8 @@ file imports no jax.
 On the CPU: `step_objects` never captures (its frames count as eager);
 the key changes with the scene and the type table (identity and in-place
 edits) and with the frame's options and the env's shapes, not with the
-state's or the env's values; the rule of two calls in a row, the LRU
-bound and a capture that raises, through `FrameGraphs` without a card.
+state's or the env's values.  The capture policy, through the frame's
+wiring as through the tile batch's, is tested in `test_torch_cuda_graphs`.
 On the card (`gpu`): replayed frames of the 10K pile, dry, in water and on
 ice, are bit for bit eager frames and never alias; a capture that reads
 the card falls back to eager frames; an edit of the scene
@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from w3d_torch.models import physics_model as PM
+from w3d_torch.ops.cuda import graphs as CG
 from w3d_torch.ops.cuda import narrow_kernel as NK
 from w3d_torch.ops.cuda import pairs_kernel as PK
 from w3d_torch.ops.cuda import sample_kernel as SK
@@ -48,21 +49,18 @@ def _key(w, **options):
 
 @pytest.fixture
 def frames(monkeypatch):
-    """A fresh `FrameGraphs` in place of the module's."""
-    fg = G.FrameGraphs()
+    """A fresh frame cache in place of the module's."""
+    fg = CG.GraphCache("physics")
     monkeypatch.setattr(G, "FRAMES", fg)
     return fg
 
 
 def test_cpu_frames_never_capture(frames):
     w = _world()
-    before = G.dataclasses.replace(G.STATS)
     for _ in range(3):
         w = PM.frame_step(w, substeps=4, world=WORLD, pair_every=2, water=False)
     assert not G.capturable(w.state, w.env)
-    assert G.STATS.eager - before.eager == 3
-    assert (G.STATS.captures, G.STATS.replays, G.STATS.failed) == \
-        (before.captures, before.replays, before.failed)
+    assert frames.counts == {**dict.fromkeys(CG.COUNTS, 0), "graph_eager": 3}
     assert not frames.graphs and frames.last is None
 
 
@@ -137,54 +135,6 @@ def test_key_holds_under_new_values(edit):
     assert _key(w) == k0
 
 
-def test_two_calls_in_a_row_then_replay(monkeypatch):
-    captured = []
-
-    def capture(frame, state, env, held):
-        captured.append(len(captured))
-        return G.Graph(None, (), (), None, (), held)
-
-    monkeypatch.setattr(G, "capture", capture)
-    monkeypatch.setattr(G, "replay", lambda g, state, env: "replay")
-    fg = G.FrameGraphs()
-    keys = ["a", "b", "a", "a", "a", "b", "a", "b", "b", "b", None, None]
-    got = [fg.run(lambda state, env: "eager", k, None, None, ()) for k in keys]
-    assert got == ["eager", "eager", "eager", "replay", "replay", "eager", "replay",
-                   "eager", "replay", "replay", "eager", "eager"]
-    assert len(captured) == 2 and list(fg.graphs) == ["a", "b"]
-
-
-def test_lru_bound():
-    assert G.MAX_GRAPHS == 4
-    fg = G.FrameGraphs()
-    for k in "abcd":
-        fg.keep(k, object())
-    assert fg.decide("a") == "replay"        # "a" is now the most recent
-    fg.keep("e", object())
-    assert list(fg.graphs) == ["c", "d", "a", "e"]
-    assert fg.decide("b") == "eager"
-    fg.keep("f", object())
-    assert len(fg.graphs) == 4 and "c" not in fg.graphs
-
-
-def test_a_capture_that_raises_leaves_its_key_eager():
-    """On the CPU the capture raises (no CUDA stream): the call runs eager,
-    the failure is counted, and the key never captures again."""
-    fg = G.FrameGraphs()
-    w = _world()
-    calls = []
-
-    def frame(state, env):
-        calls.append(1)
-        return state._replace(px=state.px + 1.0)
-
-    before = G.STATS.failed
-    outs = [fg.run(frame, ("k",), w.state, w.env, ()) for _ in range(4)]
-    assert len(calls) == 4 and G.STATS.failed - before == 1
-    assert ("k",) in fg.eager_keys and not fg.graphs
-    assert all(torch.equal(o.px, w.state.px + 1.0) for o in outs)
-
-
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
@@ -230,9 +180,10 @@ def test_replayed_frames_are_eager_frames(cuda_device, frames, monkeypatch, wate
         m.setattr(G, "capturable", lambda state, env: False)
         w0 = _chain(_pile(cuda_device, water), 5, water)[-1]
         eager = [w.state for w in _chain(w0, 20, water)]
-    before = G.dataclasses.replace(G.STATS)
+    before = dict(frames.counts)
     got = [w.state for w in _chain(w0, 20, water)]
-    assert (G.STATS.captures - before.captures, G.STATS.replays - before.replays) == (1, 19)
+    assert (frames.counts["graph_captures"] - before["graph_captures"],
+            frames.counts["graph_replays"] - before["graph_replays"]) == (1, 19)
     for a, b in zip(eager, got):            # after all 20: no frame was overwritten
         for f in a._fields:
             assert torch.equal(getattr(a, f), getattr(b, f)), f
@@ -249,24 +200,25 @@ def test_a_scene_edit_captures_anew(cuda_device, frames, monkeypatch):
     with monkeypatch.context() as m:
         m.setattr(G, "capturable", lambda state, env: False)
         eager = _chain(w, 3)[-1].state
-    before = G.STATS.captures
+    before = frames.counts["graph_captures"]
     got = _chain(w, 3)[-1].state
-    assert G.STATS.captures - before == 1 and len(frames.graphs) == 2
+    assert frames.counts["graph_captures"] - before == 1 and len(frames.graphs) == 2
     assert all(torch.equal(a, b) for a, b in zip(eager, got))
 
 
 @pytest.mark.gpu
 def test_a_capture_that_syncs_falls_back(cuda_device):
-    fg = G.FrameGraphs()
+    fg = CG.GraphCache("physics")
     w = _pile(cuda_device)
 
-    def frame(state, env):
+    def frame(b):
+        state = b["state"]
         float(state.px.sum())           # a host read: no capture takes it
-        return state._replace(px=state.px + 1.0)
+        b["state"] = state._replace(px=state.px + 1.0)
 
-    before = G.STATS.failed
-    outs = [fg.run(frame, ("k",), w.state, w.env, ()) for _ in range(3)]
-    assert G.STATS.failed - before == 1 and not fg.graphs
+    outs = [fg.run(("k",), [(None, frame)], {"state": w.state, "env": w.env}, ("state",))[0]
+            for _ in range(3)]
+    assert fg.counts["graph_failed"] == 1 and list(fg.failed) == [("k",)] and not fg.graphs
     assert all(torch.equal(o.px, w.state.px + 1.0) for o in outs)
     assert _step(w).state.px.is_cuda      # the card still runs frames
 
@@ -279,7 +231,7 @@ def test_launch_counts_of_replayed_frames(cuda_device, frames):
         c0 = _launches()
         w = _step(w)
         per.append([b - a for a, b in zip(c0, _launches())])
-    assert G.STATS.replays and per[0] == per[1] == per[2] == per[3] == per[4]
+    assert frames.counts["graph_replays"] and per[0] == per[1] == per[2] == per[3] == per[4]
     assert per[0] == [10, 10, 2]
 
 

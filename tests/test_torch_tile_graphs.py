@@ -4,10 +4,9 @@ file imports no jax.
 On the CPU: the key changes with what a capture bakes in (the batch size,
 the sun, the tile size, the erosion, the sine table and the angles by
 identity and by in-place edits) and not with the batch's origins or
-height range; the rule of two calls in a row and the LRU bound, with a
-stubbed capture; a capture that raises leaves its key eager and is
-counted; a CPU manager never captures, and its tiles are the eager
-batch's exactly.  On the card (`gpu`): the manager's replayed batches are
+height range; a CPU manager never captures, and its tiles are the eager
+batch's exactly.  The capture policy, through the tile batch's wiring as
+through the frame's, is tested in `test_torch_cuda_graphs`.  On the card (`gpu`): the manager's replayed batches are
 `gen_tile_batch`'s eager batches bit for bit, over batches at other
 origins, after a new height range and for a deferred batch adopted on
 the next update; no two batches' outputs alias each other or the graphs'
@@ -85,64 +84,6 @@ def test_key_holds_under_new_origins_and_height_range(tm):
 
 def test_no_key_off_a_card(tm):
     assert TG.batch_key(_spec(tm), torch.zeros(8)) is None
-
-
-def _counts():
-    return dict.fromkeys(TL.COUNTS, 0)
-
-
-def test_two_calls_in_a_row_then_replay(monkeypatch, tm):
-    """Keys stand in for batches (`batch_key` returns the origins given);
-    the capture, the replay and the eager batch are stubs."""
-    captured = []
-
-    def capture(s, inputs):
-        captured.append(inputs[0])
-        return TG.Graph(phases=[], inputs=(), out=(), launches=0, spec=s)
-
-    monkeypatch.setattr(TG, "batch_key", lambda s, txs: txs)
-    monkeypatch.setattr(TG, "capture", capture)
-    monkeypatch.setattr(TG, "replay", lambda g, inputs: "replay")
-    monkeypatch.setattr(TL, "gen_tile_batch", lambda *a, **k: "eager")
-    tg, counts = TG.TileGraphs(), _counts()
-    keys = ["a", "b", "a", "a", "a", "b", "a", "b", "b", "b", None, None]
-    got = [tg.run(_spec(tm), k, None, None, None, counts) for k in keys]
-    assert got == ["eager", "eager", "eager", "replay", "replay", "eager", "replay",
-                   "eager", "replay", "replay", "eager", "eager"]
-    assert captured == ["a", "b"] and list(tg.graphs) == ["a", "b"]
-    assert counts["graph_captures"] == 2 and counts["graph_replays"] == 5
-    assert counts["graph_eager"] == 7 and counts["graph_failed"] == 0
-
-
-def test_lru_bound():
-    assert TG.MAX_GRAPHS == 4
-    tg = TG.TileGraphs()
-    for k in "abcd":
-        tg.keep(k, object())
-    assert tg.decide("a") == "replay"        # "a" is now the most recent
-    tg.keep("e", object())
-    assert list(tg.graphs) == ["c", "d", "a", "e"]
-    assert tg.decide("b") == "eager"
-    tg.keep("f", object())
-    assert len(tg.graphs) == 4 and "c" not in tg.graphs
-
-
-def test_a_capture_that_raises_leaves_its_key_eager(monkeypatch, tm):
-    """A CPU batch under a card's key: its capture raises (no CUDA
-    stream), the batch runs eager, the failure is counted once, and the
-    key never captures again."""
-    monkeypatch.setattr(TG, "batch_key", lambda s, txs: "k")
-    tg, counts = TG.TileGraphs(), _counts()
-    txs, tys = torch.tensor([0.0, 1.0]), torch.tensor([2.0, -1.0])
-    launches = EK.KERNEL.launches
-    outs = [tg.run(_spec(tm), txs, tys, tm._zmax_t, tm._wpz_t, counts) for _ in range(4)]
-    assert counts == {**_counts(), "graph_eager": 4, "graph_failed": 1}
-    assert list(tg.failed) == ["k"] and "Traceback" in tg.failed["k"]
-    assert not tg.graphs and EK.KERNEL.launches == launches
-    want = TL.gen_tile_batch(tm.table, txs, tys, tm._zmax_t, tm._wpz_t, tm.cfg, tm.world,
-                             tm.tile_size, tm.erosion_iters_tt, tm.sun_dir, angles=tm.angles)
-    for out in outs:
-        assert all(torch.equal(a, b) for a, b in zip(out, want))
 
 
 def test_a_cpu_manager_never_captures():

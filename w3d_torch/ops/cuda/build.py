@@ -25,7 +25,8 @@ compared at the last ulp).
 Each C entry point launches on the stream it is given and returns
 `cudaGetLastError()`; `Kernel.launch` raises on a nonzero code and counts
 the launches, so a run can show that its main path went through the
-kernel.
+kernel.  `Kernel.instances` holds every `Kernel` made, variants too: a
+CUDA graph's capture (`graphs`) reads and restores their counts.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ import os
 import shutil
 import subprocess
 import time
+import weakref
 
 import torch
 
@@ -131,6 +133,8 @@ class Kernel:
     """One C entry point of the library: binds its argument types, checks
     the returned CUDA error, and counts launches."""
 
+    instances: "weakref.WeakSet[Kernel]" = weakref.WeakSet()
+
     def __init__(self, symbol: str, argtypes: list, defines: tuple[str, ...] = ()):
         self.symbol = symbol
         # every entry point ends with the stream and returns cudaError_t
@@ -138,6 +142,7 @@ class Kernel:
         self.defines = defines
         self.launches = 0
         self._fn = None
+        Kernel.instances.add(self)
 
     def variant(self, *defines: str) -> "Kernel":
         """The same entry point in the library built with `defines`, with

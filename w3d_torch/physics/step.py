@@ -599,7 +599,8 @@ def step_objects(
     replayed, bit for bit the eager frame."""
     dt = float(torch.tensor(tstep / substeps, dtype=torch.float32))
 
-    def frame(state: ObjectState, env: PhysicsEnv) -> ObjectState:
+    def frame(b: dict) -> None:
+        state, env = b["state"], b["env"]
         if obj_collisions:
             with span("physics.sort"):
                 state = spatial_sort(state)
@@ -608,16 +609,18 @@ def step_objects(
             with span("physics.substep"):
                 state = _substep(state, env, cobjs, table, dt, world, run_pairs,
                                  pair_window=pair_window, water=water)
-        return _frame_bookkeeping(state, table)
+        b["state"] = _frame_bookkeeping(state, table)
 
-    key = None
+    key = held = None
     if graphs.capturable(state, env):
         key = graphs.frame_key(state, env, cobjs, table, tstep=tstep,
                                substeps=substeps, world=world,
                                obj_collisions=obj_collisions,
                                pair_window=pair_window, pair_every=pair_every,
                                water=water)
-    return graphs.FRAMES.run(frame, key, state, env, graphs.refs(cobjs, table))
+        held = graphs.refs(cobjs, table)
+    return graphs.FRAMES.run(key, [(None, frame)], {"state": state, "env": env},
+                             ("state",), held)[0]
 
 
 def _frame_bookkeeping(state: ObjectState, table: T.ObjTypeTable) -> ObjectState:

@@ -30,9 +30,11 @@ flowers (`veg/grass`) on the tile's device; `height_at` reads the height
 under the camera from its resident tile.
 
 `gen_tile_batch` runs a batch as five phases (`phases`): context,
-erosion, AO, shadows, biome weights.  On a card the manager's batches go
-through `terrain/tile_graphs`: once a batch's shape repeats, each phase
-is captured into a CUDA graph and replayed in place of its launches.
+erosion, AO, shadows, biome weights.  The manager's batches go through
+its `ops/cuda/graphs.GraphCache` (`graphs`), keyed by
+`terrain/tile_graphs.batch_key`: on a card, once a batch's shape repeats,
+each phase is captured into a CUDA graph and replayed in place of its
+launches.
 
 Spans: `tiles.update` around `update`, `tiles.generate` around a batch's
 enqueue, and inside it the phases `tiles.context`, `tiles.erode`,
@@ -47,6 +49,7 @@ how they ran and the captures that raised.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, field
 from typing import NamedTuple
 
@@ -59,15 +62,16 @@ from ..ops import noise as N
 from ..ops import erosion as E
 from ..ops import ao as AO
 from ..ops import shadows as SH
+from ..ops.cuda import graphs as CG
 from . import mesh as TM
+from . import tile_graphs as TG
 from . import biomes as B
 
 CREATE_DIST_TILES = 1.5   # in tile units (~ get_tile_radius scaling)
 DELETE_DIST_TILES = 2.0
 EROSION_BATCH = 256       # droplets per lockstep batch (tiles.py:241-243)
 EROSION_STEPS = 96
-COUNTS = ("created", "deleted", "deferred", "batches", "resident",
-          "graph_captures", "graph_replays", "graph_eager", "graph_failed")
+COUNTS = ("created", "deleted", "deferred", "batches", "resident") + CG.COUNTS
 
 
 @dataclass
@@ -107,8 +111,7 @@ class TileManager:
     counts: dict = field(default_factory=lambda: dict.fromkeys(COUNTS, 0))
 
     def __post_init__(self):
-        from .tile_graphs import TileGraphs
-        self.graphs = TileGraphs()
+        self.graphs = CG.GraphCache("tiles", self.counts)
         ts = TM.gen_terrain(self.cfg._replace(erosion_iters=0),
                             WorldConst(mesh_x=64, mesh_y=64,
                                        x_scene=self.world.x_scene,
@@ -267,8 +270,10 @@ class TileManager:
         spec = BatchSpec(self.table, self.cfg, self.world, self.tile_size,
                          self.erosion_iters_tt, self.sun_dir, self.angles)
         with span("tiles.generate"):
-            out = self.graphs.run(spec, upload(txs, self.device), upload(tys, self.device),
-                                  self._zmax_t, self._wpz_t, self.counts)
+            b = dict(zip(TG.INPUTS, (upload(txs, self.device), upload(tys, self.device),
+                                     self._zmax_t, self._wpz_t)))
+            out = self.graphs.run(TG.batch_key(spec, b["txs"]), phases(spec), b, OUTPUTS,
+                                  spec)
         self.counts["created"] += n
         self.counts["batches"] += 1
         if defer:   # adopted on the NEXT update
@@ -392,9 +397,10 @@ OUTPUTS = ("zvals", "ao", "smask", "weights")
 
 
 def phases(s: BatchSpec) -> list:
-    """The batch's phases in order, as (span name, phase): erosion only
-    with `erosion_iters > 0`."""
-    return [(name, f) for name, f in PHASES if f is not erode_phase or s.erosion_iters > 0]
+    """The batch's phases in order, as (span name, phase of `b` alone):
+    erosion only with `erosion_iters > 0`."""
+    return [(name, functools.partial(f, s=s)) for name, f in PHASES
+            if f is not erode_phase or s.erosion_iters > 0]
 
 
 def gen_tile_batch(table, txs, tys, zmax_est, wpz, cfg: TM.TerrainConfig,
@@ -409,9 +415,4 @@ def gen_tile_batch(table, txs, tys, zmax_est, wpz, cfg: TM.TerrainConfig,
     `erosion_iters > 0`.  Returns (zvals [T, n, n], ao [T, n, n], shadow
     mask [T, n, n] bool, weights [T, 5, n, n])."""
     s = BatchSpec(table, cfg, world, tile_size, erosion_iters, sun_dir, angles)
-    b = {"txs": txs, "tys": tys, "zmax_est": zmax_est, "wpz": wpz}
-    on_card = txs.is_cuda
-    for name, phase in phases(s):
-        with span(name, device=on_card):
-            phase(b, s)
-    return tuple(b[k] for k in OUTPUTS)
+    return CG.eager(phases(s), dict(zip(TG.INPUTS, (txs, tys, zmax_est, wpz))), OUTPUTS)
