@@ -16,7 +16,10 @@ Phases, each fatal on failure (no phase hides an error):
       runs), then on the padded path (`use_pallas_erosion=False`, the
       default: 136^2 maps), its rate on its own line; 10K-object spheres
       frames (10 substeps, window 288, no water) with the pair pass every
-      5th substep and every substep; one combined step at
+      5th substep and every substep, in which the substep glue's kernels
+      (`ops/cuda/glue_kernel`) must launch `advance`, `contact` and
+      `respond` once a substep, `apply_pairs` once a pair substep and
+      `take_rows` and `age_objects` once a frame; one combined step at
       `w3d_torch.entry.entry()`'s shapes;
    b. the fused frame (`step_objects_fused`) on the same 10K balls: 10
       substeps, pair pass every 5th; the substep kernel must launch 10
@@ -265,15 +268,19 @@ Phases, each fatal on failure (no phase hides an error):
    build whose chunks hold 64 rows; erosion also on the padded path's
    136^2 maps; the tile noise also at the origins of 3a's
    rate loop (x0 + 11 * 256 * 128, sine arguments past sinf's fast
-   reduction).  Times in turns (plain, kernel, kernel, plain, ...): the
-   kernel device-only, a CUDA graph of 20 launches replayed between CUDA
-   events; the plain version, CUDA events around back-to-back calls.
-   Beside each, its bound: the larger of the bytes it must move over 3.35
-   TB/s and the operations it does on these inputs over 67 TFLOP/s
-   (float32); beside each, its floor: the same graph timer at one CTA's
-   worth of work (128 objects for sample, narrow and the substep, 32 ranks
-   for the pairs, one tile for the erosion walk and the tile noise), or at
-   a (2, 8, 8) smoke grid, the launch plus fixed set-up.
+   reduction); the substep glue's six kernels bitwise against their plain
+   phases on the dense pile, dry, under a water map and on ice, each fed
+   the plain phase before it (`respond` also with the pair pass's inputs),
+   timed on the dry pile.  Times in turns (plain, kernel, kernel, plain,
+   ...): the kernel device-only, a CUDA graph of 20 launches replayed
+   between CUDA events; the plain version, CUDA events around
+   back-to-back calls.  Beside each, its bound: the larger of the bytes
+   it must move over 3.35 TB/s and the operations it does on these inputs
+   over 67 TFLOP/s (float32); beside each, its floor: the same graph
+   timer at one CTA's worth of work (128 objects for sample, narrow, the
+   substep and the glue, 32 ranks for the pairs, one tile for the erosion
+   walk and the tile noise), or at a (2, 8, 8) smoke grid, the launch plus
+   fixed set-up.
 5. The combined step and a small fused frame on a small input on the card
    against the same steps on the CPU (plain versions).
 
@@ -328,6 +335,10 @@ TOLS = {"erosion": "bitwise equal to the plain version and across two runs",
         "substep": "1e-5, status and flags equal",
         "tile_noise": "1e-3",
         "diffuse_smoke": "bitwise equal to the plain version"}
+# the substep glue's kernels (ops/cuda/glue_kernel), under their phases' names
+GLUE = ("advance", "contact", "respond", "apply_pairs", "take_rows", "age_objects")
+TOLS.update(dict.fromkeys(GLUE, "bitwise equal to the plain phase, dry, in water "
+                                "and on ice"))
 
 
 SCENE_FRAMES = 64
@@ -3340,6 +3351,61 @@ def run_agent_sharded_phase(dev, smi: str) -> dict:
             "single_combat_ms_per_frame_x8_same_chunk": single_combat_ms}
 
 
+def _glue_args(state, env, cobjs, table, dt: float, world, water: bool, gen) -> dict:
+    """Each substep-glue phase's arguments on `state` under `env`, each
+    from the plain phase before it (`physics/step`), with B, C and D between
+    them as `_substep` calls them; `respond` without and with the pair
+    pass; `take_rows` at a random permutation."""
+    from w3d_torch.ops.cuda import pairs_kernel as PK
+    from w3d_torch.ops.cuda import sample_kernel as SK
+    from w3d_torch.physics import step as PS
+    m = PS.advance(state, env, table, dt, world)
+    mesh = SK.sample_mesh(env.mesh_height, m.px, m.py, world)
+    wh = None
+    if water and env.water_height is not None:
+        wh = SK.sample_mesh(env.water_height, m.px, m.py, world)[0]
+    c = PS.contact(m, mesh, wh, state.otype, env, table, dt, world, water)
+    hits = PS.cobj_hits(c.px, c.py, c.pz, c.rad, cobjs)
+    r, pin = PS.respond(c, state.otype, hits, env, table, dt, world, water, True)
+    deltas = PK.banded_pairs(r.px, r.py, r.pz, r.vx, r.vy, r.vz, r.rad, *pin,
+                             window=WINDOW)
+    perm = torch.randperm(state.px.shape[0], generator=gen, device=state.px.device)
+    resp = (c, state.otype, hits, env, table, dt, world, water)
+    return {"advance": (state, env, table, dt, world),
+            "contact": (m, mesh, wh, state.otype, env, table, dt, world, water),
+            "respond": resp + (False,), "respond (pairs)": resp + (True,),
+            "apply_pairs": (r, pin[2], deltas, env),
+            "take_rows": (state, perm), "age_objects": (state, table)}
+
+
+def _bits_off(a, b) -> int:
+    """Elements in which `a` and `b` (tensors, None or nested tuples of
+    them) differ in any bit, a NaN equal to a NaN; -1 where a dtype, a
+    shape or a length differs."""
+    if a is None or b is None:
+        return 0 if a is b else -1
+    if isinstance(a, tuple):
+        offs = [_bits_off(x, y) for x, y in zip(a, b)]
+        return -1 if len(a) != len(b) or -1 in offs else sum(offs)
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return -1
+    if a.is_floating_point():
+        a, b = (torch.where(torch.isnan(t), float("nan"), t).view(torch.int32)
+                for t in (a, b))
+    return int((a != b).sum())
+
+
+def _cut(value, n: int, rows: int):
+    """`value` with each 1-D tensor of `rows` elements in it (nested in
+    tuples) cut to its first `n`."""
+    if isinstance(value, torch.Tensor):
+        return value[:n].contiguous() if value.dim() == 1 and value.shape[0] == rows else value
+    if isinstance(value, tuple):
+        parts = [_cut(v, n, rows) for v in value]
+        return value._make(parts) if hasattr(value, "_make") else tuple(parts)
+    return value
+
+
 def _leaves(value) -> list:
     """The numpy arrays of a NamedTuple tree, in field order (None skipped)."""
     if value is None:
@@ -3374,6 +3440,7 @@ def main() -> int:
     from w3d_torch.ops import noise as N
     from w3d_torch.ops.cuda import build
     from w3d_torch.ops.cuda import erosion_kernel as EK
+    from w3d_torch.ops.cuda import glue_kernel as GL
     from w3d_torch.ops.cuda import narrow_kernel as NK
     from w3d_torch.ops.cuda import noise_kernel as NZK
     from w3d_torch.ops.cuda import pairs_kernel as PK
@@ -3412,7 +3479,7 @@ def main() -> int:
 
     kernels = {"erosion": EK.KERNEL, "sample": SK.KERNEL,
                "narrow": NK.KERNEL, "pairs": PK.KERNEL, "substep": GK.KERNEL,
-               "tile_noise": NZK.KERNEL, "diffuse_smoke": FK.KERNEL}
+               "tile_noise": NZK.KERNEL, "diffuse_smoke": FK.KERNEL, **GL.BY_NAME}
     world = WorldConst()
     gen = torch.Generator(device=dev).manual_seed(1234)
 
@@ -3479,6 +3546,7 @@ def main() -> int:
     pos, vel = PM.spawn(NUM_OBJS, gen, device=dev)
     sw0 = PM.build_spheres_world(pos, vel, world=world, device=dev)
     fps = {}
+    glue0 = {n: kernels[n].launches for n in GLUE}
     for pe in (5, 1):
         sw = sw0
         t0 = time.perf_counter()
@@ -3506,6 +3574,13 @@ def main() -> int:
             f"{ttfr:.3f} s, {fps[pe]:.1f} frames/s (median of 5), "
             f"alive {alive}, resting {int((st.status == 4).sum())}")
     pile = sw.state
+    # 42 frames of 10 substeps, pairs on 2 and on 10 of them
+    glue = {n: kernels[n].launches - glue0[n] for n in GLUE}
+    log(f"substep glue launches in the 42 pile frames: {glue}")
+    need(glue == dict(advance=420, contact=420, respond=420, apply_pairs=21 * 12,
+                      take_rows=42, age_objects=42),
+         "pile frames: advance, contact and respond once a substep, apply_pairs "
+         "once a pair substep, take_rows and age_objects once a frame")
 
     fn, args = EN.entry(dev, gen)
     t0 = time.perf_counter()
@@ -3518,7 +3593,7 @@ def main() -> int:
     need(bool(torch.isfinite(est.px).all()) and int((est.status > 0).sum()) > 1800,
          "combined-step objects finite and alive")
 
-    launches = read_counts("main path", ("erosion", "sample", "narrow", "pairs"))
+    launches = read_counts("main path", ("erosion", "sample", "narrow", "pairs") + GLUE)
 
     mark("3b")
     # ---- 3b. fused frame path ----------------------------------------------
@@ -4112,6 +4187,52 @@ def main() -> int:
     # D on phase 3h's asteroid field: 8,192 asteroids, window 32
     report["pairs"]["universe"] = universe3h["pairs_universe"]
 
+    # the substep glue: each kernel on the dense pile's card tensors against
+    # its plain phase (physics/step) on the same inputs, bit for bit; dry,
+    # as the pile's frames run it, and under a water map rising across the
+    # pile (level max(0.15, 0 to 0.3) over the pile's 0 to 0.3), liquid and
+    # frozen; timed on the dry pile, beside its byte floor
+    dt = float(torch.tensor(PT.DEF_TIMESTEP / SUBSTEPS, dtype=torch.float32))
+    ramp = torch.linspace(0.0, 0.3, world.mesh_x, device=dev)
+    wmap = ramp.expand(world.mesh_y, -1).contiguous()
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)
+    glue_off, glue_args = {}, {}
+    for label, temp in (("dry", None), ("water", 20.0), ("ice", -5.0)):
+        env = sw0.env if temp is None else sw0.env._replace(
+            water_plane_z=f32(0.15), water_height=wmap, temperature=f32(temp))
+        ga = glue_args[label] = _glue_args(dense, env, gc, sw0.table, dt, world,
+                                           temp is not None, gen)
+        glue_off[label] = {k: _bits_off(getattr(GL, k.split()[0])(*a),
+                                        getattr(PS, k.split()[0])(*a))
+                           for k, a in ga.items()}
+    wet_c, ice_c = glue_args["water"]["respond"][0], glue_args["ice"]["respond"][0]
+    woke = glue_args["dry"]["apply_pairs"][2][3] != 0
+    log(f"substep glue, dense pile ({NUM_OBJS} objects): elements not bit for bit "
+        f"the plain phase's {glue_off}; rows touching water {int(wet_c.touches_water.sum())}, "
+        f"on ice {int(ice_c.ice_touch.sum())}, with pair deltas {int(woke.sum())}")
+    need(all(v == 0 for d in glue_off.values() for v in d.values())
+         and int(wet_c.touches_water.sum()) > 100 and int(ice_c.ice_touch.sum()) > 100
+         and int(woke.sum()) > NUM_OBJS // 10,
+         "substep glue: " + TOLS["advance"] + ", with water, ice and pair contacts")
+    dry = glue_args["dry"]
+    for k in GLUE:
+        a = dry[k]
+        fl = ((_cut(a[0], FLOOR_N, NUM_OBJS), torch.arange(FLOOR_N - 1, -1, -1, device=dev))
+              if k == "take_rows" else _cut(a, FLOOR_N, NUM_OBJS))
+        kern, plain = getattr(GL, k), getattr(PS, k)
+        add(k, float(max(glue_off[lb][k] for lb in glue_off)),
+            in_turns(lambda plain=plain, a=a: plain(*a), lambda kern=kern, a=a: kern(*a),
+                     rounds=4, plain_calls=2),
+            KP.bound_ms(KP.GLUE_ROW_BYTES[k] * NUM_OBJS, 0),
+            "one phase of elementwise glue, which PyTorch runs as one launch an op",
+            floor=lambda kern=kern, fl=fl: kern(*fl), floor_at=f"{FLOOR_N} objects")
+    b = KP.bound_ms(KP.GLUE_ROW_BYTES["respond (pairs)"] * NUM_OBJS, 0)
+    report["respond"]["pairs"] = dict(
+        ms=graph_ms(lambda: GL.respond(*dry["respond (pairs)"])), bound_ms=b[0],
+        bound_by=b[1])
+    log(f"respond with the pair pass's inputs: device-only "
+        f"{report['respond']['pairs']['ms']:.4f} ms, bound {b[0]:.5f} ms")
+
     # G: one fused substep at 10K, on the dense pile in the spheres scene,
     # and on random objects (random status, flag bits and params) over a
     # bumpy mesh with water in the spheres and the seven-shape scenes, so
@@ -4286,7 +4407,11 @@ def main() -> int:
             "tile_noise": ("tile_noise", "w3d_torch/csrc/noise.cu",
                            "3dworld_tpu/ops/pallas/noise_kernel.py:82"),
             "diffuse_smoke": ("diffuse_smoke_open", "w3d_torch/csrc/stencil.cu",
-                              "3dworld_tpu/ops/pallas/stencil_kernel.py:62")}
+                              "3dworld_tpu/ops/pallas/stencil_kernel.py:62"),
+            **{k: (k, "w3d_torch/csrc/substep_glue.cu", at) for k, at in zip(GLUE, (
+                *("3dworld_tpu/physics/step.py:731 (_substep, fused by XLA)",) * 4,
+                "3dworld_tpu/physics/step.py:258 (spatial_sort, fused by XLA)",
+                "3dworld_tpu/physics/step.py:1108 (_frame_bookkeeping, fused by XLA)"))}}
     for n, r in report.items():
         floor = f", floor {r['floor']:.4f} ms ({r['floor_at']})"
         log(f"{n}: kernel {r['ms']:.4f} ms device-only{floor}, plain "
@@ -4326,7 +4451,8 @@ def main() -> int:
          "bound_by": report[n]["bound"][1], "library_ms": None,
          "library_none_because": report[n]["note"],
          "floor_ms": report[n]["floor"], "floor_at": report[n]["floor_at"],
-         **{k: report[n][k] for k in ("padded", "wide", "universe") if k in report[n]}}
+         **{k: report[n][k] for k in ("padded", "wide", "universe", "pairs")
+            if k in report[n]}}
         for n in srcs]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,7 +9,8 @@ wiring as through the tile batch's, is tested in `test_torch_cuda_graphs`.
 On the card (`gpu`): replayed frames of the 10K pile, dry, in water and on
 ice, are bit for bit eager frames and never alias; a capture that reads
 the card falls back to eager frames; an edit of the scene
-captures anew; the kernels' launch counts rise as eager frames' do; a
+captures anew; the kernels' launch counts (B, C, D and the glue's) rise
+as eager frames' do; a
 profiled replay shows its span and the pair kernel.
 """
 
@@ -17,6 +18,7 @@ import pytest
 import torch
 
 from w3d_torch.models import physics_model as PM
+from w3d_torch.ops.cuda import glue_kernel as GL
 from w3d_torch.ops.cuda import graphs as CG
 from w3d_torch.ops.cuda import narrow_kernel as NK
 from w3d_torch.ops.cuda import pairs_kernel as PK
@@ -170,7 +172,10 @@ def _chain(w, n, water=None):
 
 
 def _launches():
-    return [SK.KERNEL.launches, NK.KERNEL.launches, PK.KERNEL.launches]
+    """B, C, D, then the glue's advance, contact, respond, apply_pairs,
+    take_rows and age_objects."""
+    return [SK.KERNEL.launches, NK.KERNEL.launches, PK.KERNEL.launches] + [
+        k.launches for k in GL.KERNELS]
 
 
 @pytest.mark.gpu
@@ -232,7 +237,7 @@ def test_launch_counts_of_replayed_frames(cuda_device, frames):
         w = _step(w)
         per.append([b - a for a, b in zip(c0, _launches())])
     assert frames.counts["graph_replays"] and per[0] == per[1] == per[2] == per[3] == per[4]
-    assert per[0] == [10, 10, 2]
+    assert per[0] == [10, 10, 2, 10, 10, 10, 2, 1, 1]
 
 
 @pytest.mark.gpu

@@ -39,12 +39,12 @@ class RankResult(NamedTuple):
 
 def kernels() -> dict:
     """The port's kernel handles, by name (their `launches` counters)."""
-    from ..ops.cuda import (erosion_kernel, narrow_kernel, noise_kernel, pairs_kernel,
-                            physics_kernel, sample_kernel, stencil_kernel)
+    from ..ops.cuda import (erosion_kernel, glue_kernel, narrow_kernel, noise_kernel,
+                            pairs_kernel, physics_kernel, sample_kernel, stencil_kernel)
     return {"erosion": erosion_kernel.KERNEL, "sample": sample_kernel.KERNEL,
             "narrow": narrow_kernel.KERNEL, "pairs": pairs_kernel.KERNEL,
             "substep": physics_kernel.KERNEL, "tile_noise": noise_kernel.KERNEL,
-            "diffuse_smoke": stencil_kernel.KERNEL}
+            "diffuse_smoke": stencil_kernel.KERNEL, **glue_kernel.BY_NAME}
 
 
 def launch_counts() -> dict:

@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import torch
 
+from ..ops.cuda import glue_kernel as GL
 from ..ops.cuda import pairs_kernel as PK
 from ..physics import step as PS
 from ..physics import types as T
@@ -104,6 +105,6 @@ def make_step_objects_sharded(mesh: Mesh, substeps: int = 4,
             slab = PS._substep(slab, env, cobjs, table, dt, world, run_pairs,
                                pair_window=window, water=water,
                                pair_fn=pair_fn if run_pairs else None)
-        return PS._frame_bookkeeping(slab, table)
+        return GL.age_objects(slab, table)
 
     return step

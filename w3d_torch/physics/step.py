@@ -15,7 +15,11 @@ over a `GroupedCobjs` scene (`narrow_kernel`) and the banded pair pass
 `banded_pair_collisions` here and `cobjs.deepest_hits_grouped`; the
 wrappers take those for CPU tensors.  A plain `CobjSet` scene takes the
 ungrouped `cobjs.deepest_hits` on every device, as the JAX package takes
-its XLA version.
+its XLA version.  The glue around them is phases, each a kernel on the
+card behind `ops/cuda/glue_kernel` and plain PyTorch here: a substep is
+`advance`, the mesh sample, `contact`, the narrow phase, `respond` and,
+on a pair substep, the pair pass and `apply_pairs`; a frame adds
+`take_rows` (the sort's gather) and `age_objects`.
 
 Reference quirk preserved: `advance_object`'s static-friction branch is
 dead code — its condition is `!(flags | IN_WATER)` (always false,
@@ -23,8 +27,8 @@ Physics.cpp:826-829) — so the reference never applies it and neither do we.
 
 `step_objects_fused` is the other frame path: one fused-substep kernel
 launch (`ops/cuda/physics_kernel`, plain version `physics/fused`) per
-substep in place of `_substep`'s ~400 small ops, with the sort and the
-banded pair pass between the launches.
+substep in place of `_substep`'s phases, with the sort and the banded
+pair pass between the launches.
 
 `local_wind_field` is the batched local wind (plain PyTorch, as the JAX
 package leaves it to XLA).  `morton_key` is the 2-D Z-order key the
@@ -44,6 +48,7 @@ from ..utils.profiler import span
 from . import graphs
 from . import types as T
 from .cobjs import CobjSet, GroupedCobjs, deepest_hits
+from ..ops.cuda import glue_kernel as GL
 from ..ops.cuda import narrow_kernel as NK
 from ..ops.cuda import pairs_kernel as PK
 from ..ops.cuda import physics_kernel as GK
@@ -174,6 +179,11 @@ def spatial_sort(state: ObjectState) -> ObjectState:
     package."""
     k = torch.where(state.status > 0, state.px, float("inf"))
     idx = torch.sort(k, stable=True).indices
+    return GL.take_rows(state, idx)
+
+
+def take_rows(state: ObjectState, idx: torch.Tensor) -> ObjectState:
+    """Every column of `state` at the rows `idx`."""
     return ObjectState(*(col[idx] for col in state))
 
 
@@ -282,8 +292,62 @@ def _type_params(otype, table: T.ObjTypeTable):
 
 
 # ---------------------------------------------------------------------------
-# one substep
+# one substep, in phases
 # ---------------------------------------------------------------------------
+
+class Moved(NamedTuple):
+    """A substep after `advance`, before the mesh sample: the moved state
+    and what `contact` reads of the entry state."""
+
+    px: torch.Tensor
+    py: torch.Tensor
+    pz: torch.Tensor
+    vx: torch.Tensor
+    vy: torch.Tensor
+    vz: torch.Tensor
+    status: torch.Tensor    # the entry status
+    flags: torch.Tensor
+    rad: torch.Tensor
+    air_eff: torch.Tensor
+    vz_old: torch.Tensor    # vz after the Z_STOPPED clause, before gravity
+    alive: torch.Tensor     # the entry status's sets
+    moving: torch.Tensor
+    grounded: torch.Tensor
+    z_stop: torch.Tensor    # the entry flags' bits (Z_STOPPED as the clause left it)
+    xy_stop: torch.Tensor
+    underwater: torch.Tensor
+    in_water: torch.Tensor
+
+
+class Carry(NamedTuple):
+    """A substep from `contact` on (through the narrow phase, `respond`,
+    the pair pass and `apply_pairs`): the moving state so far and what the
+    later phases read of the earlier ones."""
+
+    px: torch.Tensor
+    py: torch.Tensor
+    pz: torch.Tensor
+    vx: torch.Tensor
+    vy: torch.Tensor
+    vz: torch.Tensor
+    status: torch.Tensor
+    flags: torch.Tensor
+    rad: torch.Tensor       # per-object radius (the narrow and pair phases')
+    mh: torch.Tensor        # mesh height and normal under the moved object
+    mnx: torch.Tensor
+    mny: torch.Tensor
+    mnz: torch.Tensor
+    alive: torch.Tensor     # the entry status's sets
+    moving: torch.Tensor
+    grounded: torch.Tensor
+    xy_stop: torch.Tensor   # the entry flags' bits
+    in_water: torch.Tensor
+    off_mesh: torch.Tensor
+    on_mesh: torch.Tensor
+    touches_water: torch.Tensor  # the water block's sets (none without water)
+    wcoll: torch.Tensor
+    ice_touch: torch.Tensor
+
 
 def _substep(state: ObjectState, env: PhysicsEnv,
              cobjs: CobjSet | GroupedCobjs | None,
@@ -293,8 +357,43 @@ def _substep(state: ObjectState, env: PhysicsEnv,
     """One substep of length `tstep`.  `pair_fn(px, py, pz, vx, vy, vz,
     radius, mass, elas, active)`, when given, computes the pair deltas in
     place of the banded pass over the whole population (the sharded frame
-    passes its halo pair pass, `parallel/pairs.make_halo_pair_fn`)."""
-    rad, air, fric, grav, elas, dens, tv, mass, _life = _type_params(state.otype, table)
+    passes its halo pair pass, `parallel/pairs.make_halo_pair_fn`).
+
+    The phases around the mesh sample, the narrow phase and the pair pass
+    go through `ops/cuda/glue_kernel`: their plain versions below on the
+    CPU, one kernel each on the card."""
+    m = GL.advance(state, env, table, tstep, world)
+    with span("kernel.sample"):
+        mesh = SK.sample_mesh(env.mesh_height, m.px, m.py, world)
+    wh = None
+    if water and env.water_height is not None:
+        with span("kernel.sample"):
+            wh = SK.sample_mesh(env.water_height, m.px, m.py, world)[0]
+    c = GL.contact(m, mesh, wh, state.otype, env, table, tstep, world, water)
+    hits = None
+    if cobjs is not None and cobjs.size > 0:
+        with span("kernel.narrow"):
+            hits = cobj_hits(c.px, c.py, c.pz, c.rad, cobjs)
+    c, pair_in = GL.respond(c, state.otype, hits, env, table, tstep, world, water,
+                            run_pairs)
+    if run_pairs:
+        mass, elas, act = pair_in
+        cols = (c.px, c.py, c.pz, c.vx, c.vy, c.vz, c.rad, mass, elas, act)
+        if pair_fn is None:
+            with span("kernel.pairs"):
+                deltas = PK.banded_pairs(*cols, window=pair_window)
+        else:
+            deltas = pair_fn(*cols)
+        c = GL.apply_pairs(c, act, deltas, env)
+    return state._replace(px=c.px, py=c.py, pz=c.pz, vx=c.vx, vy=c.vy, vz=c.vz,
+                          status=c.status, flags=c.flags)
+
+
+def advance(state: ObjectState, env: PhysicsEnv, table: T.ObjTypeTable,
+            tstep: float, world: WorldConst) -> Moved:
+    """The substep up to the mesh sample: air factor, Z_STOPPED, gravity,
+    wind, drag and the move."""
+    rad, air, fric, grav, _elas, dens, tv, _mass, _life = _type_params(state.otype, table)
 
     alive = state.status > 0
     # capture + clear last-substep collision (advance_object entry,
@@ -360,28 +459,37 @@ def _substep(state: ObjectState, env: PhysicsEnv,
     px = px + torch.where(move_xy, tstep * vx, 0.0)
     py = py + torch.where(move_xy, tstep * vy, 0.0)
     pz = pz + torch.where(moving, tstep * vz, 0.0)
+    return Moved(px=px, py=py, pz=pz, vx=vx, vy=vy, vz=vz, status=state.status,
+                 flags=flags, rad=rad, air_eff=air_eff, vz_old=vz_old, alive=alive,
+                 moving=moving, grounded=grounded, z_stop=z_stop, xy_stop=xy_stop,
+                 underwater=underwater, in_water=in_water)
+
+
+def contact(m: Moved, mesh: tuple, wh, otype: torch.Tensor, env: PhysicsEnv,
+            table: T.ObjTypeTable, tstep: float, world: WorldConst,
+            water: bool) -> Carry:
+    """The substep from the mesh sample `mesh` (height, nx, ny, nz under the
+    moved objects) to the narrow phase: outside and on the mesh, the water
+    and ice block (`water=False`, the scene's disable_water, skips it) at
+    the level max(water plane, `wh`), `wh` the water map's sample or None."""
+    _rad, _air, _fric, _grav, elas, dens, _tv, _mass, _life = _type_params(otype, table)
+    px, py, pz, vx, vy, vz = m.px, m.py, m.pz, m.vx, m.vy, m.vz
+    flags, rad, alive, z_stop = m.flags, m.rad, m.alive, m.z_stop
+    air_eff, underwater, vz_old = m.air_eff, m.underwater, m.vz_old
+    mh, mnx, mny, mnz = mesh
 
     # --- mesh surface ---
-    with span("kernel.sample"):
-        mh, mnx, mny, mnz = SK.sample_mesh(env.mesh_height, px, py, world)
     off_mesh = outside_mesh(px, py, world)
     on_mesh = ~off_mesh & ((pz - rad) <= mh)
 
     # --- water (check_water_collision core, Physics.cpp:1082-1180); the
-    # per-object level comes from water_matrix when a per-cell map exists.
-    # `water=False` (the scene declares disable_water) skips the whole
-    # water+ice block ---
-    status = state.status
+    # per-object level comes from water_matrix when a per-cell map exists ---
+    status = m.status
     touches_water = torch.zeros_like(alive)
     wcoll = touches_water
     ice_touch = touches_water
     if water:
-        if env.water_height is not None:
-            with span("kernel.sample"):
-                wh = SK.sample_mesh(env.water_height, px, py, world)[0]
-            wpz = torch.maximum(env.water_plane_z, wh)
-        else:
-            wpz = env.water_plane_z
+        wpz = env.water_plane_z if wh is None else torch.maximum(env.water_plane_z, wh)
         over_water = ~off_mesh & (wpz > mh)
         touches_water = over_water & ((pz - rad) < wpz) & alive
         # frozen water becomes an ice SURFACE (Physics.cpp:1198-1218)
@@ -442,10 +550,10 @@ def _substep(state: ObjectState, env: PhysicsEnv,
         flags = torch.where(f_snap, flags | T.FL_FLOATING, flags)
         # float-branch status (Physics.cpp:1130-1140)
         w_float = w_slow & floats
-        air_or_mesh = (state.status == 1) | (state.status == 2)
+        air_or_mesh = (m.status == 1) | (m.status == 2)
         edge_st = torch.where(air_or_mesh, 3, 4).to(torch.int32)
         status = torch.where(w_float, torch.where(pz > ground_z, 1, edge_st),
-                             state.status)
+                             m.status)
         status = torch.where(s_rest, 3, status)
         # fast underwater ground contact: status 3 only, no snap
         hit_bottom = w_fast & ~floats & (pz <= ground_z + 1e-5)
@@ -469,11 +577,31 @@ def _substep(state: ObjectState, env: PhysicsEnv,
         flags = torch.where(stick, flags | (T.FL_Z_STOPPED | T.FL_XY_STOPPED
                                             | T.FL_IS_ON_ICE), flags)
 
+    return Carry(px=px, py=py, pz=pz, vx=vx, vy=vy, vz=vz, status=status, flags=flags,
+                 rad=rad, mh=mh, mnx=mnx, mny=mny, mnz=mnz, alive=alive, moving=m.moving,
+                 grounded=m.grounded, xy_stop=m.xy_stop, in_water=m.in_water,
+                 off_mesh=off_mesh, on_mesh=on_mesh, touches_water=touches_water,
+                 wcoll=wcoll, ice_touch=ice_touch)
+
+
+def respond(c: Carry, otype: torch.Tensor, hits, env: PhysicsEnv,
+            table: T.ObjTypeTable, tstep: float, world: WorldConst, water: bool,
+            pairs: bool):
+    """The substep from the narrow phase's `hits` (None: no cobjs) to the
+    pair pass: cobj response, water tail, mesh bounce, rolling.  Returns
+    (Carry, None) after the kill conditions, or with `pairs` (Carry,
+    (mass, elas, active)) for the pair pass, the kill conditions left to
+    `apply_pairs`."""
+    _rad, air, fric, _grav, elas, dens, _tv, mass, _life = _type_params(otype, table)
+    rad, alive, moving, wcoll = c.rad, c.alive, c.moving, c.wcoll
+    mh, mnx, mny, mnz = c.mh, c.mnx, c.mny, c.mnz
+    px, py, pz, vx, vy, vz = c.px, c.py, c.pz, c.vx, c.vy, c.vz
+    status, flags = c.status, c.flags
+
     # --- static cobj collisions ---
     cobj_hit = torch.zeros_like(alive)
-    if cobjs is not None and cobjs.size > 0:
-        with span("kernel.narrow"):
-            hit, pen, cnx, cny, cnz, celas, cfric = cobj_hits(px, py, pz, rad, cobjs)
+    if hits is not None:
+        hit, pen, cnx, cny, cnz, celas, cfric = hits
         hit = hit & alive & ~wcoll
         px = px + torch.where(hit, pen * cnx, 0.0)
         py = py + torch.where(hit, pen * cny, 0.0)
@@ -494,19 +622,19 @@ def _substep(state: ObjectState, env: PhysicsEnv,
     if water:
         # no cobj collision this substep -> Z_STOPPED clears
         # (Physics.cpp:861); ice-stuck objects keep their flags
-        clr = moving & ~cobj_hit & ~ice_touch
+        clr = moving & ~cobj_hit & ~c.ice_touch
         flags = torch.where(clr, flags & ~T.FL_Z_STOPPED, flags)
         # water-HANDLED objects: status 1, stop flags clear (Physics.cpp:863-867)
         status = torch.where(wcoll, 1, status)
         flags = torch.where(wcoll, flags & ~T.FL_ALL_COLL_STOPPED, flags)
 
     # --- mesh bounce (airborne val==2 && !coll path, Physics.cpp:868-882) ---
-    mesh_coll = on_mesh & moving & ~wcoll & ~cobj_hit
+    mesh_coll = c.on_mesh & moving & ~wcoll & ~cobj_hit
     pz = torch.where(mesh_coll, torch.maximum(pz, mh + rad), pz)
     bx, by, bz, did_m = bounce_velocity(vx, vy, vz, mnx, mny, mnz,
                                         elas * T.LAND_ELASTICITY, air)
     v_sq2 = vx * vx + vy * vy + vz * vz
-    stopped_m = mesh_coll & ~did_m & ((fric >= T.STICK_THRESHOLD) | xy_stop
+    stopped_m = mesh_coll & ~did_m & ((fric >= T.STICK_THRESHOLD) | c.xy_stop
                                       | (v_sq2 < T.BOUNCE_CUTOFF))
     md = mesh_coll & did_m
     damp_m = torch.where(stopped_m, 0.0, 0.95)
@@ -518,14 +646,14 @@ def _substep(state: ObjectState, env: PhysicsEnv,
     # (collision_detect.cpp:1561, build_world.cpp:292)
 
     # --- on-ground rolling (surface_advance, Physics.cpp:980-1037) ---
-    roll_ok = grounded & ~cobj_hit & ~touches_water
-    stick_g = (fric >= T.STICK_THRESHOLD) | xy_stop
+    roll_ok = c.grounded & ~cobj_hit & ~c.touches_water
+    stick_g = (fric >= T.STICK_THRESHOLD) | c.xy_stop
     killed_g = roll_ok & (pz < mh - T.KILL_DEPTH * rad)
     pz = torch.where(roll_ok & (pz < mh - T.RECOVER_DEPTH * rad), mh, pz)
     dzn = torch.sqrt(torch.clamp(mnx * mnx + mny * mny, min=1.0e-20))
     vel_m = ((T.SURF_ADV_STEP / world.x_scene) * dzn
              * (1.0 - 0.5 * fric) / T.DEF_TIMESTEP)
-    vel_m = torch.where(in_water & (dens >= T.WATER_DENSITY),
+    vel_m = torch.where(c.in_water & (dens >= T.WATER_DENSITY),
                         vel_m * (dens - T.WATER_DENSITY) / torch.clamp(dens, min=1e-9),
                         vel_m)
     moved_g = (dzn > 1.0e-12) & (dzn > fric) & (vel_m > 1.0e-12)
@@ -548,30 +676,35 @@ def _substep(state: ObjectState, env: PhysicsEnv,
     status = torch.where(settled, 4, torch.where(rolling & moved_g, 3, status))
     status = torch.where(killed_g, 0, status)
 
-    # --- dynamic object-object collisions (sorted-band broad phase) ---
-    if run_pairs:
-        act = alive & (rad >= T.LARGE_OBJ_RAD)
-        if pair_fn is None:
-            with span("kernel.pairs"):
-                deltas = PK.banded_pairs(px, py, pz, vx, vy, vz, rad, mass, elas, act,
-                                         window=pair_window)
-        else:
-            deltas = pair_fn(px, py, pz, vx, vy, vz, rad, mass, elas, act)
-        dpx, dpy, dpz, dvx, dvy, dvz = deltas
-        px = px + torch.where(act, dpx, 0.0)
-        py = py + torch.where(act, dpy, 0.0)
-        pz = pz + torch.where(act, dpz, 0.0)
-        vx = vx + torch.where(act, dvx, 0.0)
-        vy = vy + torch.where(act, dvy, 0.0)
-        vz = vz + torch.where(act, dvz, 0.0)
-        woke = act & ((dvx * dvx + dvy * dvy + dvz * dvz) > 1e-10)
-        status = torch.where(woke & (status == 4), 1, status)
+    out = c._replace(px=px, py=py, pz=pz, vx=vx, vy=vy, vz=vz, flags=flags)
+    if pairs:
+        # dynamic object-object collisions (sorted-band broad phase) next
+        return out._replace(status=status), (mass, elas, alive & (rad >= T.LARGE_OBJ_RAD))
+    return out._replace(status=_kill(status, pz, c.off_mesh, alive, env)), None
 
-    # kill conditions (advance_object preamble, Physics.cpp:725-729)
+
+def apply_pairs(c: Carry, act: torch.Tensor, deltas, env: PhysicsEnv) -> Carry:
+    """The pair pass's deltas on the active objects, the wake of stopped
+    ones, then the kill conditions."""
+    (px, py, pz, vx, vy, vz), status = _add_pair_deltas(
+        (c.px, c.py, c.pz, c.vx, c.vy, c.vz), c.status, act, deltas)
+    return c._replace(px=px, py=py, pz=pz, vx=vx, vy=vy, vz=vz,
+                      status=_kill(status, pz, c.off_mesh, c.alive, env))
+
+
+def _add_pair_deltas(xyz: tuple, status, act, deltas):
+    """(px, py, pz, vx, vy, vz) plus the pair deltas on the active
+    objects, and `status` with the stopped ones they move woken."""
+    out = tuple(v + torch.where(act, d, 0.0) for v, d in zip(xyz, deltas))
+    dvx, dvy, dvz = deltas[3:]
+    woke = act & ((dvx * dvx + dvy * dvy + dvz * dvz) > 1e-10)
+    return out, torch.where(woke & (status == 4), 1, status)
+
+
+def _kill(status, pz, off_mesh, alive, env: PhysicsEnv):
+    """Kill conditions (advance_object preamble, Physics.cpp:725-729)."""
     status = torch.where(pz < env.zmin, 0, status)
-    status = torch.where(off_mesh & alive, 0, status)
-    return state._replace(px=px, py=py, pz=pz, vx=vx, vy=vy, vz=vz,
-                          status=status, flags=flags)
+    return torch.where(off_mesh & alive, 0, status)
 
 
 def step_objects(
@@ -609,7 +742,7 @@ def step_objects(
             with span("physics.substep"):
                 state = _substep(state, env, cobjs, table, dt, world, run_pairs,
                                  pair_window=pair_window, water=water)
-        b["state"] = _frame_bookkeeping(state, table)
+        b["state"] = GL.age_objects(state, table)
 
     key = held = None
     if graphs.capturable(state, env):
@@ -623,7 +756,7 @@ def step_objects(
                              ("state",), held)[0]
 
 
-def _frame_bookkeeping(state: ObjectState, table: T.ObjTypeTable) -> ObjectState:
+def age_objects(state: ObjectState, table: T.ObjTypeTable) -> ObjectState:
     """Age + lifetime kill (advance_object preamble)."""
     life = _type_params(state.otype, table)[8]
     time = state.time + 1
@@ -658,7 +791,7 @@ def step_objects_fused(
     runs."""
     if obj_collisions:
         state = spatial_sort(state)
-    rad, air, fric, grav, elas, dens, tv, mass, life = _type_params(state.otype, table)
+    rad, air, fric, grav, elas, dens, tv, mass, _life = _type_params(state.otype, table)
     maps3 = GK.mesh_maps(env.mesh_height, world)
     tables = NK.kernel_tables(cobjs)
     f32 = dict(dtype=torch.float32, device=state.px.device)
@@ -678,24 +811,13 @@ def step_objects_fused(
         off = outside_mesh(px, py, world)
         if obj_collisions and (pair_every <= 1 or k % pair_every == 0):
             act = alive & act_rad
-            dpx, dpy, dpz, dvx, dvy, dvz = PK.banded_pairs(
-                px, py, pz, vx, vy, vz, rad, mass, elas, act, window=PAIR_WINDOW)
-            px = px + torch.where(act, dpx, 0.0)
-            py = py + torch.where(act, dpy, 0.0)
-            pz = pz + torch.where(act, dpz, 0.0)
-            vx = vx + torch.where(act, dvx, 0.0)
-            vy = vy + torch.where(act, dvy, 0.0)
-            vz = vz + torch.where(act, dvz, 0.0)
-            woke = act & ((dvx * dvx + dvy * dvy + dvz * dvz) > 1e-10)
-            status = torch.where(woke & (status == 4), 1, status)
-        # kill conditions (advance_object preamble, Physics.cpp:725-729)
-        status = torch.where(pz < env.zmin, 0, status)
-        status = torch.where(off & alive, 0, status)
+            deltas = PK.banded_pairs(px, py, pz, vx, vy, vz, rad, mass, elas, act,
+                                     window=PAIR_WINDOW)
+            (px, py, pz, vx, vy, vz), status = _add_pair_deltas(
+                (px, py, pz, vx, vy, vz), status, act, deltas)
         s = s._replace(px=px, py=py, pz=pz, vx=vx, vy=vy, vz=vz,
-                       status=status, flags=flags)
-    time = s.time + 1
-    status = torch.where((life > 0) & (time.to(torch.float32) > life), 0, s.status)
-    return s._replace(time=time, status=status)
+                       status=_kill(status, pz, off, alive, env), flags=flags)
+    return GL.age_objects(s, table)
 
 
 def local_wind_field(px, py, pz, wind, mesh, world: WorldConst,

@@ -1,7 +1,7 @@
 """Probe the erosion walk (A), the mesh sample (B), the narrow phase (C),
-the banded pair pass (D), the fused substep (G) and the tile noise (E) on
-the GPU, and the timing, bound and scene helpers that `chip_smoke.py`
-shares.
+the banded pair pass (D), the fused substep (G), the tile noise (E) and
+the substep glue's kernels on the GPU, and the timing, bound and scene
+helpers that `chip_smoke.py` shares.
 
     python3 -m w3d_torch.utils.kernel_probe
 
@@ -21,7 +21,8 @@ and on those of `chip_smoke.py`'s rate loop, shifted by RATE_SHIFT):
    E at one tile) or F on a (2, 8, 8) grid: launch plus fixed set-up; F on
    the light grid (32, 128, 128) by z block; A on the padded path's 136^2
    maps; C and G on `wide_scene` tables of M = 536 and 1,616 slots (two
-   and five shared-memory chunks);
+   and five shared-memory chunks); the substep glue's six kernels on the
+   dense pile, dry, beside their byte floors;
 3. the phase splits of two variant libraries: `W3D_EROSION_PHASES`, whose
    thread 0 in each CTA sums the SM cycles between the step's barriers
    (read phase, write phase, combine), and `W3D_NOISE_PHASES` (table
@@ -872,6 +873,53 @@ def _noise_phase_split(cases: dict) -> None:
         print(f"    whole kernel: {per[3]:.0f} cycles per CTA")
 
 
+# bytes a row each substep-glue kernel reads and writes in the dry pile
+# frame (grouped cobjs, no water map), each row read once: advance reads 6
+# floats and 3 int32s and writes 9 floats, an int32 and 7 masks; contact
+# reads 8 floats, 3 int32s and a mask and writes 6 floats, 2 int32s and 5
+# masks; respond reads 11 floats, 3 int32s, 9 masks and C's 6 floats and
+# mask (with D's inputs 2 floats and a mask more out, the off-mesh mask
+# not read); apply_pairs reads 12 floats, an int32 and 3 masks and writes
+# 6 floats and an int32; take_rows reads an int64 index and 11 words and
+# writes 11; age_objects reads 3 int32s and writes 2
+GLUE_ROW_BYTES = {"advance": 83, "contact": 82, "respond": 122,
+                  "respond (pairs)": 130, "apply_pairs": 83, "take_rows": 96,
+                  "age_objects": 20}
+
+
+def _glue_times(times: dict, dense, sw, world, pin) -> dict:
+    """Each substep-glue kernel's device-only time on the dense pile, dry,
+    into `times`; returns each one's bytes (`GLUE_ROW_BYTES` rows)."""
+    from w3d_torch.ops.cuda import glue_kernel as GL
+    from w3d_torch.ops.cuda import narrow_kernel as NK
+    from w3d_torch.ops.cuda import pairs_kernel as PK
+    from w3d_torch.ops.cuda import sample_kernel as SK
+    from w3d_torch.physics import types as T
+    env, tab, n = sw.env, sw.table, dense.px.shape[0]
+    dt = float(torch.tensor(T.DEF_TIMESTEP / 10, dtype=torch.float32))
+    m = GL.advance(dense, env, tab, dt, world)
+    surf = SK.sample_mesh(env.mesh_height, m.px, m.py, world)
+    c = GL.contact(m, surf, None, dense.otype, env, tab, dt, world, False)
+    hits = NK.deepest_hits(c.px, c.py, c.pz, c.rad, sw.cobjs)
+    r, pr = GL.respond(c, dense.otype, hits, env, tab, dt, world, False, True)
+    deltas = PK.banded_pairs(*(getattr(r, f) for f in ("px", "py", "pz", "vx", "vy", "vz",
+                                                       "rad")), *pr, window=288)
+    idx = torch.randperm(n, device=dense.px.device)
+    fns = {"advance": lambda: GL.advance(dense, env, tab, dt, world),
+           "contact": lambda: GL.contact(m, surf, None, dense.otype, env, tab, dt, world,
+                                         False),
+           "respond": lambda: GL.respond(c, dense.otype, hits, env, tab, dt, world,
+                                         False, False),
+           "respond (pairs)": lambda: GL.respond(c, dense.otype, hits, env, tab, dt, world,
+                                                 False, True),
+           "apply_pairs": lambda: GL.apply_pairs(r, pr[2], deltas, env),
+           "take_rows": lambda: GL.take_rows(dense, idx),
+           "age_objects": lambda: GL.age_objects(dense, tab)}
+    for k, fn in fns.items():
+        times[f"glue {k}"] = _graph_ms(fn)
+    return {k: GLUE_ROW_BYTES[k] * n for k in fns}
+
+
 def _graph_ms(fn) -> list[float]:
     """Five replays of a CUDA graph of 20 calls of `fn`: ms per call."""
     timer = GraphTimer(fn)
@@ -979,10 +1027,13 @@ def main() -> None:
             ginw = gin[:16] + (substep_tables(gw), gin[17])
             times[f"narrow M = {gw.size}"] = _graph_ms(lambda gw=gw: NK.deepest_hits(*nin, gw))
             times[f"substep M = {gw.size}"] = _graph_ms(lambda a=ginw: GK.substep(*a))
+    glue_bytes = _glue_times(times, dense, sw, world, pin)
     print(f"device-only ms (CUDA graph of 20 launches, 5 replays; 10K objects, "
           f"M = {gc.size}; 256 tiles of 128^2; smoke {LIGHT_GRID}): " + "; ".join(
               f"{k} median {statistics.median(v):.4f} {[round(t, 4) for t in v]}"
               for k, v in times.items()))
+    for k, nbytes in glue_bytes.items():
+        print(f"glue {k}: floor {bound_ms(nbytes, 0)[0]:.5f} ms ({nbytes} bytes at 3.35 TB/s)")
     for label, na in nargs.items():
         print(f"tile_noise heights at {label}: sha256 {digest(NZK.tile_noise(*na))}")
     print(f"narrow outputs, dense pile: M = {gc.size} sha256 "
