@@ -271,6 +271,29 @@ def test_city_frames_chained_match(city, tower):
         _same(tcs, jcs, 1e-5, f"rerouted {k}")
 
 
+def test_build_city_matches_at_the_walk_cells_size(monkeypatch):
+    """`build_city` at `tiled_city_128`'s size (8 cities of 64 cells on a
+    flat 512^2 map, 4,000 cars, 10,000 pedestrians, 4 helicopters, the
+    layout seed below 2^31 as the cell takes it) against the JAX package's
+    `build_city` with its `gen_cities` at `city_size` 64: the host layout,
+    buildings, road graph, stoplights, pedestrian navigation, cars,
+    pedestrians and helipads, field by field."""
+    gen = JCP.gen_cities
+    monkeypatch.setattr(JCA.CP, "gen_cities",
+                        lambda *a, **kw: gen(*a, **{**kw, "city_size": 64}))
+    hm = np.zeros((512, 512), np.float32)
+    kw = dict(num_cities=8, num_cars=4000, num_peds=10000, num_helis=4, seed=2**31 - 99)
+    jw = JCA.build_city(hm, **kw)
+    tw = TCA.build_city(hm, city_size=64, device="cpu", **kw)
+    assert len({b[4] for b in tw.net.blocks}) == 8 and len(tw.net.blocks) == 8 * 64
+    assert tw.net.segs == jw.net.segs and tw.net.isecs == jw.net.isecs
+    assert tw.net.blocks == jw.net.blocks
+    assert [dataclasses.asdict(b) for b in tw.buildings] == \
+        [dataclasses.asdict(b) for b in jw.buildings]
+    for name in ("graph", "stoplights", "cars", "peds", "ped_nav", "helis", "helipads"):
+        _same(getattr(tw, name), getattr(jw, name), 0.0, name)
+
+
 def test_build_city_matches(city):
     """`build_city` field by field: the layout, buildings, structures and
     every device table; with interiors, the floorplans, tunnels and

@@ -212,7 +212,7 @@ def check_narrow(case: str, out, ref, pen_all) -> None:
 def jax_city_draws(key, frames: int, n_peds: int, n_helis: int = 0, n_pads: int = 1,
                    n_birds: int = 0, n_perches: int = 1):
     """The JAX city frame's threefry draws for `frames` frames from the
-    city state's key (`city_step._one_frame`: split five ways a frame;
+    city state's key (the JAX package's `city_step._one_frame`: split five ways a frame;
     `traffic.step_peds`, `step_helis`, `step_birds`), as the port's
     `CityDraws` on the CPU.  Returns (draws, the key after the chunk)."""
     import jax

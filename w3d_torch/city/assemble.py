@@ -46,12 +46,14 @@ class CityWorld:
 def build_city(heightmap, water_z: float = -0.5, num_cities: int = 2,
                num_cars: int = 256, num_peds: int = 512,
                num_helis: int = 4, seed: int = 0,
-               interiors: bool = False,
+               interiors: bool = False, city_size: int = 24,
                device: torch.device | str = "cuda") -> CityWorld:
     """The city's host layout (plots, roads, buildings, structures; with
     `interiors`, floorplans, basement tunnels and manholes) and its device
-    state (graph, stoplights, cars, peds, helicopters) on `device`."""
-    _hm, plots = CP.gen_cities(heightmap, water_z, num_cities=num_cities, seed=seed)
+    state (graph, stoplights, cars, peds, helicopters) on `device`.  Each
+    city is a `city_size`-cell square plot (`plots.gen_cities`)."""
+    _hm, plots = CP.gen_cities(heightmap, water_z, num_cities=num_cities,
+                               city_size=city_size, seed=seed)
     net = CR.gen_city_roads(plots)
     graph = CT.build_road_graph(net, device=device)
     sl = CT.build_stoplights(net, seed=seed, device=device)

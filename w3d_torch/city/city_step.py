@@ -16,6 +16,12 @@ city_gen.cpp:3801).  Here:
   and runs once per chunk (`MergedBuildingPeople.reroute`), from one
   packed fetch (`people_probe`).
 
+A frame runs in the spans `city.cars` (stoplights and cars), `city.peds`
+and `city.people` (elevator calls, the elevator bank, building people),
+each with CUDA events on a card.  On a card a chunk goes through
+`FRAMES`, the city's `GraphCache`: some 650 small launches a frame would
+otherwise pace it from the host.
+
 The JAX frame splits a threefry key five ways each frame; here the draws
 are inputs, a `CityDraws` of [K, ...] tensors per chunk, so every device
 sees the same values (the app draws them from seeded CPU generators,
@@ -26,11 +32,13 @@ device.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from ..ops.cuda import graphs as CG
 from . import traffic as CT
 from . import people as CPE
 from .floorplan import ElevatorCar
@@ -170,30 +178,64 @@ def draw_city(frames: int, n_peds: int, n_helis: int, n_pads: int,
     return CityDraws(*(None if v is None else v.to(device) for v in d))
 
 
-def _one_frame(cs: CityState, graph, nav, pads, perches, draws: CityDraws,
-               k: int, rail=None, exchange=None) -> CityState:
-    sl = CT.step_stoplights(cs.stoplights)
-    car_peers, ped_peers = (None, None) if exchange is None else exchange(cs.cars, cs.peds)
-    cars = CT.step_cars(cs.cars, graph, stoplights=sl, peers=car_peers)
-    peds = CT.step_peds(cs.peds, CT.PedDraws(draws.ped_u[k], draws.ped_side[k],
-                                             draws.ped_u3[k], draws.ped_u4[k]),
-                        nav=nav, stoplights=sl, peers=ped_peers)
-    helis = cs.helis
-    if helis is not None:
-        helis = CT.step_helis(helis, pads, draws.heli_pad[k], draws.heli_wait[k])
-    birds = cs.birds
-    if birds is not None:
-        birds = CT.step_birds(birds, perches, draws.bird_perch[k], draws.bird_wait[k])
-    trains = cs.trains
-    if trains is not None and rail is not None:
-        trains = CT.step_trains(trains, rail)
-    people, elev = cs.people, cs.elev
-    if people is not None:
-        call_floor, has_call = elevator_calls_device(people, elev.z.shape[0])
-        elev = step_elevator_bank(elev, call_floor, has_call)
-        people = CPE.step_people(people, elev.z)
-    return CityState(stoplights=sl, cars=cars, peds=peds, people=people,
-                     elev=elev, helis=helis, birds=birds, trains=trains)
+PARTS = CityState._fields
+
+
+def frame_phases(parts, graph, nav, pads, perches, frames: int, rail=None,
+                 exchange=None) -> list:
+    """`frames` chained city frames as `ops/cuda/graphs` phases over a
+    dict of the state's `parts` (of `PARTS`, those not None) and the
+    chunk's `draws`.  A frame's phases: the stoplights and cars
+    (`city.cars`), the pedestrians (`city.peds`), the helicopters, birds
+    and trains, and the elevator calls, bank and building people
+    (`city.people`), each where its parts are."""
+
+    def cars(b, k):
+        b["peers"] = (None, None) if exchange is None else exchange(b["cars"], b["peds"])
+        b["stoplights"] = CT.step_stoplights(b["stoplights"])
+        b["cars"] = CT.step_cars(b["cars"], graph, stoplights=b["stoplights"],
+                                 peers=b["peers"][0])
+
+    def peds(b, k):
+        d = b["draws"]
+        b["peds"] = CT.step_peds(b["peds"], CT.PedDraws(d.ped_u[k], d.ped_side[k],
+                                                        d.ped_u3[k], d.ped_u4[k]),
+                                 nav=nav, stoplights=b["stoplights"], peers=b["peers"][1])
+
+    def movers(b, k):
+        d = b["draws"]
+        if "helis" in b:
+            b["helis"] = CT.step_helis(b["helis"], pads, d.heli_pad[k], d.heli_wait[k])
+        if "birds" in b:
+            b["birds"] = CT.step_birds(b["birds"], perches, d.bird_perch[k], d.bird_wait[k])
+        if "trains" in b:
+            b["trains"] = CT.step_trains(b["trains"], rail)
+
+    def people(b, k):
+        call_floor, has_call = elevator_calls_device(b["people"], b["elev"].z.shape[0])
+        b["elev"] = step_elevator_bank(b["elev"], call_floor, has_call)
+        b["people"] = CPE.step_people(b["people"], b["elev"].z)
+
+    parts = set(parts) - ({"trains"} if rail is None else set())
+    frame = [("city.cars", cars), ("city.peds", peds)]
+    frame += [(None, movers)] if parts & {"helis", "birds", "trains"} else []
+    frame += [("city.people", people)] if "people" in parts else []
+    return [(name, functools.partial(fn, k=k)) for k in range(frames) for name, fn in frame]
+
+
+def frame_key(b: dict, frames: int, graph, nav, pads, perches, rail,
+              exchange=None) -> tuple | None:
+    """Everything a capture of the chained frames bakes in, hashable: the
+    device, the frame count, each part's shapes and dtypes, and the layout
+    by identity and by its tensors' `_version`s; None off a card or with
+    an `exchange` (a rank's slab), which never capture."""
+    dev = b["peds"].x.device
+    if dev.type != "cuda" or exchange is not None:
+        return None
+    shapes = tuple((k, tuple(None if t is None else (tuple(t.shape), t.dtype) for t in v))
+                   for k, v in b.items())
+    return (dev, frames, shapes) + tuple(CG.tensors_key(x) for x in
+                                         (graph, nav, pads, perches, rail))
 
 
 def city_frames_chained(cs: CityState, graph: CT.RoadGraph, nav: CT.PedNav,
@@ -201,16 +243,26 @@ def city_frames_chained(cs: CityState, graph: CT.RoadGraph, nav: CT.PedNav,
                         rail=None, exchange=None) -> CityState:
     """K city frames — traffic, crowds, building people, elevator cars,
     helicopters, birds, trains — queued without a host sync; frame k
-    reads row k of `draws`.
+    reads row k of `draws`.  On a card a chunk whose key (`frame_key`)
+    repeats replays from `FRAMES` as one CUDA graph a phase
+    (`frame_phases`), bit for bit the eager frames.
 
     With `exchange`, `cs.cars` and `cs.peds` (and the pedestrian columns
     of `draws`) are one rank's slab: `exchange(cars, peds)` returns the
     whole previous populations as (`traffic.CarPeers`, `PedPeers`) each
-    frame (`parallel/city.make_sharded_city_frames`)."""
-    for k in range(frames):
-        cs = _one_frame(cs, graph, nav, pads, perches, draws, k, rail=rail,
-                        exchange=exchange)
-    return cs
+    frame (`parallel/city.make_sharded_city_frames`); such frames run
+    eager."""
+    b = {k: v for k, v in zip(PARTS, cs) if v is not None}
+    names = tuple(b)
+    b["draws"] = draws
+    phases = frame_phases(names, graph, nav, pads, perches, frames, rail=rail,
+                          exchange=exchange)
+    out = FRAMES.run(frame_key(b, frames, graph, nav, pads, perches, rail, exchange),
+                     phases, b, names, refs=(graph, nav, pads, perches, rail))
+    return cs._replace(**dict(zip(names, out)))
+
+
+FRAMES = CG.GraphCache("city")
 
 
 def city_frame_single(cs: CityState, graph, nav, pads, perches, draws: CityDraws,
@@ -277,6 +329,10 @@ class MergedBuildingPeople:
             lo += n_people
             ebase += ne
         self.num_elevators = max(ebase, 1)
+        self.counts = {"rerouted": 0}
+        # what the last reroute uploaded, as host arrays (need, px, py, pf,
+        # pe, plen, end_act, end_dur); None where it rerouted nobody
+        self.applied = None
         merged = CPE.PeopleState(*(torch.cat(list(f), dim=0) for f in zip(*states)))
         # host mirror of the host-owned path arrays
         self.m_px, self.m_py, self.m_pf, self.m_pe, self.m_plen = (
@@ -292,6 +348,7 @@ class MergedBuildingPeople:
         fetched people_probe array (fetched here if not given)."""
         if probe is None:
             probe = people_probe(people).cpu().numpy()
+        self.applied = None
         x, y, fl = probe[:, 0], probe[:, 1], probe[:, 2]
         pos = probe[:, 3].astype(np.int32)
         act = probe[:, 4].astype(np.int32)
@@ -327,6 +384,9 @@ class MergedBuildingPeople:
             self.m_plen[idx] = plen
             eact_full[idx] = eact
             edur_full[idx] = edur
+        self.counts["rerouted"] += int(need.sum())
+        self.applied = (need.copy(), self.m_px.copy(), self.m_py.copy(), self.m_pf.copy(),
+                        self.m_pe.copy(), self.m_plen.copy(), eact_full, edur_full)
         # one masked device update from the full mirrors (uploads only)
         dev = people.x.device
         t = lambda a: torch.as_tensor(a, device=dev)

@@ -17,7 +17,10 @@ WMODE_INF_TERRAIN: `TiledWorld` streams tiles (`terrain/tiles`), at most
 `tile_budget` new tiles a chunk where it is set, and advances one fused
 city state (`city/city_step`) K frames a chunk, with the host's
 building-people reroute once per chunk; `make_tiled_world` assembles it.
-A chunk runs in the span `frame`.
+A chunk runs in the span `frame`; its chained city frames in `city`
+(CUDA events on a card; replayed as CUDA graphs once the chunk's shape
+repeats, `city_step.FRAMES`), the people probe's fetch in
+`sync.people_probe` and the reroute in `city.reroute`.
 
 WMODE_UNIVERSE: `UniverseWorld` pages the universe's cells around the
 player (`universe/gen`), steers the player ship, and advances the fleet K
@@ -158,6 +161,9 @@ class TiledWorld:
     # tiled_mesh.cpp:2314-2316): the batch is adopted on the next chunk;
     # None creates every missing tile at once
     tile_budget: int | None = None
+    # city frames run and people probes fetched (host counts, beside
+    # `TileManager.counts`; the people rerouted are `bldg.counts`)
+    counts: dict = field(default_factory=lambda: {"city_frames": 0, "probe_fetches": 0})
 
     def step_chunk(self, cam_x: float, cam_y: float, frames: int | None = None):
         """Advance K frames: tiles + one chained city call + the per-chunk
@@ -170,15 +176,21 @@ class TiledWorld:
                 cam_x, cam_y, max_tiles_per_frame=self.tile_budget)
             if self.city is not None:
                 d = self.draws.city(self.frame, k, self)
-                self.city = CS.city_frames_chained(
-                    self.city, self.road_graph, self.ped_nav, self.pads,
-                    self.perches, k, d, rail=self.rail)
+                with span("city", device=self.city.peds.x.is_cuda):
+                    self.city = CS.city_frames_chained(
+                        self.city, self.road_graph, self.ped_nav, self.pads,
+                        self.perches, k, d, rail=self.rail)
+                self.counts["city_frames"] += k
                 if self.bldg is not None and self.city.people is not None:
                     # single packed fetch; reroute decisions + display stats
                     # both come from it
-                    self.last_probe = CS.people_probe(self.city.people).cpu().numpy()
-                    self.city = self.city._replace(
-                        people=self.bldg.reroute(self.city.people, probe=self.last_probe))
+                    probe = CS.people_probe(self.city.people)
+                    with span("sync.people_probe"):
+                        self.last_probe = probe.cpu().numpy()
+                    self.counts["probe_fetches"] += 1
+                    with span("city.reroute"):
+                        self.city = self.city._replace(
+                            people=self.bldg.reroute(self.city.people, probe=self.last_probe))
         self.frame += k
         return created, deleted
 
