@@ -271,7 +271,11 @@ Phases, each fatal on failure (no phase hides an error):
    reduction); the substep glue's six kernels bitwise against their plain
    phases on the dense pile, dry, under a water map and on ice, each fed
    the plain phase before it (`respond` also with the pair pass's inputs),
-   timed on the dry pile.  Times in turns (plain, kernel, kernel, plain,
+   timed on the dry pile; the pedestrians' separation on the walk's
+   crowd (`kernel_probe.walk_crowd`: 10,000 pedestrians of the walk's 8
+   cities after 2,048 frames), bit for bit its plain twin on every row
+   with at most two neighbours within the radius and within 1e-6
+   elsewhere.  Times in turns (plain, kernel, kernel, plain,
    ...): the kernel device-only, a CUDA graph of 20 launches replayed
    between CUDA events; the plain version, CUDA events around
    back-to-back calls.  Beside each, its bound: the larger of the bytes
@@ -339,6 +343,8 @@ TOLS = {"erosion": "bitwise equal to the plain version and across two runs",
 GLUE = ("advance", "contact", "respond", "apply_pairs", "take_rows", "age_objects")
 TOLS.update(dict.fromkeys(GLUE, "bitwise equal to the plain phase, dry, in water "
                                 "and on ice"))
+TOLS["separation"] = ("bitwise equal to the plain version on rows with at most two "
+                      "neighbours, 1e-6 elsewhere (torch.sum's order)")
 
 
 SCENE_FRAMES = 64
@@ -3434,6 +3440,7 @@ def main() -> int:
 
     from w3d_torch import convert
     from w3d_torch import entry as EN
+    from w3d_torch.city import traffic as CT
     from w3d_torch.models import terrain_model as TMOD
     from w3d_torch.models import physics_model as PM
     from w3d_torch.ops import erosion as E
@@ -3446,6 +3453,7 @@ def main() -> int:
     from w3d_torch.ops.cuda import pairs_kernel as PK
     from w3d_torch.ops.cuda import physics_kernel as GK
     from w3d_torch.ops.cuda import sample_kernel as SK
+    from w3d_torch.ops.cuda import separation_kernel as SEPK
     from w3d_torch.ops.cuda import stencil_kernel as FK
     from w3d_torch.physics import cobjs as PC
     from w3d_torch.physics import fused as PF
@@ -3479,7 +3487,8 @@ def main() -> int:
 
     kernels = {"erosion": EK.KERNEL, "sample": SK.KERNEL,
                "narrow": NK.KERNEL, "pairs": PK.KERNEL, "substep": GK.KERNEL,
-               "tile_noise": NZK.KERNEL, "diffuse_smoke": FK.KERNEL, **GL.BY_NAME}
+               "tile_noise": NZK.KERNEL, "diffuse_smoke": FK.KERNEL, **GL.BY_NAME,
+               "separation": SEPK.KERNEL}
     world = WorldConst()
     gen = torch.Generator(device=dev).manual_seed(1234)
 
@@ -4233,6 +4242,35 @@ def main() -> int:
     log(f"respond with the pair pass's inputs: device-only "
         f"{report['respond']['pairs']['ms']:.4f} ms, bound {b[0]:.5f} ms")
 
+    # the pedestrians' separation on the walk's crowd, against its plain
+    # twin on the same card tensors; timed in turns with it
+    peds = KP.walk_crowd(dev)[0]
+    sep_in = (peds.x, peds.y, KP.SEP_RADIUS, CT.PedPeers(peds.x, peds.y))
+    out = SEPK.separation(*sep_in)
+    ref = CT.separation_plain(*sep_in)
+    ex = peds.x[:, None] - peds.x[None, :]
+    ey = peds.y[:, None] - peds.y[None, :]
+    near = ((ex * ex + ey * ey < KP.SEP_RADIUS ** 2).sum(1) - 1)
+    del ex, ey
+    few = near <= 2
+    sep_off = sum(int((a != b)[few].sum()) for a, b in zip(out, ref))
+    dsep = max(float((a - b).abs().max()) for a, b in zip(out, ref))
+    log(f"separation, the walk's crowd ({peds.x.shape[0]} pedestrians): rows with a "
+        f"neighbour {int((near > 0).sum())}, with three or more {int((~few).sum())} "
+        f"(at most {int(near.max())}); elements not bit for bit on rows with at most "
+        f"two {sep_off}; max diff {dsep:.3g}")
+    need(sep_off == 0 and dsep <= 1e-6 and int((near > 0).sum()) > 100,
+         "separation: " + TOLS["separation"] + ", with neighbours")
+    n = peds.x.shape[0]
+    sep_floor = (peds.x[:16].contiguous(), peds.y[:16].contiguous(), KP.SEP_RADIUS,
+                 CT.PedPeers(peds.x[:32].contiguous(), peds.y[:32].contiguous()))
+    add("separation", dsep,
+        in_turns(lambda: CT.separation_plain(*sep_in), lambda: SEPK.separation(*sep_in),
+                 rounds=4, plain_calls=2),
+        KP.separation_bound(n, n),
+        "~25 elementwise and reduce calls over [rows x peers] temporaries",
+        floor=lambda: SEPK.separation(*sep_floor), floor_at="16 rows, 32 peers")
+
     # G: one fused substep at 10K, on the dense pile in the spheres scene,
     # and on random objects (random status, flag bits and params) over a
     # bumpy mesh with water in the spheres and the seven-shape scenes, so
@@ -4411,7 +4449,9 @@ def main() -> int:
             **{k: (k, "w3d_torch/csrc/substep_glue.cu", at) for k, at in zip(GLUE, (
                 *("3dworld_tpu/physics/step.py:731 (_substep, fused by XLA)",) * 4,
                 "3dworld_tpu/physics/step.py:258 (spatial_sort, fused by XLA)",
-                "3dworld_tpu/physics/step.py:1108 (_frame_bookkeeping, fused by XLA)"))}}
+                "3dworld_tpu/physics/step.py:1108 (_frame_bookkeeping, fused by XLA)"))},
+            "separation": ("separation", "w3d_torch/csrc/separation.cu",
+                           "3dworld_tpu/city/traffic.py:473 (_separation, fused by XLA)")}
     for n, r in report.items():
         floor = f", floor {r['floor']:.4f} ms ({r['floor_at']})"
         log(f"{n}: kernel {r['ms']:.4f} ms device-only{floor}, plain "

@@ -11,18 +11,25 @@ ice, are bit for bit eager frames and never alias; a capture that reads
 the card falls back to eager frames; an edit of the scene
 captures anew; the kernels' launch counts (B, C, D and the glue's) rise
 as eager frames' do; a
-profiled replay shows its span and the pair kernel.
+profiled replay shows its span and the pair kernel.  A city frame
+(`city/city_step.FRAMES`) launches the pedestrians' separation kernel
+once, eager, captured or replayed, and `TiledWorld.counts` counts it.
 """
 
+import numpy as np
 import pytest
 import torch
 
+from w3d_torch.city import assemble as CA
+from w3d_torch.city import city_step as CS
 from w3d_torch.models import physics_model as PM
+from w3d_torch.models import world as W
 from w3d_torch.ops.cuda import glue_kernel as GL
 from w3d_torch.ops.cuda import graphs as CG
 from w3d_torch.ops.cuda import narrow_kernel as NK
 from w3d_torch.ops.cuda import pairs_kernel as PK
 from w3d_torch.ops.cuda import sample_kernel as SK
+from w3d_torch.ops.cuda import separation_kernel as SEP
 from w3d_torch.physics import cobjs as PC
 from w3d_torch.physics import graphs as G
 from w3d_torch.physics import types as T
@@ -238,6 +245,29 @@ def test_launch_counts_of_replayed_frames(cuda_device, frames):
         per.append([b - a for a, b in zip(c0, _launches())])
     assert frames.counts["graph_replays"] and per[0] == per[1] == per[2] == per[3] == per[4]
     assert per[0] == [10, 10, 2, 10, 10, 10, 2, 1, 1]
+
+
+class _NoTiles:
+    """A tile manager with nothing to stream: the city frame alone."""
+
+    def update(self, cam_x, cam_y, max_tiles_per_frame=None):
+        return [], []
+
+
+@pytest.mark.gpu
+def test_launch_counts_of_replayed_city_frames(cuda_device):
+    cw = CA.build_city(np.zeros((128, 128), np.float32), num_cities=2, num_cars=64,
+                       num_peds=256, num_helis=4, seed=3, device=cuda_device)
+    w = W.make_tiled_world(_NoTiles(), cw, seed=3, chunk=1, device=cuda_device)
+    before = dict(CS.FRAMES.counts)
+    per = []
+    for frames in (1, 1, 1, 1, 1, 1, 4, 4, 4):
+        c0 = SEP.KERNEL.launches
+        w.step_chunk(0.0, 0.0, frames=frames)
+        per.append(SEP.KERNEL.launches - c0)
+    assert [CS.FRAMES.counts[k] - before[k] for k in
+            ("graph_eager", "graph_captures", "graph_replays", "graph_failed")] == [2, 2, 7, 0]
+    assert per == [1] * 6 + [4] * 3 and w.counts["separation"] == 18
 
 
 @pytest.mark.gpu

@@ -10,8 +10,9 @@ per frame (`next_city_frame`, city_gen.cpp:3801).
 Cars and pedestrians are SoA populations advanced by elementwise state
 machines; road topology is padded arrays (per segment-end: up to 4
 candidate next segments); car headway and pedestrian separation use dense
-masked pair math.  The JAX package reads per-agent table rows with
-one-hot products (`oh @ table`, `einsum("cs,se,ce->c", ...)`), a TPU
+masked pair math (on the card the separation is one CUDA kernel,
+`ops/cuda/separation_kernel`).  The JAX package reads per-agent table rows
+with one-hot products (`oh @ table`, `einsum("cs,se,ce->c", ...)`), a TPU
 layout workaround; here they are indexed gathers, which give the same
 values (a one-hot product of finite float32 values is exact).  No step
 scatters or adds floats atomically, so a step gives the same bits on
@@ -31,6 +32,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..ops.cuda import separation_kernel as SEP
 from ..utils import rng as w3d_rng
 from ..utils.rng import RandGen
 from .roads import RoadNetwork
@@ -523,9 +525,16 @@ class PedPeers(NamedTuple):
 def _separation(x, y, sep_radius, peers: PedPeers | None = None):
     """Unit push away from the neighbours within `sep_radius`: a row per
     pedestrian of (x, y), a column per pedestrian of `peers` (default the
-    same ones), each row summed over all columns."""
+    same ones), each row summed over all columns.  `separation_plain` on
+    CPU tensors, the CUDA kernel on the card (`ops/cuda/separation_kernel`)."""
     if peers is None:
         peers = PedPeers(x, y)
+    return SEP.separation(x, y, sep_radius, peers)
+
+
+def separation_plain(x, y, sep_radius, peers: PedPeers):
+    """`_separation` in plain PyTorch: [rows x peers] offsets, masks and
+    weights, summed along each row."""
     ex = x[:, None] - peers.x[None, :]
     ey = y[:, None] - peers.y[None, :]
     d2 = ex * ex + ey * ey

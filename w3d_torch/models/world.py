@@ -36,6 +36,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ..ops.cuda import separation_kernel as SEP
 from ..utils.constants import WorldConst
 from ..utils.profiler import span
 from ..physics import step as PS
@@ -161,9 +162,11 @@ class TiledWorld:
     # tiled_mesh.cpp:2314-2316): the batch is adopted on the next chunk;
     # None creates every missing tile at once
     tile_budget: int | None = None
-    # city frames run and people probes fetched (host counts, beside
-    # `TileManager.counts`; the people rerouted are `bldg.counts`)
-    counts: dict = field(default_factory=lambda: {"city_frames": 0, "probe_fetches": 0})
+    # city frames run, people probes fetched and the separation kernel's
+    # launches in them (host counts, beside `TileManager.counts`; the
+    # people rerouted are `bldg.counts`)
+    counts: dict = field(default_factory=lambda: {"city_frames": 0, "probe_fetches": 0,
+                                                  "separation": 0})
 
     def step_chunk(self, cam_x: float, cam_y: float, frames: int | None = None):
         """Advance K frames: tiles + one chained city call + the per-chunk
@@ -176,11 +179,13 @@ class TiledWorld:
                 cam_x, cam_y, max_tiles_per_frame=self.tile_budget)
             if self.city is not None:
                 d = self.draws.city(self.frame, k, self)
+                sep0 = SEP.KERNEL.launches
                 with span("city", device=self.city.peds.x.is_cuda):
                     self.city = CS.city_frames_chained(
                         self.city, self.road_graph, self.ped_nav, self.pads,
                         self.perches, k, d, rail=self.rail)
                 self.counts["city_frames"] += k
+                self.counts["separation"] += SEP.KERNEL.launches - sep0
                 if self.bldg is not None and self.city.people is not None:
                     # single packed fetch; reroute decisions + display stats
                     # both come from it

@@ -715,6 +715,61 @@ def pairs_bound(n: int, valid: int, hits: int) -> tuple[float, str]:
     return bound_ms(nbytes, PAIR_TEST_OPS * valid + PAIR_HIT_OPS * hits)
 
 
+# ---- the walk's pedestrians (tiled_city_128) --------------------------------
+
+WALK_MAP, WALK_CITIES, WALK_CITY_SIZE, WALK_PEDS = 512, 8, 64, 10000
+SEP_RADIUS = 0.15               # step_peds' separation radius
+SEP_TEST_OPS = 7                # a pair test: two offsets, two squares, an add, two compares
+
+
+def separation_bound(rows: int, n: int) -> tuple[float, str]:
+    """The separation of `rows` pedestrians against `n` peers: their x, y
+    read and the push written, a test per pair."""
+    return bound_ms(16 * rows + 8 * n, SEP_TEST_OPS * rows * n)
+
+
+def ped_draws(n: int, gen: torch.Generator):
+    """One pedestrian frame's draws (`traffic.PedDraws`) from `gen`."""
+    from w3d_torch.city import traffic as CT
+    u = torch.rand((3, n), generator=gen, device=gen.device)
+    side = torch.randint(0, 4, (n,), generator=gen, device=gen.device, dtype=torch.int32)
+    return CT.PedDraws(u[0], side, u[1], u[2])
+
+
+def walk_crowd(dev, frames: int = 2048, seed: int = 1, num_peds: int = WALK_PEDS):
+    """The walk's crowd: `tiled_city_128`'s 8 cities of 64 cells on a flat
+    512^2 map, `num_peds` pedestrians walked `frames` frames by `step_peds`
+    with plot navigation and stoplights, so that some wait together at
+    the crosswalks.  Returns (peds, nav, stoplights, the draws' generator)."""
+    from w3d_torch.city import plots as CP
+    from w3d_torch.city import roads as CR
+    from w3d_torch.city import traffic as CT
+    _hm, plots = CP.gen_cities(np.zeros((WALK_MAP, WALK_MAP), np.float32), -0.5,
+                               num_cities=WALK_CITIES, city_size=WALK_CITY_SIZE, seed=seed)
+    net = CR.gen_city_roads(plots)
+    nav = CT.build_ped_nav(net, device=dev)
+    sl = CT.build_stoplights(net, seed=seed, device=dev)
+    peds = CT.make_peds(num_peds, net.blocks, seed=seed + 1, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for _ in range(frames):
+        sl = CT.step_stoplights(sl)
+        peds = CT.step_peds(peds, ped_draws(num_peds, gen), nav=nav, stoplights=sl)
+    return peds, nav, sl, gen
+
+
+def packed_crowd(peds, nav, count: int = 400, seed: int = 2):
+    """(x, y) of `peds` with `count` of them packed into a 0.5 x 0.3
+    rectangle at a crosswalk's curb: ~150 neighbours each within 0.15."""
+    g = torch.Generator(device=peds.x.device).manual_seed(seed)
+    u = torch.rand((2, count), generator=g, device=peds.x.device)
+    at = int(torch.nonzero(nav.adj.flatten() >= 0)[0])      # the first real crossing
+    cx, cy = nav.cross_x.flatten()[at], nav.cross_y.flatten()[at]
+    x, y = peds.x.clone(), peds.y.clone()
+    x[:count] = cx + (u[0] - 0.5) * 0.5
+    y[:count] = cy + (u[1] - 0.5) * 0.3
+    return x, y
+
+
 # ---- probes ----------------------------------------------------------------
 
 def _ptxas_and_sass() -> None:
