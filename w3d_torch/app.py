@@ -50,11 +50,16 @@ def run_ground(config: str, frames: int, num_objects: int, chain: int = 32,
     per-frame path (models.world.ground_frame).  The player walks a small
     circle through the scene, on the per-frame path over the default
     world's grid, as the JAX app's does.  `game` runs FPS game mode
-    (`_run_ground_game`, with `draws`).  Returns the stepped scene."""
+    (`_run_ground_game`, with `draws`).  A config with `num_light_rays`
+    bakes its lighting first (`scene.bake`).  Returns the stepped scene."""
     from .scene.loader import load_scene
     from .models.world import ground_frame, ground_frames_chained
     from .gameplay import player as PL
     scene = load_scene(config, num_objects=num_objects, device=device)
+    if scene.bake is not None:
+        # the load-time lighting bake, before the first frame; the bake
+        # keeps its rays and seconds (`counts`, `seconds`)
+        scene.light_grid = scene.bake.run()
     ply = PL.make_player(0.0, 0.0, 1.0, device=device)
     if game:
         return _run_ground_game(scene, ply, frames, num_smileys, draws=draws)

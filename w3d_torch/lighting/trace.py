@@ -28,13 +28,28 @@ negation (the platform delta of `accum` cancels to zero).
 
 The JAX `lax.scan`s over bounces and batches are Python loops with the
 same key schedule.  Compaction's slot counts follow the static schedule
-N >> (b+1+shift) (at least 1,024), so no count is read on the host.
+N >> (b+1+shift) (at least 1,024; `bounce_slots`), so no count is read
+on the host.
+
+A batch is a list of phases (`batch_phases`), each bounce three, in the
+spans (`utils/profiler.span`, CUDA events on a card) `light.intersect`
+(the cobj and heightfield tests, the hit selection, the water crossing),
+`light.deposit` (the segments' cell sums; once a batch the sums'
+addition to the grid's channels) and `light.scatter` (the surface
+interaction with the transmitted chord's deposit, the new directions, the
+compaction).  Its draws are made first (`_trace_draws`, in the order the
+bounces use them).  On a card every batch goes through `BATCHES`
+(`ops/cuda/graphs`): a key seen twice in a row captures one CUDA graph a
+phase, and later batches replay them, bit for bit the eager batch; a
+batch is some 4,600 small launches, which the host's dispatch would
+otherwise pace.
 """
 
 from __future__ import annotations
 
 import hashlib
-from typing import NamedTuple
+from functools import partial
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -42,6 +57,7 @@ import torch
 from ..utils.constants import WorldConst, DEFAULT_WORLD
 from ..physics.cobjs import CobjSet
 from ..ops import ray as R
+from ..ops.cuda import graphs as CG
 from ..ops.cuda import sample_kernel as SK
 from ..ops.fmath import cos32, div32, exp32, sin32, sqrt32
 from . import lmap as L
@@ -71,6 +87,7 @@ LAYER_COLORS = ((0.76, 0.70, 0.50),   # sand
 SKY_STREAM = 0x5C1        # the drivers' stream tags (the JAX package's
 LOCAL_STREAM = 0x10CA1    # w3d_rng.key(seed, tag, i) tags)
 SCENE_STREAM = 0x5CE7E
+GLOBAL_STREAM = 0x610BA1  # the port's own: the JAX package traces no sun part
 
 
 class TraceParams(NamedTuple):
@@ -273,16 +290,52 @@ def _weight_sums(grid, ox, oy, oz, dx, dy, dz, t_hit, w, S, world):
 # the bounce loop
 # ---------------------------------------------------------------------------
 
-def _bounce(st: dict, bd: BounceDraws, grid, ltype, cobjs, mesh, params: TraceParams,
-            world, land_color, snow_depth, S: int, w_only: bool) -> dict:
-    ox, oy, oz = st["ox"], st["oy"], st["oz"]
-    dx, dy, dz = st["dx"], st["dy"], st["dz"]
+def _intersect_phase(b: dict, params: TraceParams, cobjs, mesh, world) -> None:
+    """`light.intersect`: the nearest hit of each ray of the state `st`."""
+    st = b["st"]
+    b["near"] = _nearest_hit(st["ox"], st["oy"], st["oz"], st["dx"], st["dy"], st["dz"],
+                             cobjs, mesh, params, world)
+
+
+def _deposit_phase(b: dict, shape, ltype, S: int, w_only: bool, world) -> None:
+    """`light.deposit`: the lit segments' cell sums, added to the batch's
+    private sums (weights alone where `w_only`)."""
+    st, near = b["st"], b["near"]
+    grid = _Geo(shape, b["z0"], b["dz"])
+    contrib = st["alive"] & near["hit"]   # un-hit rays deposit nothing (ray_trace.cpp:341)
+    wc = st["w"] * contrib.to(torch.float32)
+    seg = (grid, st["ox"], st["oy"], st["oz"], st["dx"], st["dy"], st["dz"], near["t"])
+    if w_only:
+        st["wsum"] = st["wsum"] + _weight_sums(*seg, wc, S, world)
+    else:
+        st["sums"] = st["sums"] + _segment_sums(grid, ltype, *seg[1:], wc, st["r"], st["g"],
+                                                st["b"], S, world)
+    near["contrib"] = contrib
+
+
+def _scatter_phase(b: dict, bounce: int, shape, ltype, S: int, params: TraceParams, cobjs,
+                   mesh, world, land_color, snow_depth) -> None:
+    """`light.scatter`: the surface interaction and the new directions."""
+    grid = _Geo(shape, b["z0"], b["dz"])
+    b["st"] = _scatter(b["st"], b[f"bounce{bounce}"], grid, ltype, cobjs, mesh, params, world,
+                       land_color, snow_depth, S, **b.pop("near"))
+
+
+def _compact_phase(b: dict, bounce: int, keep: int) -> None:
+    """`light.scatter`: the compaction after the bounce."""
+    b["st"] = _compact_rays(b["st"], b[f"compact{bounce}"], keep)
+
+
+def _nearest_hit(ox, oy, oz, dx, dy, dz, cobjs, mesh, params: TraceParams, world) -> dict:
+    """Each ray's nearest hit, cobj or mesh, and its crossing of the water
+    plane: `hit`, `t` (`line_length` where nothing is hit), `use_mesh`,
+    the cobj's normal (`cnx`, `cny`, `cnz`), slot (`cidx`) and exit
+    (`ct_exit`), `ice_coll` and `water_coll`."""
     N = ox.shape[0]
     dev = ox.device
     LL = params.line_length
     frozen = params.temperature <= W_FREEZE_POINT
     water_on = params.water_plane_z > -1.0e8
-    w_init = st["w0"]
     tmax = torch.full((N,), LL, dtype=torch.float32, device=dev)
     present = params.cobj_types or None
     if params.transmission:
@@ -316,14 +369,23 @@ def _bounce(st: dict, bd: BounceDraws, grid, ltype, cobjs, mesh, params: TracePa
             ice_coll = crossed
         else:
             water_coll = crossed
+    return dict(hit=hit, t=t, use_mesh=use_mesh, cnx=cnx, cny=cny, cnz=cnz, cidx=cidx,
+                ct_exit=ct_exit, ice_coll=ice_coll, water_coll=water_coll)
 
-    contrib = st["alive"] & hit    # un-hit rays deposit nothing (ray_trace.cpp:341)
-    wc = st["w"] * contrib.to(torch.float32)
-    if w_only:
-        st["wsum"] = st["wsum"] + _weight_sums(grid, ox, oy, oz, dx, dy, dz, t, wc, S, world)
-    else:
-        st["sums"] = st["sums"] + _segment_sums(grid, ltype, ox, oy, oz, dx, dy, dz, t, wc,
-                                                st["r"], st["g"], st["b"], S, world)
+
+def _scatter(st: dict, bd: BounceDraws, grid, ltype, cobjs, mesh, params: TraceParams,
+             world, land_color, snow_depth, S: int, contrib, hit, t, use_mesh, cnx, cny,
+             cnz, cidx, ct_exit, ice_coll, water_coll) -> dict:
+    """The surface interaction at each hit and the ray's next segment (the
+    interior chord's deposit, with transmission, included)."""
+    ox, oy, oz = st["ox"], st["oy"], st["oz"]
+    dx, dy, dz = st["dx"], st["dy"], st["dz"]
+    N = ox.shape[0]
+    dev = ox.device
+    water_on = params.water_plane_z > -1.0e8
+    wpz = params.water_plane_z
+    no = torch.zeros(N, dtype=torch.bool, device=dev)
+    w_init = st["w0"]
 
     # hit point + normal (ice: always +z, ray_trace.cpp:301)
     hx = ox + t * dx
@@ -507,42 +569,145 @@ def trace_batch(grid: L.LightGrid, cobjs: CobjSet, mesh: torch.Tensor,
     branch stochastically with importance-compensated weights, after
     depositing the interior chord deterministically."""
     N = ox.shape[0]
-    n_cells = int(np.prod(grid.shape))
-    k = len(L.channels(ltype))
-    st = dict(ox=ox, oy=oy, oz=oz, dx=dx, dy=dy, dz=dz, w=w0, w0=w0, r=cr, g=cg, b=cb,
-              alive=torch.ones(N, dtype=torch.bool, device=ox.device),
-              sums=torch.zeros((n_cells, k), dtype=torch.float32, device=ox.device))
-    step = dict(grid=grid, ltype=ltype, cobjs=cobjs, mesh=mesh, params=params, world=world,
-                land_color=land_color, snow_depth=snow_depth)
-    if not params.compact:
-        for b in range(params.max_bounces):
-            st = _bounce(st, draws.bounce(b, st["ox"].shape[0], params),
-                         S=params.samples_per_segment, w_only=False, **step)
-        return L.add_sums(grid, ltype, st["sums"])
+    chans = L.channels(ltype)
+    b = {"rays": (ox, oy, oz, dx, dy, dz, w0, cr, cg, cb),
+         "lit": tuple(getattr(grid, f) for f in chans), "z0": grid.z0, "dz": grid.dz,
+         **_trace_draws(draws, N, params)}
+    phases = batch_phases(N, ltype, params, tuple(grid.shape), cobjs, mesh, world,
+                          land_color, snow_depth)
+    (lit,) = BATCHES.run(batch_key(b, ltype, params, cobjs, mesh, world, land_color,
+                                   snow_depth),
+                         phases, b, ("lit",), refs=(cobjs, mesh, land_color, snow_depth))
+    return grid._replace(**dict(zip(chans, lit)))
 
-    # population control: after each bounce the ray array shrinks on a
-    # fixed schedule; when more rays are alive than slots, a random subset
-    # survives with weight x (n_alive / kept) — Russian-roulette
-    # population control, unbiased in expectation.  w0 scales with w, so
-    # the relative termination threshold is unchanged.
-    if params.uniform_color0:
-        st["wsum"] = torch.zeros(n_cells, dtype=torch.float32, device=ox.device)
-    s_later = params.samples_later or params.samples_per_segment
+
+class _Geo(NamedTuple):
+    """The light grid's geometry, all the deposit reads of it."""
+
+    shape: tuple
+    z0: torch.Tensor
+    dz: torch.Tensor
+
+
+def _trace_draws(draws: TraceDraws, n: int, params: TraceParams) -> dict:
+    """A batch's trace draws, made in the order the bounces use them: each
+    bounce's (`bounce<b>`) and each compaction's keys (`compact<b>`), on
+    the static schedule of `n` rays."""
+    out = {}
+    for b, (slots, keep) in enumerate(compact_schedule(n, params)):
+        out[f"bounce{b}"] = draws.bounce(b, slots, params)
+        if keep < slots:
+            out[f"compact{b}"] = draws.compact(b, slots)
+    return out
+
+
+def batch_phases(n: int, ltype: int, params: TraceParams, shape: tuple, cobjs, mesh,
+                 world: WorldConst, land_color=None, snow_depth=None) -> list:
+    """`trace_batch`'s program as `ops/cuda/graphs` phases over a dict of
+    its rays (`rays`), the grid's channels of `ltype` (`lit`), `z0` and
+    `dz`, and its draws (`_trace_draws`): per bounce `light.intersect`,
+    `light.deposit`, `light.scatter`, each compaction a `light.scatter`,
+    and last a `light.deposit` that adds the batch's per-cell sums to the
+    channels, the new ones under `lit` (`lmap.add_sums`' additions).
+
+    Population control: after each bounce the ray array shrinks on a
+    fixed schedule; when more rays are alive than slots, a random subset
+    survives with weight x (n_alive / kept) — Russian-roulette population
+    control, unbiased in expectation.  w0 scales with w, so the relative
+    termination threshold is unchanged.  With `uniform_color0` bounce 0
+    sums weights alone, and its colour channels are recovered at the end
+    (every planned batch has one colour)."""
+    n_cells = int(np.prod(shape))
+    k = len(L.channels(ltype))
+    weights0 = params.compact and params.uniform_color0
+
+    def start(b):
+        ox, oy, oz, dx, dy, dz, w0, cr, cg, cb = b["rays"]
+        dev = ox.device
+        b["st"] = dict(ox=ox, oy=oy, oz=oz, dx=dx, dy=dy, dz=dz, w=w0, w0=w0, r=cr, g=cg,
+                       b=cb, alive=torch.ones(n, dtype=torch.bool, device=dev),
+                       sums=torch.zeros((n_cells, k), dtype=torch.float32, device=dev))
+        if weights0:
+            b["st"]["wsum"] = torch.zeros(n_cells, dtype=torch.float32, device=dev)
+
+    def finish(b):
+        sums = b["st"]["sums"]
+        if weights0:
+            # recover bounce 0's color channels: color x (weight sum)
+            ws = b["st"]["wsum"]
+            _, _, _, _, _, _, _, cr, cg, cb = b["rays"]
+            cols = [cr[0] * ws, cg[0] * ws, cb[0] * ws] + ([ws] if k == 4 else [])
+            sums = sums + torch.stack(cols, 1)
+        b["lit"] = tuple(ch + sums[:, c].reshape(shape) for c, ch in enumerate(b["lit"]))
+
+    phases = [(None, start)]
+    for bn, (slots, keep) in enumerate(compact_schedule(n, params)):
+        S = segment_samples(bn, params)
+        phases += [
+            ("light.intersect", partial(_intersect_phase, params=params, cobjs=cobjs,
+                                        mesh=mesh, world=world)),
+            ("light.deposit", partial(_deposit_phase, shape=shape, ltype=ltype, S=S,
+                                      w_only=weights0 and bn == 0, world=world)),
+            ("light.scatter", partial(_scatter_phase, bounce=bn, shape=shape, ltype=ltype,
+                                      S=S, params=params, cobjs=cobjs, mesh=mesh, world=world,
+                                      land_color=land_color, snow_depth=snow_depth))]
+        if keep < slots:
+            phases.append(("light.scatter", partial(_compact_phase, bounce=bn, keep=keep)))
+    phases.append(("light.deposit", finish))
+    return phases
+
+
+def batch_key(b: dict, ltype: int, params: TraceParams, cobjs, mesh, world: WorldConst,
+              land_color=None, snow_depth=None) -> tuple | None:
+    """Everything a capture of a batch bakes in, hashable: the device, the
+    inputs' shapes and dtypes, the lighting type, the params and world,
+    and the scene (cobjs, mesh, land colour, snow) by identity and by its
+    tensors' `_version`s; None off a card, where a batch never captures."""
+    dev = b["rays"][0].device
+    if dev.type != "cuda":
+        return None
+    shapes = tuple((k, tuple(None if t is None else (tuple(t.shape), t.dtype)
+                             for t in ((v,) if isinstance(v, torch.Tensor) else v)))
+                   for k, v in b.items())
+    return (dev, shapes, ltype, params, world) + tuple(
+        CG.tensors_key(x) for x in (cobjs, mesh, land_color, snow_depth))
+
+
+BATCHES = CG.GraphCache("light")
+
+
+def segment_samples(b: int, params: TraceParams) -> int:
+    """The samples a segment of bounce `b` deposits."""
+    if params.compact and b > 0 and params.samples_later:
+        return params.samples_later
+    return params.samples_per_segment
+
+
+def compact_slots(n: int, b: int, slots: int, params: TraceParams) -> int:
+    """The slot count the compaction after bounce `b` aims at, for a batch
+    of `n` rays now in `slots` slots (it shrinks only when that is fewer):
+    n >> (b + 1 + shift), the shift capped at 4 more halvings, at least
+    1,024."""
     sh = params.compact_shift
+    return max(min(n >> min(b + 1 + sh, 4 + sh), slots), 1024)
+
+
+def compact_schedule(n: int, params: TraceParams) -> list:
+    """(slots, kept) for each bounce of a batch of `n` rays: the slots it
+    traces and the slots the compaction after it keeps (fewer: it runs).
+    The static schedule `trace_batch` follows, so a caller counts the work
+    without a read of the device."""
+    out, slots = [], n
     for b in range(params.max_bounces):
-        st = _bounce(st, draws.bounce(b, st["ox"].shape[0], params),
-                     S=params.samples_per_segment if b == 0 else s_later,
-                     w_only=params.uniform_color0 and b == 0, **step)
-        n_next = max(min(N >> min(b + 1 + sh, 4 + sh), st["ox"].shape[0]), 1024)
-        if n_next < st["ox"].shape[0]:
-            st = _compact_rays(st, draws.compact(b, st["ox"].shape[0]), n_next)
-    sums = st["sums"]
-    if params.uniform_color0:
-        # recover bounce 0's color channels: color x (weight sum)
-        ws = st["wsum"]
-        cols = [cr[0] * ws, cg[0] * ws, cb[0] * ws] + ([ws] if k == 4 else [])
-        sums = sums + torch.stack(cols, 1)
-    return L.add_sums(grid, ltype, sums)
+        keep = compact_slots(n, b, slots, params) if params.compact else slots
+        out.append((slots, keep))
+        slots = min(slots, keep)
+    return out
+
+
+def bounce_slots(n: int, params: TraceParams) -> list:
+    """Each bounce's slot count for a batch of `n` rays (`compact_schedule`)."""
+    return [slots for slots, _ in compact_schedule(n, params)]
 
 
 # ---------------------------------------------------------------------------
@@ -611,7 +776,8 @@ def local_rays(draws: TraceDraws, n: int, light_pos, light_color, world: WorldCo
             _full(n, c[0], dev), _full(n, c[1], dev), _full(n, c[2], dev))
 
 
-def scene_light_rays(draws: TraceDraws, spec, n: int, world: WorldConst):
+def scene_light_rays(draws: TraceDraws, spec, n: int, world: WorldConst,
+                     total: int | None = None, first: int = 0):
     """Rays for one scene-DSL LightSpec ('L'/'V'/'U' commands) —
     ray_trace_local_light_source equivalent (ray_trace.cpp:889-981):
     point / line / spot / cube lights.
@@ -619,12 +785,15 @@ def scene_light_rays(draws: TraceDraws, spec, n: int, world: WorldConst):
     ray weight = 1000 * alpha * radius / N (ray_trace.cpp:897);
     spotlights modulate per-ray weight by get_dir_intensity
     (light_source.cpp:86-92); line lights space origins along the
-    segment; r_inner offsets the origin along a random direction."""
+    segment; r_inner offsets the origin along a random direction.  A light
+    traced in several batches gives N as `total` and each batch's rays
+    their place `first` among them."""
     dev = draws.device
     cr, cg, cb = spec.color[0], spec.color[1], spec.color[2]
     alpha = spec.color[3] if len(spec.color) > 3 else 1.0
     radius = max(spec.size, 1e-3)
-    ray_wt = 1000.0 * alpha * radius / n
+    total = total or n
+    ray_wt = 1000.0 * alpha * radius / total
     vx, vy, vz, vl = _unit_normals(draws, 8, 0, n)
     dx, dy, dz = vx / vl, vy / vl, vz / vl
     f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)
@@ -650,7 +819,8 @@ def scene_light_rays(draws: TraceDraws, spec, n: int, world: WorldConst):
         p0 = f32(spec.pos)
         ox_, oy_, oz_ = (p0[a].expand(n) for a in range(3))
         if getattr(spec, "is_line", False):
-            fr = torch.arange(n, dtype=torch.float32, device=dev) / max(n - 1, 1)
+            fr = (torch.arange(first, first + n, dtype=torch.float32, device=dev)
+                  / max(total - 1, 1))
             p1 = f32(spec.pos2)
             ox_, oy_, oz_ = (p0[a] + fr * (p1[a] - p0[a]) for a in range(3))
         if spec.r_inner > 0.0:
@@ -719,33 +889,114 @@ def _auto_gates(params: TraceParams, cobjs, snow_depth=None) -> TraceParams:
 
 
 # ---------------------------------------------------------------------------
-# drivers
+# bakes: each plans its batches, `trace_batches` traces them
 # ---------------------------------------------------------------------------
+
+class RayBatch(NamedTuple):
+    """One batch of a bake: its lighting type, its ray count, its draw
+    stream after the seed (the ray draws (*stream, 1, *tail), the trace
+    draws (*stream, 2, *tail)) and `rays`, which makes its rays from its
+    ray draws."""
+
+    ltype: int
+    n: int
+    stream: tuple
+    tail: tuple
+    rays: Callable
+
+
+def _split(total: int, batch: int | None) -> list:
+    """(first ray, rays) of each batch of at most `batch` rays."""
+    batch = batch or max(total, 1)
+    return [(i, min(batch, total - i)) for i in range(0, total, batch)]
+
+
+def sky_batches(num_rays: int, batch: int, world: WorldConst = DEFAULT_WORLD) -> list:
+    """The sky part: batch i draws from (SKY_STREAM, i); every ray weighs
+    1, whatever its batch's size (a partial final batch must not
+    over-weight its rays)."""
+    return [RayBatch(L.LIGHTING_SKY, n, (SKY_STREAM, i), (),
+                     partial(sky_rays, n=n, world=world, ray_weight=float(n)))
+            for i, (_, n) in enumerate(_split(num_rays, batch))]
+
+
+def global_batches(num_rays: int, batch: int, sun_dir,
+                   world: WorldConst = DEFAULT_WORLD) -> list:
+    """The sun's part: batch i draws from (GLOBAL_STREAM, i); every ray
+    weighs 1."""
+    return [RayBatch(L.LIGHTING_GLOBAL, n, (GLOBAL_STREAM, i), (),
+                     partial(global_rays, n=n, sun_dir=sun_dir, world=world,
+                             ray_weight=float(n)))
+            for i, (_, n) in enumerate(_split(num_rays, batch))]
+
+
+def local_batches(lights, rays_per_light: int, world: WorldConst = DEFAULT_WORLD) -> list:
+    """One batch a (pos, color) point light, drawing from (LOCAL_STREAM,
+    light); every ray weighs 1."""
+    return [RayBatch(L.LIGHTING_LOCAL, rays_per_light, (LOCAL_STREAM, li), (),
+                     partial(local_rays, n=rays_per_light, light_pos=pos, light_color=color,
+                             world=world, ray_weight=float(rays_per_light)))
+            for li, (pos, color) in enumerate(lights)]
+
+
+def scene_light_batches(light_specs, rays_per_light: int, world: WorldConst = DEFAULT_WORLD,
+                        batch: int | None = None) -> list:
+    """The scene-DSL lights' part: light i (its place in `light_specs`)
+    traces its `num_dlight_rays`, else `rays_per_light`, in batches of at
+    most `batch` (one batch by default); its batch j draws from
+    (SCENE_STREAM, i) with j after the 1 | 2 where j > 0.  Ambient lights
+    tint the base lmap and are not traced."""
+    out = []
+    for li, spec in enumerate(light_specs):
+        if getattr(spec, "kind", "diffuse") == "ambient":
+            continue
+        total = spec.num_dlight_rays or rays_per_light
+        out += [RayBatch(L.LIGHTING_LOCAL, n, (SCENE_STREAM, li), (j,) if j else (),
+                         partial(scene_light_rays, spec=spec, n=n, world=world, total=total,
+                                 first=first))
+                for j, (first, n) in enumerate(_split(total, batch))]
+    return out
+
+
+def gated_params(params: TraceParams, cobjs, snow_depth=None) -> dict:
+    """Each lighting type's parameters: the scene's static gates
+    (`_auto_gates`, read once), and for the sky a compaction shift of at
+    least 1, since sky-dome populations collapse fast (most rays escape
+    upward)."""
+    gated = _auto_gates(params, cobjs, snow_depth)
+    sky = gated
+    if sky.compact and sky.compact_shift == 0:
+        sky = sky._replace(compact_shift=1)
+    return {L.LIGHTING_SKY: sky, L.LIGHTING_GLOBAL: gated, L.LIGHTING_LOCAL: gated}
+
+
+def trace_batches(grid, cobjs, mesh, batches, seed: int, params: dict,
+                  world: WorldConst = DEFAULT_WORLD, land_color=None, snow_depth=None,
+                  draws: DrawSource | None = None):
+    """Trace planned `batches` in order into `grid`, each with its type's
+    `params` (`gated_params`) and the draws of its stream."""
+    draws = draws or DrawSource(grid.sv.device)
+    for b in batches:
+        rays = b.rays(draws(seed, *b.stream, 1, *b.tail))
+        grid = trace_batch(grid, cobjs, mesh, *rays, draws(seed, *b.stream, 2, *b.tail),
+                           ltype=b.ltype, params=params[b.ltype], world=world,
+                           land_color=land_color, snow_depth=snow_depth)
+    return grid
+
 
 def compute_sky_lighting(grid, cobjs, mesh, num_rays: int, seed: int = 0,
                          params: TraceParams = TraceParams(),
                          world: WorldConst = DEFAULT_WORLD,
                          batch: int = 65536, land_color=None, snow_depth=None,
                          draws: DrawSource | None = None):
-    """compute_ray_trace_lighting(LIGHTING_SKY) equivalent: batched.
-
-    Every ray carries weight 1.0 regardless of batching (a partial final
-    batch must not over-weight its rays).  Returns the RAW accumulated
-    grid — `final_color` consumes it directly and incremental cobj-accum
-    deltas compose linearly on it.  `draws` makes each batch's draws
-    (default: generators on the grid's device)."""
-    draws = draws or DrawSource(grid.sv.device)
-    params = _auto_gates(params, cobjs, snow_depth)
-    if params.compact and params.compact_shift == 0:
-        # sky-dome populations collapse fast (most rays escape upward)
-        params = params._replace(compact_shift=1)
-    nfull, rem = divmod(num_rays, batch)
-    for i, n in [(i, batch) for i in range(nfull)] + ([(nfull, rem)] if rem else []):
-        rays = sky_rays(draws(seed, SKY_STREAM, i, 1), n, world, ray_weight=float(n))
-        grid = trace_batch(grid, cobjs, mesh, *rays, draws(seed, SKY_STREAM, i, 2),
-                           ltype=L.LIGHTING_SKY, params=params, world=world,
-                           land_color=land_color, snow_depth=snow_depth)
-    return grid
+    """compute_ray_trace_lighting(LIGHTING_SKY) equivalent: batched
+    (`sky_batches`).  Returns the RAW accumulated grid — `final_color`
+    consumes it directly and incremental cobj-accum deltas compose
+    linearly on it.  `draws` makes each batch's draws (default: generators
+    on the grid's device)."""
+    return trace_batches(grid, cobjs, mesh, sky_batches(num_rays, batch, world), seed,
+                         gated_params(params, cobjs, snow_depth), world, land_color,
+                         snow_depth, draws)
 
 
 def compute_local_lighting(grid, cobjs, mesh, lights, rays_per_light: int,
@@ -754,15 +1005,9 @@ def compute_local_lighting(grid, cobjs, mesh, lights, rays_per_light: int,
                            land_color=None, snow_depth=None,
                            draws: DrawSource | None = None):
     """LIGHTING_LOCAL: one batch per configured (pos, color) light."""
-    draws = draws or DrawSource(grid.sv.device)
-    params = _auto_gates(params, cobjs, snow_depth)
-    for li, (pos, color) in enumerate(lights):
-        rays = local_rays(draws(seed, LOCAL_STREAM, li, 1), rays_per_light, pos, color,
-                          world, ray_weight=float(rays_per_light))
-        grid = trace_batch(grid, cobjs, mesh, *rays, draws(seed, LOCAL_STREAM, li, 2),
-                           ltype=L.LIGHTING_LOCAL, params=params, world=world,
-                           land_color=land_color, snow_depth=snow_depth)
-    return grid
+    return trace_batches(grid, cobjs, mesh, local_batches(lights, rays_per_light, world), seed,
+                         gated_params(params, cobjs, snow_depth), world, land_color,
+                         snow_depth, draws)
 
 
 def compute_scene_lighting(grid, cobjs, mesh, light_specs, rays_per_light: int,
@@ -770,16 +1015,11 @@ def compute_scene_lighting(grid, cobjs, mesh, light_specs, rays_per_light: int,
                            world: WorldConst = DEFAULT_WORLD,
                            land_color=None, snow_depth=None,
                            draws: DrawSource | None = None):
-    """LIGHTING_LOCAL over the scene-DSL light list (SceneParse.lights +
-    .cube_lights): the path from 'L'/'V'/'U' commands to the volume."""
-    draws = draws or DrawSource(grid.sv.device)
-    params = _auto_gates(params, cobjs, snow_depth)
-    for li, spec in enumerate(light_specs):
-        if getattr(spec, "kind", "diffuse") == "ambient":
-            continue   # ambient lights tint the base lmap, not ray-traced
-        n = spec.num_dlight_rays or rays_per_light
-        rays = scene_light_rays(draws(seed, SCENE_STREAM, li, 1), spec, n, world)
-        grid = trace_batch(grid, cobjs, mesh, *rays, draws(seed, SCENE_STREAM, li, 2),
-                           ltype=L.LIGHTING_LOCAL, params=params, world=world,
-                           land_color=land_color, snow_depth=snow_depth)
-    return grid
+    """LIGHTING_LOCAL over the scene-DSL light list (SceneParse.lights:
+    point, line, spot and cube-shaped `LightSpec`s): the path from
+    'L'/'V'/'U' commands to the volume, one batch a light.  The 'b' cube
+    volumes of SceneParse.cube_lights are not traced."""
+    return trace_batches(grid, cobjs, mesh, scene_light_batches(light_specs, rays_per_light,
+                                                                world),
+                         seed, gated_params(params, cobjs, snow_depth), world, land_color,
+                         snow_depth, draws)

@@ -1,7 +1,8 @@
 """CUDA graphs of the port's hot paths: the one capture, replay and
 launch-count mechanism of the physics frame (`physics/graphs`), the
-tile batch (`terrain/tile_graphs`) and the chained city frames
-(`city/city_step`).
+tile batch (`terrain/tile_graphs`), the chained city frames
+(`city/city_step`) and the lighting tracer's ray batches
+(`lighting/trace`).
 
 A caller's program is a list of phases `(span name or None, fn)`; each
 `fn(b)` reads and adds entries of the dict `b`, which starts as the

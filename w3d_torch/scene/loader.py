@@ -25,6 +25,7 @@ from ..terrain import mesh as TM
 from ..ops import erosion as E
 from ..physics import types as PT, step as PS, cobjs as PC
 from ..physics import platforms as PP
+from ..lighting import bake as LB
 from ..lighting import lmap as LM
 from ..water import ripples as WR
 from . import cobj as SC
@@ -55,6 +56,7 @@ class GroundScene:
     smoke_active: bool = False  # host flag: smoke exists in light_grid
     trees: object = None        # (x, y, z, trunk_r, height) numpy arrays
     scenery: object = None      # veg.scenery.ScenerySet
+    bake: object = None         # lighting.bake.LightBake of `num_light_rays`, or None
     # (smoke_active is set by the code that injects smoke; it gates
     # per-frame diffusion without a device probe)
 
@@ -116,7 +118,9 @@ def _find(name: str, config_path: str, search_dirs) -> str | None:
 def load_scene(config_path: str, num_objects: int = 0, search_dirs: tuple = (),
                device: torch.device | str = "cuda") -> GroundScene:
     """Load a config_*.txt scene end to end onto `device`.  An eroded
-    terrain erodes with `erosion_angles`' draws."""
+    terrain erodes with `erosion_angles`' draws.  A config that sets
+    `num_light_rays` gets the plan of its lighting bake (`bake`), which
+    the app runs before its first frame."""
     cfg = load_config(config_path)
     world = cfg.world_const()
     tcfg = cfg.terrain_config()
@@ -262,6 +266,20 @@ def load_scene(config_path: str, num_objects: int = 0, search_dirs: tuple = (),
         otypes = np.full(n, PT.type_id("BALL"))
     objects = PS.make_state(pos, np.zeros((n, 3), np.float32), otypes, table)
 
+    light_grid = LM.make_light_grid(world, device=device)
+    bake = None
+    if cfg.num_light_rays:
+        # the load-time lighting bake (compute_ray_trace_lighting): the
+        # sun at the config's `sun_rot`, the scene's lights as
+        # compute_scene_lighting traces them, water and temperature as
+        # the scene sets them.  The 'b' cube volumes (`parse.cube_lights`)
+        # light the sky and global channels in 3DWorld; no tracer of the
+        # port models them, and the bake leaves them out.
+        params = LB.PRODUCTION._replace(water_plane_z=wz, temperature=cfg.temperature)
+        bake = LB.LightBake(light_grid, cobjs, terrain.mesh_height, cfg.num_light_rays,
+                            world=world, sun_rot=getattr(cfg, "sun_rot", None),
+                            lights=parse.lights, seed=cfg.rand_seed, params=params)
+
     f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=device)
     env = PS.PhysicsEnv(
         mesh_height=terrain.mesh_height, water_plane_z=f32(wz),
@@ -272,9 +290,9 @@ def load_scene(config_path: str, num_objects: int = 0, search_dirs: tuple = (),
         cfg=cfg, world=world, terrain=terrain, cobjs=cobjs, table=table,
         objects=objects, env=env,
         ripples=WR.make_ripples(world.mesh_y, world.mesh_x, device=device),
-        light_grid=LM.make_light_grid(world, device=device),
+        light_grid=light_grid,
         sphere_mats=sphere_mats,
         mat_first=mat_first,
         parse=parse, platforms=platforms, triggers=triggers,
-        voxel=voxel, trees=trees, scenery=scenery,
+        voxel=voxel, trees=trees, scenery=scenery, bake=bake,
     )
